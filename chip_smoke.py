@@ -11,22 +11,39 @@ to the CPU):
 1. Device facts: the card's name, and its name and power limit from
    ``nvidia-smi``.
 2. Build the CUDA kernels from ``shadowkv_tpu_torch/csrc`` (nvcc, sm_90a).
-3. Kernel A (``sparse_refresh``) against its plain PyTorch version at the
+3. Host-link peak: a 1 GiB pinned-host -> device copy, the yardstick of
+   the bounds of kernels that read host memory.
+4. Kernel A (``sparse_refresh``) against its plain PyTorch version at the
    slice's per-layer shapes: int8 stores with a miss mix of all-hit heads,
    all-miss heads, contiguous runs and partial overlap; one bf16-store case
-   and one glm partial-RoPE case.
-4. Kernel B (causal GQA prefill attention) against its plain version at
+   and one glm partial-RoPE case. Then A with the V store pinned in host
+   memory (``shadow_offload``), held to the same tolerances and timed at
+   that mix and at 40 % missed slots.
+5. Kernel B (causal GQA prefill attention) against its plain version at
    B 1 / S 4104 (ragged tile) and at the main path's shape, B 2 / S 32768,
    H 32 / KV 8, with a per-row tolerance that is shown to reject a skipped
    KV tile; timed at the main path's shape, with SDPA as a yardstick only.
-5. A toy bf16 engine on the card against the same engine on the CPU
-   (plain kernel versions): prefill logits and greedy tokens.
-6. The slice end to end: Llama-3.1-8B shape (32 layers, full width) with
+6. Kernel D (``gather_chunks``) against its plain version at the slice's
+   per-layer shapes (int8 and bf16 stores), with V on the card and pinned
+   in host memory (row E of the TPU kernels); bit-equal; timed, with two
+   ``index_select`` calls as the yardstick.
+7. A toy bf16 engine on the card against the same engine on the CPU
+   (plain kernel versions) for the four decode strategies (fused refresh,
+   XLA-gather, and both over an offloaded V store) and the full baseline:
+   the logits of the
+   prefill and of eight decode steps fed the CPU's greedy tokens, the
+   greedy tokens wherever the CPU's choice is not a near-tie, and the
+   final cached chunk ids.
+8. The slice end to end: Llama-3.1-8B shape (32 layers, full width) with
    synthetic bf16 weights, shadow cache (budget 2048, rank 160, chunk 16,
-   int8 stores), dense prefill through kernel B, fused-refresh decode
-   through kernel A, greedy ``batch_generate``; kernel launch counts are
-   reset just before and asserted just after. Then the full-attention
-   baseline on the same prompt.
+   int8 stores), dense prefill through kernel B, greedy ``batch_generate``;
+   five runs: shadow with the fused refresh (kernel A), shadow with the
+   ring gather (kernel D), shadow_offload with each of the two (A and D
+   reading V from pinned host memory), and the full-attention baseline.
+   Kernel launch counts are reset just before each run and asserted just
+   after; each offload run's tokens and final cached ids equal its HBM
+   twin's, its device cache is at least 1.9 GiB smaller and its host store
+   is the int8 V store's 1.99 GiB.
 
 The line before the card line is a JSON object with every kernel's
 numbers; the last line is ``{"ok": true, "device": {...}}``.
@@ -69,6 +86,29 @@ def time_ms(torch, fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(torch, fn, reps: int, warmup: int = 2) -> float:
+    """Mean device time of ``fn``: the summed durations of the CUDA
+    kernels and copies it runs, from ``torch.profiler`` over ``reps``
+    calls. Unlike ``time_ms`` it leaves out the idle time between launches
+    when the host enqueues more slowly than the card runs, which decides
+    the event time of a kernel of a few microseconds."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    if us <= 0:
+        raise RuntimeError("the profiler recorded no device time")
+    return us / reps / 1e3
+
+
 def device_facts(torch) -> dict:
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -79,6 +119,44 @@ def device_facts(torch) -> dict:
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {name} count {torch.cuda.device_count()}")
     return {"name": name, "smi": smi}
+
+
+def bound(nbytes_dev: float, ops: float, nbytes_host: float = 0.0,
+          link_bytes_per_s: float = 1.0) -> tuple[float, str]:
+    """(least ms, what bounds it): device bytes over the HBM rate, host
+    bytes over the measured link rate, operations over the bf16 peak."""
+    t_bytes = max(nbytes_dev / HBM_BYTES_PER_S,
+                  nbytes_host / link_bytes_per_s) * 1e3
+    t_ops = ops / BF16_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def pinned_copy(torch, t):
+    """A pinned host copy of the CUDA tensor ``t``."""
+    h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    h.copy_(t)
+    return h
+
+
+def host_link_peak(torch) -> float:
+    """Bytes/s of a 1 GiB pinned-host -> device copy."""
+    n = 2**30
+    h = torch.empty(n, dtype=torch.uint8, pin_memory=True)
+    d = torch.empty(n, dtype=torch.uint8, device=DEVICE)
+    ms = time_ms(torch, lambda: d.copy_(h, non_blocking=True), reps=5)
+    rate = n / (ms * 1e-3)
+    log(f"[host link] 1 GiB pinned->device copy {ms:.3f} ms = "
+        f"{rate / 1e9:.2f} GB/s")
+    del h, d
+    return rate
+
+
+def cycle_layers(fn, layers: int):
+    """``fn(layer)`` over layers 0, 1, ... in turn: stacked layers of
+    stores larger than the 50 MB L2 keep each launch's reads cold, as in
+    a decode step."""
+    it = iter(range(10**9))
+    return lambda: fn(next(it) % layers)
 
 
 # ---------------------------------------------------------------------------
@@ -144,6 +222,26 @@ def _refresh_inputs(torch, lay, cfg, batch, layers, quant, gen):
     mc, ms, cnt = compact_misses(asg.slot_ids, asg.stay_mask)
     return dict(u=u, sv=sv, v_full=v, k_buf=k_buf, v_buf=v_buf,
                 u_scale=u_sc, v_scale=v_sc, mc=mc, ms=ms, cnt=cnt)
+
+
+def _miss_fraction_lists(torch, lay, batch, kh, frac, gen):
+    """Miss lists in which every (b, kv head) keeps S - round(frac * S) of
+    its chunks and takes new ones in the other slots."""
+    from shadowkv_tpu_torch.core.selection import (
+        assign_slots_stable, compact_misses,
+    )
+
+    c, s = lay.chunks, lay.select_sets
+    n_new = round(frac * s)
+    prev, new = [], []
+    for _ in range(batch * kh):
+        perm = torch.randperm(c, device=DEVICE, generator=gen)
+        prev.append(perm[:s])
+        new.append(torch.cat([perm[:s - n_new], perm[s:s + n_new]]))
+    shape = (batch, kh, s)
+    asg = assign_slots_stable(torch.stack(prev).reshape(shape).to(torch.int32),
+                              torch.stack(new).reshape(shape).to(torch.int32))
+    return compact_misses(asg.slot_ids, asg.stay_mask)
 
 
 def _refresh_bytes_ops(torch, t, lay, dh):
@@ -225,9 +323,11 @@ def check_refresh(torch, cfg, lay, layer: int = 31) -> dict:
         if label == "int8":
             nbytes, ops, misses = _refresh_bytes_ops(torch, t, lay, cfg.head_dim)
             k_buf, v_buf = t["k_buf"], t["v_buf"]
-            ms = time_ms(torch, lambda: sparse_refresh(
+            ev_ms = time_ms(torch, lambda: sparse_refresh(
                 lyr, *args, k_buf, v_buf, **kw), reps=50)
-            plain_ms = time_ms(torch, lambda: sparse_refresh_plain(
+            ms = device_ms(torch, lambda: sparse_refresh(
+                lyr, *args, k_buf, v_buf, **kw), reps=50)
+            plain_ms = device_ms(torch, lambda: sparse_refresh_plain(
                 lyr, *args, k_buf, v_buf, **kw), reps=5)
             bound_b = nbytes / HBM_BYTES_PER_S * 1e3
             bound_o = ops / BF16_OPS_PER_S * 1e3
@@ -240,12 +340,179 @@ def check_refresh(torch, cfg, lay, layer: int = 31) -> dict:
                 bound_by="bytes" if bound_b >= bound_o else "operations",
                 library_ms=None,
             )
-            log(f"[refresh int8] kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
+            log(f"[refresh int8] kernel_ms {ms:.4f} (device time; events "
+                f"around 50 launches: {ev_ms:.4f}) plain_ms "
+                f"{plain_ms:.4f} "
                 f"bound_ms {entry['bound_ms']:.4f} ({entry['bound_by']}: "
                 f"{nbytes} B, {ops} operations, {misses} missed chunks)")
         del t, k_ref, v_ref, k_out, v_out
         torch.cuda.empty_cache()
     return entry
+
+
+def check_refresh_host(torch, cfg, lay, link: float, layer: int = 31) -> dict:
+    """Kernel A with the V store pinned in host memory: the int8 inputs and
+    miss mix of ``check_refresh``, held to A's tolerances against the plain version (which
+    reads the same bytes from a device copy); timed at that mix and at
+    40 % missed slots, cycling over the 32 layers so no launch finds its V
+    rows in L2. The device store is timed the same way beside it."""
+    from shadowkv_tpu_torch.core.rope import inv_freq_full_neox
+    from shadowkv_tpu_torch.kernels.reconstruct import (
+        sparse_refresh, sparse_refresh_plain,
+    )
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
+    inv = inv_freq_full_neox(cfg).to(DEVICE)
+    t = _refresh_inputs(torch, lay, cfg, BATCH, cfg.num_layers, True, gen)
+    v_host = pinned_copy(torch, t["v_full"])
+    kw = dict(chunk_size=lay.chunk_size, sparse_start=lay.sparse_start,
+              rope_dim=cfg.head_dim, rope_style="neox",
+              u_scale=t["u_scale"], v_scale=t["v_scale"])
+    k_ref, v_ref = t["k_buf"].clone(), t["v_buf"].clone()
+    sparse_refresh_plain(layer, t["mc"], t["ms"], t["cnt"], t["u"], t["sv"],
+                         t["v_full"], inv, k_ref, v_ref, **kw)
+    k_out, v_out = t["k_buf"].clone(), t["v_buf"].clone()
+    sparse_refresh(layer, t["mc"], t["ms"], t["cnt"], t["u"], t["sv"],
+                   v_host, inv, k_out, v_out, **kw)
+    torch.cuda.synchronize()
+    k_err = float((k_out.float() - k_ref.float()).abs().max())
+    v_err = float((v_out.float() - v_ref.float()).abs().max())
+    k_tol = 2.0**-7 * float(k_ref.float().abs().max())
+    log(f"[refresh host-V] max_abs_err K {k_err:.3e} (tol {k_tol:.3e}) "
+        f"V {v_err:.3e} (tol 0)")
+    if not (k_err <= k_tol and v_err == 0.0):
+        raise AssertionError("refresh host-V: kernel disagrees with its "
+                             "plain version")
+    del k_ref, v_ref, k_out, v_out
+    kh, dh, cs = cfg.num_kv_heads, cfg.head_dim, lay.chunk_size
+    entry = None
+    mixes = [("mixed heads", (t["mc"], t["ms"], t["cnt"]))]
+    mixes.append(("40% missed", _miss_fraction_lists(
+        torch, lay, BATCH, kh, 0.4, gen)))
+    for label, (mc, ms_, cnt) in mixes:
+        tt = dict(t, mc=mc, ms=ms_, cnt=cnt)
+        nbytes, ops, misses = _refresh_bytes_ops(torch, tt, lay, dh)
+        host_b = misses * cs * dh  # int8 V rows over the host link
+        times = {}
+        for place, v in (("host", v_host), ("device", t["v_full"])):
+            times[place] = device_ms(torch, cycle_layers(
+                lambda lyr: sparse_refresh(lyr, mc, ms_, cnt, t["u"], t["sv"],
+                                           v, inv, t["k_buf"], t["v_buf"], **kw),
+                cfg.num_layers), reps=64)
+        plain_ms = device_ms(torch, lambda: sparse_refresh_plain(
+            layer, mc, ms_, cnt, t["u"], t["sv"], t["v_full"], inv,
+            t["k_buf"], t["v_buf"], **kw), reps=3)
+        b_ms, b_by = bound(nbytes - host_b, ops, host_b, link)
+        log(f"[refresh host-V, {label}] {misses} of {cnt.numel() * lay.select_sets} "
+            f"slots missed; kernel_ms host V {times['host']:.4f}, device V "
+            f"{times['device']:.4f} (both cycling over {cfg.num_layers} "
+            f"layers); plain_ms {plain_ms:.4f}; bound_ms {b_ms:.4f} ({b_by}: "
+            f"{host_b} B over the link at {link / 1e9:.2f} GB/s, "
+            f"{nbytes - host_b} B in device memory)")
+        if entry is None:
+            entry = dict(
+                name="sparse_refresh_host_v", route="cuda",
+                source="shadowkv_tpu_torch/csrc/refresh.cu",
+                replaces="shadowkv_tpu/kernels/reconstruct.py:86",
+                launches=0, max_abs_err=k_err, ms=times["host"],
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None,
+            )
+    del t, v_host
+    torch.cuda.empty_cache()
+    return entry
+
+
+# ---------------------------------------------------------------------------
+# Kernel D: chunk gather (V on the card, and V pinned in host memory: row E)
+# ---------------------------------------------------------------------------
+
+
+def check_gather(torch, cfg, lay, link: float, layers: int = 8):
+    """Kernel D against its plain version at the slice's per-layer shapes
+    (B 2, 8 KV heads, 128 of 2040 chunks of 16 rows, rank 160) on int8
+    stores, with V on the card and pinned in host memory, and on bf16
+    stores; bit-equal. Timed on the int8 stores cycling over ``layers``
+    stacked layers (cold L2), with two ``index_select`` calls that gather
+    the same U and V rows as the yardstick of the device case. Returns
+    (entry D, entry D with host V)."""
+    from shadowkv_tpu_torch.core.quant import quantize_store
+    from shadowkv_tpu_torch.kernels.gather import (
+        gather_chunks, gather_chunks_plain,
+    )
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
+    kh, dh, cs, s = cfg.num_kv_heads, cfg.head_dim, lay.chunk_size, lay.select_sets
+    n_rows, rank, c = lay.chunks * cs, lay.rank, lay.chunks
+    entries = {}
+    for quant in (True, False):
+        u = torch.randn(layers, BATCH, n_rows, rank, device=DEVICE,
+                        generator=gen, dtype=torch.bfloat16)
+        v = torch.randn(layers, BATCH, kh, n_rows, dh, device=DEVICE,
+                        generator=gen, dtype=torch.bfloat16)
+        u_sc = v_sc = None
+        if quant:
+            u, u_sc = quantize_store(u)
+            v, v_sc = quantize_store(v)
+        ids = torch.stack([torch.randperm(c, device=DEVICE, generator=gen)[:s]
+                           for _ in range(BATCH * kh)]).reshape(
+                               BATCH, kh, s).to(torch.int32)
+        v_host = pinned_copy(torch, v)
+        layer = layers - 1
+        ref = gather_chunks_plain(layer, ids, u, v, u_sc, v_sc, chunk_size=cs)
+        for place, v_in in (("device", v), ("host", v_host)):
+            out = gather_chunks(layer, ids, u, v_in, u_sc, v_sc, chunk_size=cs)
+            torch.cuda.synchronize()
+            same = all((o is None and r is None) or torch.equal(o, r)
+                       for o, r in zip(out, ref))
+            label = f"{'int8' if quant else 'bf16'}, V on {place}"
+            log(f"[gather {label}] bit-equal to the plain version: {same}")
+            if not same:
+                raise AssertionError(f"gather {label}: kernel disagrees with "
+                                     "its plain version")
+        if not quant:
+            del u, v, v_host, ref, out
+            continue
+        plain_ms = device_ms(torch, cycle_layers(lambda lyr: gather_chunks_plain(
+            lyr, ids, u, v, u_sc, v_sc, chunk_size=cs), layers), reps=16)
+        # The yardstick: index_select of the same U rows and V rows (not
+        # their scales) from the flattened stores.
+        rows = (ids.long()[..., None] * cs + torch.arange(cs, device=DEVICE))
+        rows = rows.reshape(BATCH, kh, s * cs)
+        bi = torch.arange(BATCH, device=DEVICE)[:, None, None]
+        ki = torch.arange(kh, device=DEVICE)[None, :, None]
+        u_idx = (bi * n_rows + rows).reshape(-1)
+        v_idx = ((bi * kh + ki) * n_rows + rows).reshape(-1)
+        u_flat, v_flat = u.reshape(layers, -1, rank), v.reshape(layers, -1, dh)
+        lib_ms = device_ms(torch, cycle_layers(lambda lyr: (
+            torch.index_select(u_flat[lyr], 0, u_idx),
+            torch.index_select(v_flat[lyr], 0, v_idx)), layers), reps=64)
+        n_tok = BATCH * kh * s * cs
+        u_b, v_b, sc_b = n_tok * rank, n_tok * dh, n_tok * 2 * 2
+        for place, v_in in (("device", v), ("host", v_host)):
+            ms = device_ms(torch, cycle_layers(lambda lyr: gather_chunks(
+                lyr, ids, u, v_in, u_sc, v_sc, chunk_size=cs), layers), reps=64)
+            if place == "device":  # every row read once and written once
+                b_ms, b_by = bound(2 * (u_b + v_b + sc_b), 0)
+            else:  # V rows cross the link; the rest moves in device memory
+                b_ms, b_by = bound(2 * (u_b + sc_b) + v_b, 0, v_b, link)
+            log(f"[gather int8, V on {place}] kernel_ms {ms:.4f} plain_ms "
+                f"{plain_ms:.4f} index_select_ms {lib_ms:.4f} bound_ms "
+                f"{b_ms:.4f} ({b_by}; {n_tok} rows of U {rank} B, V {dh} B, "
+                f"2 scales; cycling over {layers} layers)")
+            entries[place] = dict(
+                name="gather_chunks" if place == "device"
+                else "gather_chunks_host_v",
+                route="cuda", source="shadowkv_tpu_torch/csrc/gather.cu",
+                replaces="shadowkv_tpu/kernels/gather.py:81" if place == "device"
+                else "shadowkv_tpu/kernels/gather.py:165",
+                launches=0, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms if place == "device" else None,
+            )
+        del u, v, v_host, ref, out, u_flat, v_flat
+        torch.cuda.empty_cache()
+    return entries["device"], entries["host"]
 
 
 # ---------------------------------------------------------------------------
@@ -378,9 +645,36 @@ def check_prefill_attention(torch, cfg) -> dict:
 # ---------------------------------------------------------------------------
 
 
+TOY_SETTINGS = (  # (label, cache mode, runtime settings of the decode)
+    ("shadow fused", "shadow", dict(use_pallas=True)),
+    ("shadow xla-gather", "shadow", dict(use_pallas=None)),
+    ("offload fused", "shadow_offload", dict(use_pallas=True)),
+    ("offload ring", "shadow_offload", dict(ring_gather=True)),
+    ("full", "full", dict()),
+)
+TOY_STEPS = 8
+
+
+def _greedy_logits(torch, eng, ids, forced=None):
+    """Last-position logits [B, 1 + TOY_STEPS, V] (f32, on the CPU) of the
+    prefill and of TOY_STEPS decode steps, and the tokens fed [B,
+    TOY_STEPS]: the greedy token of the previous logits, or ``forced``."""
+    logits, cache = eng.prefill(ids)
+    out, fed = [logits[:, -1].float().cpu()], []
+    for i in range(TOY_STEPS):
+        tok = out[-1].argmax(-1) if forced is None else forced[:, i]
+        fed.append(tok)
+        logits = eng._decode(cache, tok.to(eng.device)[:, None])
+        out.append(logits[:, -1].float().cpu())
+    return torch.stack(out, 1), torch.stack(fed, 1)
+
+
 def check_toy_engine(torch) -> None:
     """The port's engine on the card (kernels) against the same engine on
-    the CPU (plain versions), same bf16 weights, prompt and sketch."""
+    the CPU (plain versions), same bf16 weights, prompt and sketch, for
+    each decode strategy. The CPU decodes greedily; the card is fed the
+    CPU's tokens, so every step compares logits of the same history, and
+    the final cached chunk ids must be equal."""
     import numpy as np
 
     from shadowkv_tpu_torch.config import CacheConfig, RuntimeConfig
@@ -394,71 +688,131 @@ def check_toy_engine(torch) -> None:
     params = init_synthetic_params(
         cfg, torch.Generator(device="cpu").manual_seed(SEED), scale=0.2,
         device="cpu")
-    cc = CacheConfig(mode="shadow", max_length=544, sparse_budget=128,
-                     rank=64, chunk_size=16, kv_quant="int8",
-                     outlier_chunks=4, gen_capacity=32)
-    rt = RuntimeConfig(use_pallas=True, prefill_pattern="dense-splash")
     omega = sketch(cfg.num_kv_heads * cfg.head_dim, 64 + 32)
     ids = np.random.RandomState(SEED).randint(1, cfg.vocab_size, (2, 512))
-    out = {}
-    for dev in ("cpu", DEVICE):
-        eng = Engine(cfg, cc, rt, params, device=dev, sketch=omega)
-        logits, _ = eng.prefill(ids)
-        toks, _ = eng.generate(ids, gen_len=8)
-        out[dev] = (logits.float().cpu(), toks)
-    (l_ref, t_ref), (l_dev, t_dev) = out["cpu"], out[DEVICE]
-    err = float((l_dev - l_ref).abs().max())
-    # Two layers of bf16 activations rounded in another order on each side
-    # (bf16 keeps 8 bits) plus the kernels' bf16 attention probabilities:
-    # 2 % of the largest logit.
-    tol = 0.02 * float(l_ref.abs().max())
-    agree = float((t_dev == t_ref).mean())
-    log(f"[toy engine] prefill logits max_abs_err {err:.3e} (tol {tol:.3e}); "
-        f"greedy tokens agree on {agree:.3f} of {t_ref.size}")
-    if not (err <= tol and torch.isfinite(l_dev).all()):
-        raise AssertionError("toy engine on the card disagrees with the CPU")
-    if not (t_dev == t_ref).all():
-        raise AssertionError("toy engine: greedy tokens differ from the CPU")
+    for label, mode, rt_kw in TOY_SETTINGS:
+        cc = CacheConfig(mode=mode, max_length=544, sparse_budget=128,
+                         rank=64, chunk_size=16, kv_quant="int8",
+                         outlier_chunks=4, gen_capacity=32)
+        rt = RuntimeConfig(prefill_pattern="dense-splash", **rt_kw)
+        engines = {dev: Engine(cfg, cc, rt, params, device=dev, sketch=omega)
+                   for dev in ("cpu", DEVICE)}
+        l_ref, fed = _greedy_logits(torch, engines["cpu"], ids)
+        l_dev, _ = _greedy_logits(torch, engines[DEVICE], ids, forced=fed)
+        err = (l_dev - l_ref).abs().amax(dim=(0, 2))  # [1 + TOY_STEPS]
+        # Prefill: two layers of bf16 activations rounded in another order
+        # on each side (bf16 keeps 8 bits) plus the kernels' bf16 attention
+        # probabilities: 2 % of the largest logit. Decode steps: 5 % of the
+        # step's largest logit. The decode steps add up more roundings, and
+        # cuSOLVER and the CPU's eigen-solver give different low-rank bases
+        # (only U @ SV is unique), so most int8 U values and with them the
+        # rebuilt keys differ; the log line shows both, and the full
+        # baseline's decode steps, which have no low-rank factors.
+        tol = torch.full_like(err, 0.05) * l_ref.abs().amax(dim=(0, 2))
+        tol[0] = 0.02 * l_ref[:, 0].abs().max()
+        # Where the CPU's top two logits are more than 2 * tol apart, logits
+        # within tol give the same greedy token; closer ones are near-ties
+        # (bf16 logits of this toy are 0.0625 apart, and its CPU greedy
+        # run has margins of 0 and 1 ulp), which rounding may break either
+        # way, so there only the logit bound holds.
+        top2 = l_ref.topk(2, dim=-1).values
+        margin = top2[..., 0] - top2[..., 1]
+        decisive = margin > 2 * tol
+        same = l_dev.argmax(-1) == l_ref.argmax(-1)
+        c_ref, c_dev = engines["cpu"]._cache, engines[DEVICE]._cache
+        same_ids, u_same = True, None
+        if mode != "full":
+            same_ids = torch.equal(c_ref.cached_ids, c_dev.cached_ids.cpu())
+            u_same = float((c_ref.u == c_dev.u.cpu()).float().mean())
+        ratio = err / tol
+        log(f"[toy engine, {label}] max_abs_err / tol: prefill "
+            f"{float(ratio[0]):.3f} ({float(err[0]):.3e} of "
+            f"{float(tol[0]):.3e}), decode steps "
+            f"{[round(float(r), 3) for r in ratio[1:]]}; greedy tokens agree "
+            f"on {int(same.sum())} of {same.numel()}, on "
+            f"{int(same[decisive].sum())} of {int(decisive.sum())} decisive "
+            f"steps (smallest CPU top-2 margin {float(margin.min()):.4f}); "
+            f"cached ids equal {same_ids}; int8 U values equal on "
+            f"{u_same if u_same is None else round(u_same, 4)} of entries")
+        if not ((err <= tol).all() and torch.isfinite(l_dev).all()):
+            raise AssertionError(f"toy engine {label}: the card's logits "
+                                 "disagree with the CPU's")
+        if not (same[decisive].all() and same_ids):
+            raise AssertionError(f"toy engine {label}: greedy tokens at a "
+                                 "decisive step or cached ids differ from "
+                                 "the CPU's")
+        del engines
 
 
-def run_slice(torch, cfg, params, mode: str, prompt_len: int) -> dict:
-    """One Engine run at full width through batch_generate; returns its
-    numbers and the kernel launch counts of the run."""
-    import numpy as np
+# (label, cache mode, decode runtime settings) of the slice runs; each
+# offload run has an HBM twin with the same strategy.
+SLICE_RUNS = (
+    ("shadow", "shadow", dict(use_pallas=True)),
+    ("shadow-ring", "shadow", dict(ring_gather=True)),
+    ("offload-fused", "shadow_offload", dict(use_pallas=True)),
+    ("offload-ring", "shadow_offload", dict(ring_gather=True)),
+    ("full", "full", dict()),
+)
+OFFLOAD_TWINS = {"offload-fused": "shadow", "offload-ring": "shadow-ring"}
 
-    from shadowkv_tpu_torch.config import CacheConfig, RuntimeConfig
+
+def _counters():
+    from shadowkv_tpu_torch.kernels.gather import gather_chunks
     from shadowkv_tpu_torch.kernels.prefill_attention import (
         causal_prefill_splash,
     )
     from shadowkv_tpu_torch.kernels.reconstruct import sparse_refresh
+
+    return {
+        "sparse_refresh": (sparse_refresh, "launches"),
+        "sparse_refresh_host_v": (sparse_refresh, "host_launches"),
+        "prefill_attention": (causal_prefill_splash, "launches"),
+        "gather_chunks": (gather_chunks, "launches"),
+        "gather_chunks_host_v": (gather_chunks, "host_launches"),
+    }
+
+
+def run_slice(torch, cfg, params, label: str, mode: str, rt_kw: dict,
+              prompt_len: int) -> dict:
+    """One Engine run at full width through batch_generate; returns its
+    numbers, the kernel launch counts of the run, its tokens and its final
+    cached chunk ids."""
+    import numpy as np
+
+    from shadowkv_tpu_torch.config import CacheConfig, RuntimeConfig
     from shadowkv_tpu_torch.models.engine import Engine
 
     cc = CacheConfig(mode=mode, max_length=prompt_len + 256,
                      sparse_budget=2048, rank=160, chunk_size=16,
                      kv_quant="int8", gen_capacity=256)
-    rt = RuntimeConfig(prefill_pattern="dense-splash", use_pallas=True,
-                       track_hit_rate=True, pallas_auto_interval=4)
+    rt = RuntimeConfig(prefill_pattern="dense-splash", track_hit_rate=True,
+                       pallas_auto_interval=4, **rt_kw)
     eng = Engine(cfg, cc, rt, params, device=DEVICE)
     ids = np.random.RandomState(SEED).randint(1, cfg.vocab_size,
                                               (BATCH, prompt_len))
+    counters = _counters()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    sparse_refresh.launches = 0
-    causal_prefill_splash.launches = 0
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
     toks, stats = eng.batch_generate(ids, gen_len=GEN_LEN, temperature=0.0,
                                      warmup_steps=WARMUP_STEPS)
-    launches = {"sparse_refresh": sparse_refresh.launches,
-                "prefill_attention": causal_prefill_splash.launches}
+    launches = {name: getattr(fn, attr)
+                for name, (fn, attr) in counters.items()}
     peak = torch.cuda.max_memory_allocated()
     kv = eng.kv_stats()
+    steps = cfg.num_layers * (GEN_LEN + WARMUP_STEPS)
     sub_batches = math.ceil(BATCH / min(rt.prefill_sub_batch, BATCH))
-    want = {
-        "prefill_attention": cfg.num_layers * sub_batches,
-        "sparse_refresh": cfg.num_layers * (GEN_LEN + WARMUP_STEPS)
-        if mode == "shadow" else 0,
-    }
+    want = dict.fromkeys(counters, 0)
+    want["prefill_attention"] = cfg.num_layers * sub_batches
+    if mode != "full":
+        kernel = "sparse_refresh" if rt_kw.get("use_pallas") else "gather_chunks"
+        want[kernel] = steps
+        if mode == "shadow_offload":
+            want[kernel + "_host_v"] = steps
     res = dict(
-        mode=mode, prompt_len=prompt_len, batch=BATCH, gen_len=GEN_LEN,
+        run=label, mode=mode, decode=rt_kw, prompt_len=prompt_len,
+        batch=BATCH, gen_len=GEN_LEN,
         prefill_s=stats.prefill_seconds,
         decode_tok_s=stats.decode_tokens_per_second,
         decode_ms_per_step=stats.decode_seconds / GEN_LEN * 1e3,
@@ -466,17 +820,42 @@ def run_slice(torch, cfg, params, mode: str, prompt_len: int) -> dict:
         hit_rate_mean=kv.get("hit_rate_mean"),
         hit_samples=kv.get("hit_samples"),
         cache_gib=kv["device_bytes"] / 2**30,
+        host_gib=kv["host_bytes"] / 2**30,
     )
-    log(f"[slice {mode}] {json.dumps(res)}")
+    log(f"[slice {label}] {json.dumps(res)}")
     if launches != want:
-        raise AssertionError(f"slice {mode}: kernel launches {launches}, "
+        raise AssertionError(f"slice {label}: kernel launches {launches}, "
                              f"expected {want}")
     if toks.shape != (BATCH, GEN_LEN) or toks.min() < 0 \
             or toks.max() >= cfg.vocab_size:
-        raise AssertionError(f"slice {mode}: bad tokens {toks.shape}")
+        raise AssertionError(f"slice {label}: bad tokens {toks.shape}")
+    res["tokens"] = toks
+    res["cached_ids"] = (eng._cache.cached_ids.cpu()
+                         if mode != "full" else None)
     del eng
     torch.cuda.empty_cache()
     return res
+
+
+def check_offload_twins(torch, runs: dict) -> None:
+    """Each offload run against its HBM twin: the same V bytes in another
+    place, so the same tokens and cached ids; a device cache smaller by
+    the V store and a host store of its size."""
+    for off, twin in OFFLOAD_TWINS.items():
+        a, b = runs[off], runs[twin]
+        same_toks = bool((a["tokens"] == b["tokens"]).all())
+        same_ids = torch.equal(a["cached_ids"], b["cached_ids"])
+        saved = b["cache_gib"] - a["cache_gib"]
+        log(f"[offload {off} vs {twin}] tokens equal {same_toks}, cached ids "
+            f"equal {same_ids}; device cache {a['cache_gib']:.3f} vs "
+            f"{b['cache_gib']:.3f} GiB (-{saved:.3f}); host store "
+            f"{a['host_gib']:.4f} GiB")
+        if not (same_toks and same_ids):
+            raise AssertionError(f"{off}: tokens or cached ids differ from "
+                                 f"{twin}")
+        if not (saved >= 1.9 and abs(a["host_gib"] / 1.99 - 1) <= 0.01):
+            raise AssertionError(f"{off}: device cache not 1.9 GiB smaller or "
+                                 "host store not 1.99 GiB")
 
 
 def main() -> int:
@@ -497,6 +876,7 @@ def main() -> int:
     so = build.build()
     log(f"[build] {so.name} in {time.perf_counter() - t0:.1f} s")
     log((build.BUILD_DIR / "nvcc.log").read_text())
+    link = host_link_peak(torch)
 
     cfg = llama31_8b("meta-llama/Llama-3.1-8B-Instruct", dtype=torch.bfloat16)
     lay = ShadowLayout.build(
@@ -505,8 +885,11 @@ def main() -> int:
                     gen_capacity=256),
         PROMPT_LEN,
     )
-    entry_a = check_refresh(torch, cfg, lay)
-    entry_b = check_prefill_attention(torch, cfg)
+    entries = {"sparse_refresh": check_refresh(torch, cfg, lay)}
+    entries["sparse_refresh_host_v"] = check_refresh_host(torch, cfg, lay, link)
+    entries["prefill_attention"] = check_prefill_attention(torch, cfg)
+    entries["gather_chunks"], entries["gather_chunks_host_v"] = check_gather(
+        torch, cfg, lay, link)
     check_toy_engine(torch)
 
     t0 = time.perf_counter()
@@ -515,14 +898,22 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"[weights] synthetic bf16 {cfg.name} in "
         f"{time.perf_counter() - t0:.1f} s")
-    shadow = run_slice(torch, cfg, params, "shadow", PROMPT_LEN)
-    full = run_slice(torch, cfg, params, "full", PROMPT_LEN)
-    entry_a["launches"] = shadow["launches"]["sparse_refresh"]
-    entry_b["launches"] = shadow["launches"]["prefill_attention"]
-    log(f"[summary] shadow decode {shadow['decode_tok_s']:.1f} tok/s vs full "
-        f"{full['decode_tok_s']:.1f} tok/s at {PROMPT_LEN} x {BATCH}; "
-        f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [entry_a, entry_b]}))
+    runs = {label: run_slice(torch, cfg, params, label, mode, rt_kw,
+                             PROMPT_LEN)
+            for label, mode, rt_kw in SLICE_RUNS}
+    check_offload_twins(torch, runs)
+    # Each kernel's launches come from the run of the path that uses it.
+    home = {"sparse_refresh": "shadow", "prefill_attention": "shadow",
+            "sparse_refresh_host_v": "offload-fused",
+            "gather_chunks": "shadow-ring",
+            "gather_chunks_host_v": "offload-ring"}
+    for name, entry in entries.items():
+        entry["launches"] = runs[home[name]]["launches"][name]
+    log("[summary] decode tok/s " + ", ".join(
+        f"{k} {r['decode_tok_s']:.1f}" for k, r in runs.items())
+        + f" at {PROMPT_LEN} x {BATCH}; total "
+        f"{time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": list(entries.values())}))
     print(facts["smi"])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": facts["name"],

@@ -1,8 +1,15 @@
 """ShadowKV sparse KV cache (counterpart of ``shadowkv_tpu/cache/shadow.py``).
 
 Low-rank pre-RoPE K factors and a chunked V store, landmark-selected
-sparse attention over a compact buffer, slot-stable hit reuse, and the
-fused refresh of missed chunks (``kernels/reconstruct.py``).
+sparse attention over a compact buffer, slot-stable hit reuse, and the two
+decode strategies of the JAX package: the fused refresh of missed chunks
+(``kernels/reconstruct.py``) and the XLA-gather branch, which gathers every
+selected chunk (by tensor indexing, or by the chunk-gather kernel of
+``kernels/gather.py`` with ``ring=True``) and keeps hit slots by a select.
+
+The V store may live in host memory (``mode="shadow_offload"``): a pinned
+CPU tensor when the engine runs on the card, which both decode kernels
+read in place; every other field stays on the engine's device.
 
 Compact buffer per (layer, batch, kv head), as in the JAX package:
 
@@ -26,11 +33,13 @@ Chunk c occupies store rows [c*cs, c*cs + cs).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
 
 from shadowkv_tpu_torch.config import CacheConfig, ModelConfig
+from shadowkv_tpu_torch.core import rope as rope_lib
 from shadowkv_tpu_torch.core.lowrank import lowrank_kv_factors
 from shadowkv_tpu_torch.core.quant import quantize_rows, quantize_store
 from shadowkv_tpu_torch.core.selection import (
@@ -40,6 +49,7 @@ from shadowkv_tpu_torch.core.selection import (
     compute_landmarks_outliers,
     score_and_select,
 )
+from shadowkv_tpu_torch.kernels.gather import gather_chunks
 from shadowkv_tpu_torch.kernels.reconstruct import sparse_refresh
 
 
@@ -114,6 +124,7 @@ class ShadowCache:
     lm_scale: Optional[torch.Tensor] = None  # [L, B, K, C] f32 (int8)
     u_scale: Optional[torch.Tensor] = None  # [L, B, C*cs] bf16 (int8)
     v_scale: Optional[torch.Tensor] = None  # [L, B, K, C*cs] bf16 (int8)
+    v_on_host: bool = False  # v_full lives in host memory (offload)
 
     FIELDS = ("u", "sv", "landmarks", "landmark_mask", "k_buf", "v_buf",
               "v_full", "cached_ids", "lm_scale", "u_scale", "v_scale")
@@ -126,9 +137,13 @@ class ShadowCache:
     @classmethod
     def init(
         cls, model: ModelConfig, layout: ShadowLayout, batch_size: int,
-        device=None,
+        device=None, v_on_host: bool = False,
     ) -> "ShadowCache":
-        """Zeroed full-batch buffers; sub-batch prefill writes slices."""
+        """Zeroed full-batch buffers; sub-batch prefill writes slices.
+
+        With ``v_on_host`` the V store is one uninitialised CPU tensor,
+        pinned when ``device`` is a CUDA device (prefill writes every row
+        of it)."""
         l, b = model.num_layers, batch_size
         kh, dh, dt = model.num_kv_heads, model.head_dim, model.dtype
         lo = layout
@@ -151,12 +166,16 @@ class ShadowCache:
             landmark_mask=z((l, b, kh, lo.chunks), torch.bool),
             k_buf=z((l, b, kh, lo.buffer_cap, dh), dt),
             v_buf=z((l, b, kh, lo.buffer_cap, dh), dt),
-            v_full=z((l, b, kh, rows, dh), store_dt),
+            v_full=torch.empty(
+                (l, b, kh, rows, dh), dtype=store_dt,
+                pin_memory=torch.device(device or "cpu").type == "cuda",
+            ) if v_on_host else z((l, b, kh, rows, dh), store_dt),
             cached_ids=z((l, b, kh, lo.select_sets), torch.int32),
             layout=layout,
             lm_scale=z((l, b, kh, lo.chunks), torch.float32) if q8 else None,
             u_scale=z((l, b, rows), torch.bfloat16) if q8 else None,
             v_scale=z((l, b, kh, rows), torch.bfloat16) if q8 else None,
+            v_on_host=v_on_host,
         )
 
 
@@ -227,6 +246,25 @@ def _rows(x_h: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     return torch.gather(x_h, 2, idx)
 
 
+def forced_ids(
+    layout: ShadowLayout, gen_len: int, hit_rate: float, kind: str, device
+) -> torch.Tensor:
+    """BENCHMARK-ONLY forced selection (JAX ``debug_hit_rate``): a window of
+    select_sets chunk ids sliding by m = S * (1 - hit_rate) per decode step,
+    so consecutive steps share exactly S - m ids. 'scatter' maps the window
+    through the bijection c -> c * mult mod C, mult the first integer from
+    4097 up coprime with C; 'contig' keeps the raw window. [S] int32."""
+    ssets, c_total = layout.select_sets, layout.chunks
+    m = max(1, int(round(ssets * (1.0 - hit_rate))))
+    ids = (gen_len * m + torch.arange(ssets, device=device)) % c_total
+    if kind == "scatter":
+        mult = 4097
+        while math.gcd(mult, c_total) != 1:
+            mult += 1
+        ids = (ids * mult) % c_total
+    return ids.to(torch.int32)
+
+
 def shadow_decode_layer(
     model: ModelConfig,
     cache: ShadowCache,
@@ -236,12 +274,30 @@ def shadow_decode_layer(
     v_new: torch.Tensor,  # [B, Qn, K, Dh]
     inv_freq_full: torch.Tensor,  # [Dh] f32 (core/rope.py)
     hysteresis: float = 0.0,
+    *,
+    use_kernel: bool = False,
+    ring: bool = False,
+    cos_table: torch.Tensor | None = None,  # [>= cs, rope_dim // 2]
+    sin_table: torch.Tensor | None = None,
+    debug_hit_rate: float | None = None,
+    debug_hit_layout: str = "scatter",
 ) -> tuple[torch.Tensor, torch.Tensor, int]:
-    """One layer's cache update at decode (the fused-refresh path of the
-    JAX package's ``use_kernel=True`` branch): landmark selection ->
-    slot-stable assignment -> miss compaction -> refresh kernel -> append
-    the new tokens to the gen region. Updates ``cache`` in place and
-    returns (k_view, v_view, valid_len) with views [B, K, cap, Dh]."""
+    """One layer's cache update at decode: landmark selection (or the
+    forced ``debug_hit_rate`` ids) -> slot-stable assignment -> the sparse
+    region's refresh -> the new tokens appended to the gen region. Updates
+    ``cache`` in place and returns (k_view, v_view, valid_len) with views
+    [B, K, cap, Dh].
+
+    The refresh is one of the JAX package's two strategies:
+
+    - ``use_kernel``: the fused refresh kernel rebuilds missed chunks only
+      and skips hits (rotating at ``cid*cs + i`` in one stage);
+    - otherwise the XLA-gather branch: every selected chunk's rows are
+      gathered (``ring``: the chunk-gather kernel; else tensor indexing),
+      K is rebuilt and rotated in two stages (offset table, then computed
+      chunk-base trig), and hit slots keep their bytes through
+      ``where(stay, old, new)``. Only the sparse region is written.
+    """
     lo = cache.layout
     b, qn, kh, dh = k_new.shape
     q_grouped = q.transpose(1, 2).reshape(b, kh, model.num_groups, qn, dh)
@@ -253,17 +309,89 @@ def shadow_decode_layer(
         resident_ids=prev_ids if hysteresis else None,
         hysteresis=hysteresis,
     )
+    if debug_hit_rate is not None:
+        # The real scores above are computed and discarded, so the step
+        # pays the selection's cost as a real one does.
+        new_ids = forced_ids(lo, cache.gen_len, debug_hit_rate,
+                             debug_hit_layout, q.device).expand_as(new_ids)
     asg = assign_slots_stable(prev_ids, new_ids)
-    mc, ms, cnt = compact_misses(asg.slot_ids, asg.stay_mask)
-    sparse_refresh(
-        layer, mc, ms, cnt, cache.u, cache.sv, cache.v_full, inv_freq_full,
-        cache.k_buf, cache.v_buf,
-        chunk_size=lo.chunk_size, sparse_start=lo.sparse_start,
-        rope_dim=model.rope_dim, rope_style=model.rope_style,
-        u_scale=cache.u_scale, v_scale=cache.v_scale,
-    )
+    if use_kernel:
+        mc, ms, cnt = compact_misses(asg.slot_ids, asg.stay_mask)
+        sparse_refresh(
+            layer, mc, ms, cnt, cache.u, cache.sv, cache.v_full,
+            inv_freq_full, cache.k_buf, cache.v_buf,
+            chunk_size=lo.chunk_size, sparse_start=lo.sparse_start,
+            rope_dim=model.rope_dim, rope_style=model.rope_style,
+            u_scale=cache.u_scale, v_scale=cache.v_scale,
+        )
+    else:
+        k_rows, v_rows = _gather_rebuild(
+            model, cache, layer, asg.slot_ids, ring, cos_table, sin_table,
+            inv_freq_full,
+        )
+        stay = asg.stay_mask[..., None, None]  # [B, K, S, 1, 1]
+        for buf, new in ((cache.k_buf, k_rows), (cache.v_buf, v_rows)):
+            region = buf[layer, :, :, lo.sparse_start:lo.sparse_end].view(
+                b, kh, lo.select_sets, lo.chunk_size, dh)
+            region.copy_(torch.where(stay, region, new))
     row = lo.sparse_end + cache.gen_len
     cache.k_buf[layer, :, :, row:row + qn] = k_new.transpose(1, 2)
     cache.v_buf[layer, :, :, row:row + qn] = v_new.transpose(1, 2)
     cache.cached_ids[layer] = asg.slot_ids
     return cache.k_buf[layer], cache.v_buf[layer], row + qn
+
+
+def _gather_rebuild(
+    model: ModelConfig,
+    cache: ShadowCache,
+    layer: int,
+    slot_ids: torch.Tensor,  # [B, K, S] int32
+    ring: bool,
+    cos_table: torch.Tensor,
+    sin_table: torch.Tensor,
+    inv_freq_full: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The XLA-gather branch's new rows for EVERY slot (JAX
+    ``shadow_decode_layer`` :711-941): K rebuilt from the gathered U rows
+    and rotated, V dequantized; each [B, K, S, cs, Dh] in the buffer dtype.
+
+    Rounding as in JAX: int8 U goes to the buffer dtype, the product
+    accumulates in f32, the per-row scale multiplies the f32 output, then
+    one cast; int8 V rows are the exact ``int8 * bf16 scale`` product
+    rounded once to the buffer dtype. RoPE rotates by the cs-row offset
+    table first, then by the chunk base ``cid * cs``, whose trig is
+    computed in f32 from the inverse frequencies and cast to the table
+    dtype."""
+    lo = cache.layout
+    b, kh, s = slot_ids.shape
+    cs, dh = lo.chunk_size, cache.v_buf.shape[-1]
+    buf_dt = cache.k_buf.dtype
+    if ring:
+        u_q, v_q, u_sc, v_sc = gather_chunks(
+            layer, slot_ids, cache.u, cache.v_full, cache.u_scale,
+            cache.v_scale, chunk_size=cs,
+        )
+    else:
+        rows = chunk_ids_to_positions(slot_ids, cs)  # [B, K, S*cs]
+        bi = torch.arange(b, device=rows.device)[:, None, None]
+        ki = torch.arange(kh, device=rows.device)[None, :, None]
+        u_q = cache.u[layer][bi, rows]
+        v_q = cache.v_full[layer][bi, ki, rows]
+        if cache.u_scale is not None:
+            u_sc = cache.u_scale[layer][bi, rows]
+            v_sc = cache.v_scale[layer][bi, ki, rows]
+    k_rec = torch.matmul(u_q.to(buf_dt).float(), cache.sv[layer].float())
+    if cache.u_scale is not None:
+        k_rec = k_rec * u_sc.float()[..., None]
+        v_rows = v_q.float() * v_sc.float()[..., None]
+    else:
+        v_rows = v_q
+    k_rec = k_rec.to(buf_dt).view(b, kh, s, cs, dh)
+    k_rec = rope_lib.rotate_with_tables(
+        k_rec, cos_table[:cs], sin_table[:cs], model.rope_style)
+    inv = rope_lib.half_inv_freq(inv_freq_full, model)
+    base = (slot_ids * cs).float()[..., None, None] * inv  # [B, K, S, 1, half]
+    k_rec = rope_lib.rotate_with_tables(
+        k_rec, torch.cos(base).to(cos_table.dtype),
+        torch.sin(base).to(sin_table.dtype), model.rope_style)
+    return k_rec, v_rows.to(buf_dt).view(b, kh, s, cs, dh)

@@ -1,13 +1,29 @@
 """Configuration dataclasses (counterpart of ``shadowkv_tpu/config.py``).
 
 A run is described by (ModelConfig, CacheConfig, RuntimeConfig), with the
-fields the JAX package has for the path this port serves. Fields of paths
-the port does not serve yet (parallelism, int8 weights, ring gather, host
-offload, forced hit rates, approximate top-k) are left out, so passing one
-is a ``TypeError``; where a served field takes a value of an unported path
-(``mode="shadow_offload"``, ``prefill_pattern="stream"``/``"vs"``,
-``use_pallas`` other than True), ``check_served`` raises
-``NotImplementedError`` naming the ROADMAP.md item that ports it.
+fields the JAX package has for the paths this port serves:
+
+- ``mode``: ``"full"``, ``"shadow"`` (stores on the card) and
+  ``"shadow_offload"`` (the V store in pinned host memory, read in place by
+  the decode kernels);
+- shadow decode: ``use_pallas=True`` (fused refresh, kernel A),
+  ``use_pallas`` None/False (the XLA-gather branch), with
+  ``ring_gather=True`` (the chunk-gather kernel D);
+- ``debug_hit_rate`` / ``debug_hit_layout`` (benchmark-only forced
+  selection).
+
+Fields of paths the port does not serve yet (parallelism, int8 weights,
+approximate top-k) are left out, so passing one is a ``TypeError``. Where a
+field takes a value of an unported path, ``check_served`` raises
+``NotImplementedError`` naming the ROADMAP.md item that ports it:
+``prefill_pattern="stream"``/``"vs"`` (§2 C, F, G), ``use_pallas="auto"``
+(§1 'use_pallas="auto"'), ``decode_segmented=True`` (§1 'Segmented
+decode attention'), ``offload_prefill_segments > 1`` (§1 'Host offload,
+rest'), and
+``shadow_offload`` with a bf16 store and neither decode kernel (the JAX
+``HostVStore`` io_callback path, §1 'Host offload, rest'). The JAX rules
+that assert are ``ValueError`` here: ``use_pallas`` and ``ring_gather``
+exclude each other, and an int8 offloaded store needs one of them.
 """
 
 from __future__ import annotations
@@ -77,7 +93,7 @@ class ModelConfig:
 class CacheConfig:
     """KV-cache / sparse-attention policy (defaults as in the JAX package)."""
 
-    mode: str = "full"  # 'full' | 'shadow' ('shadow_offload' not served)
+    mode: str = "full"  # 'full' | 'shadow' | 'shadow_offload'
     max_length: int = 32 * 1024
     sparse_budget: int = 2048
     rank: int = 160
@@ -99,13 +115,12 @@ class CacheConfig:
             raise ValueError("sparse_budget must be a multiple of chunk_size")
         return self.sparse_budget // self.chunk_size
 
+    @property
+    def is_shadow(self) -> bool:
+        return self.mode in ("shadow", "shadow_offload")
+
     def check_served(self) -> None:
-        if self.mode == "shadow_offload":
-            raise NotImplementedError(
-                "host-offloaded V stores are not ported yet "
-                "(ROADMAP.md §1 'Host offload')"
-            )
-        if self.mode not in ("full", "shadow"):
+        if self.mode not in ("full", "shadow", "shadow_offload"):
             raise ValueError(f"unknown cache mode {self.mode!r}")
         if self.kv_quant not in ("none", "int8"):
             raise ValueError(f"unknown kv_quant {self.kv_quant!r}")
@@ -122,18 +137,34 @@ class RuntimeConfig:
     # 'dense' and 'dense-splash' are the same causal function and run the
     # same prefill kernel here; 'stream' and 'vs' are not ported yet.
     prefill_pattern: str = "dense"
-    # Shadow decode path: True = the fused sparse-refresh kernel (the only
-    # one ported); None/False = the XLA gather branch; 'auto' = switch
-    # between them on the measured hit rate.
+    # Shadow decode path: True = the fused sparse-refresh kernel (hit
+    # reuse, misses only); None/False = the XLA-gather branch (every
+    # selected chunk gathered, hits kept by a select); 'auto' = switch
+    # between them on the measured hit rate (not ported).
     use_pallas: Optional[object] = None
     pallas_auto_interval: int = 16
+    # The XLA-gather branch's gather through the chunk-gather kernel
+    # (kernels/gather.py) instead of tensor indexing. Excludes use_pallas.
+    ring_gather: Optional[bool] = None
     # Observe-only slot-hit-rate sampling (one consecutive step pair per
     # pallas_auto_interval decode steps); kv_stats() reports it.
     track_hit_rate: bool = False
     selection_hysteresis: float = 0.0
+    # BENCHMARK-ONLY forced selection: every layer selects a window of
+    # select_sets chunk ids that slides by select_sets * (1 - rate) per
+    # step, so the slot hit rate is ``rate`` by construction; 'scatter'
+    # maps the window through a fixed bijection, 'contig' keeps it. The
+    # window ignores the landmark mask: never combine with accuracy runs.
+    debug_hit_rate: Optional[float] = None
+    debug_hit_layout: str = "scatter"
+    # Unported alternatives of the JAX package, kept so that asking for
+    # them names their ROADMAP item instead of a TypeError.
+    decode_segmented: Optional[bool] = None
+    offload_prefill_segments: int = 1
 
     def check_served(self, cache: CacheConfig) -> None:
-        """Raise for settings of paths this port does not serve yet."""
+        """Raise for settings of paths this port does not serve yet, and
+        for combinations the JAX engine rejects."""
         if self.prefill_pattern in ("stream", "vs"):
             raise NotImplementedError(
                 f"prefill_pattern={self.prefill_pattern!r} is not ported yet "
@@ -141,15 +172,49 @@ class RuntimeConfig:
             )
         if self.prefill_pattern not in ("dense", "dense-splash"):
             raise ValueError(f"unknown prefill_pattern {self.prefill_pattern!r}")
-        if cache.mode == "shadow":
-            if self.use_pallas == "auto":
-                raise NotImplementedError(
-                    "use_pallas='auto' is not ported yet "
-                    "(ROADMAP.md §1 'use_pallas=\"auto\"')"
+        if self.use_pallas not in (None, True, False, "auto"):
+            raise ValueError(
+                f"use_pallas must be None/True/False/'auto', got "
+                f"{self.use_pallas!r}"
+            )
+        if self.debug_hit_layout not in ("scatter", "contig"):
+            raise ValueError(
+                f"unknown debug_hit_layout {self.debug_hit_layout!r}"
+            )
+        if self.decode_segmented:
+            raise NotImplementedError(
+                "decode_segmented=True is not ported yet "
+                "(ROADMAP.md §1 'Segmented decode attention')"
+            )
+        if self.offload_prefill_segments != 1:
+            raise NotImplementedError(
+                "offload_prefill_segments > 1 (layer-segmented offload "
+                "prefill) is not ported yet (ROADMAP.md §1 'Host offload, "
+                "rest')"
+            )
+        if not cache.is_shadow:
+            return
+        if self.use_pallas == "auto":
+            raise NotImplementedError(
+                "use_pallas='auto' is not ported yet "
+                "(ROADMAP.md §1 'use_pallas=\"auto\"')"
+            )
+        if self.use_pallas and self.ring_gather:
+            raise ValueError(
+                "use_pallas and ring_gather are mutually exclusive decode "
+                "paths"
+            )
+        if cache.mode == "shadow_offload" and not (
+            self.use_pallas or self.ring_gather
+        ):
+            if cache.kv_quant != "none":
+                raise ValueError(
+                    "offload + quantized V store needs ring_gather=True or "
+                    "use_pallas=True (the io_callback path serves bf16 rows "
+                    "only)"
                 )
-            if self.use_pallas is not True:
-                raise NotImplementedError(
-                    "the shadow decode path without the fused refresh kernel "
-                    "(use_pallas None/False) is not ported yet; pass "
-                    "use_pallas=True (ROADMAP.md §1 'XLA-gather decode branch')"
-                )
+            raise NotImplementedError(
+                "shadow_offload with neither ring_gather nor use_pallas is "
+                "the JAX HostVStore io_callback path, not ported yet "
+                "(ROADMAP.md §1 'Host offload, rest')"
+            )

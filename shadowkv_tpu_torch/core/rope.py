@@ -8,7 +8,8 @@ Two styles, as in the JAX package:
 
 The prefill/decode path rotates with cos/sin TABLES (bf16 when the model is
 bf16, as the engine builds them); the refresh kernel computes f32 trig from
-``inv_freq_full_neox`` instead.
+``inv_freq_full_neox`` instead, and the XLA-gather decode branch rotates
+rebuilt K rows in two stages with ``rotate_with_tables``.
 """
 
 from __future__ import annotations
@@ -110,3 +111,40 @@ def apply_rope(
     else:
         raise ValueError(f"unknown rope style: {style}")
     return out.to(orig_dtype)
+
+
+def rotate_with_tables(
+    x: torch.Tensor,
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    style: str = "neox",
+) -> torch.Tensor:
+    """Rotate x [..., head_dim] by cos/sin [..., rope_dim // 2] that
+    broadcast against x's leading dims; f32 math, one cast back to x's
+    dtype (JAX ``rotate_with_tables``)."""
+    orig_dtype = x.dtype
+    half = cos.shape[-1]
+    xf, c, s = x.float(), cos.float(), sin.float()
+    if style == "neox":
+        x1, x2 = xf[..., :half], xf[..., half:]
+        out = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+    elif style == "glm":
+        rot = 2 * half
+        xr, x_pass = xf[..., :rot], xf[..., rot:]
+        x_even, x_odd = xr[..., 0::2], xr[..., 1::2]
+        r_even = x_even * c - x_odd * s
+        r_odd = x_odd * c + x_even * s
+        rotated = torch.stack([r_even, r_odd], dim=-1).reshape(xr.shape)
+        out = torch.cat([rotated, x_pass], dim=-1)
+    else:
+        raise ValueError(f"unknown rope style: {style}")
+    return out.to(orig_dtype)
+
+
+def half_inv_freq(inv_freq_full: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """``compute_inv_freq(cfg)`` read back out of ``inv_freq_full_neox``'s
+    per-lane table (neox: its first half; glm: its even lanes), so a
+    caller that holds the table on the card needs no second copy."""
+    if cfg.rope_style == "neox":
+        return inv_freq_full[: cfg.rope_dim // 2]
+    return inv_freq_full[: cfg.rope_dim : 2]

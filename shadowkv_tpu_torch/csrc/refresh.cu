@@ -12,17 +12,27 @@
 //     TPU kernel's bf16 multiply does) or copies them (bf16 stores) into v_buf.
 // Hit slots move no bytes.
 //
+// The V store may lie in pinned host memory (CacheConfig mode
+// "shadow_offload"; the TPU kernel's host_v variant): the kernel then reads
+// the missed chunks' V rows in place over the host link, through the mapped
+// address that shadowkv_kernel_pointer (gather.cu) checks and returns. All
+// other operands, the V scales included, stay in device memory.
+//
 // What bounds it on an H100: device-memory bytes. Per missed chunk it reads
 // cs*rank U bytes and cs*Dh V bytes and writes 2*cs*Dh bf16 rows; the product
 // is cs*rank*Dh multiply-adds, far below the card's operation rate per byte.
 // At high hit rates most (b, k) cells have few or no misses, so launch and
-// per-block setup dominate instead.
+// per-block setup dominate instead. With V on the host, the missed chunks'
+// V bytes over the host link bound it (2 KB per int8 chunk, ~50 GB/s).
 // What the design does about it: one block per (b, k, group of 64/cs misses);
 // blocks past the miss count return before touching memory, so all-hit heads
 // cost a launch slot only. Each block stages SV[b, k] (rank x Dh bf16) and its
 // U rows in shared memory once and computes the [64 x Dh] product with
 // register-tiled scalar FMAs (no tensor cores: the product is too small per
-// block to pay for them in this first version). V rows move as 16-byte vectors.
+// block to pay for them in this first version). V rows move as 16-byte
+// vectors, loaded into registers right after the block's miss list is known
+// and stored after the K epilogue, so a V read's latency (1-2 us over the
+// host link) overlaps the U staging and the product instead of adding to them.
 // Scale and RoPE are fused into the epilogue, so K never round-trips through
 // device memory in f32.
 
@@ -36,6 +46,8 @@ constexpr int kRows = 64;       // token rows per block
 constexpr int kThreads = 256;   // 16 x 16 thread tile
 constexpr int kDh = 128;        // head_dim served by this kernel
 constexpr int kUStride = kRows + 4;  // f32 words per rank row of staged U
+constexpr int kVSegs = kDh / 16;     // 16-element V segments per row
+constexpr int kVIters = kRows * kVSegs / kThreads;  // V segments per thread
 
 struct RefreshArgs {
   const void* u;              // [B, n_rows, rank] int8 | bf16
@@ -118,6 +130,25 @@ __global__ void __launch_bounds__(kThreads) refresh_kernel(RefreshArgs a) {
   }
   __syncthreads();
 
+  // V rows -> registers: segment it*kThreads + tid of the block's rows, 16
+  // elements each (one 16-byte vector of int8, two of bf16).
+  constexpr int kVLoads = kQuant ? 1 : 2;
+  uint4 v_raw[kVIters][kVLoads];
+#pragma unroll
+  for (int it = 0; it < kVIters; ++it) {
+    const int idx = tid + it * kThreads;
+    const int row = idx / kVSegs;
+    const int src = s_src[row];
+    if (src < 0) continue;
+    const size_t off = ((size_t)bk * a.n_rows + src) * kDh + (idx % kVSegs) * 16;
+    const uint4* in = kQuant
+        ? reinterpret_cast<const uint4*>(reinterpret_cast<const int8_t*>(a.v) + off)
+        : reinterpret_cast<const uint4*>(
+              reinterpret_cast<const __nv_bfloat16*>(a.v) + off);
+#pragma unroll
+    for (int e = 0; e < kVLoads; ++e) v_raw[it][e] = in[e];
+  }
+
   // U rows -> shared memory, transposed to [rank][row] f32 (zeros for rows
   // past the miss count).
   for (int idx = tid; idx < kRows * a.rank; idx += kThreads) {
@@ -199,19 +230,17 @@ __global__ void __launch_bounds__(kThreads) refresh_kernel(RefreshArgs a) {
     a.k_buf[((size_t)bk * a.cap + dst) * kDh + c] = __float2bfloat16(out);
   }
 
-  // V rows: 16 elements per thread step.
-  for (int idx = tid; idx < kRows * (kDh / 16); idx += kThreads) {
-    const int row = idx / (kDh / 16);
-    const int seg = idx - row * (kDh / 16);
+  // V rows from registers: dequantize int8 segments, store 16-byte vectors.
+#pragma unroll
+  for (int it = 0; it < kVIters; ++it) {
+    const int idx = tid + it * kThreads;
+    const int row = idx / kVSegs;
     const int dst = s_dst[row];
     if (dst < 0) continue;
-    const size_t src_off = ((size_t)bk * a.n_rows + s_src[row]) * kDh + seg * 16;
-    const size_t dst_off = ((size_t)bk * a.cap + dst) * kDh + seg * 16;
+    const size_t dst_off = ((size_t)bk * a.cap + dst) * kDh + (idx % kVSegs) * 16;
     uint4* out = reinterpret_cast<uint4*>(a.v_buf + dst_off);
-    if (kQuant) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(
-          reinterpret_cast<const int8_t*>(a.v) + src_off);
-      const int8_t* q = reinterpret_cast<const int8_t*>(&raw);
+    if constexpr (kQuant) {
+      const int8_t* q = reinterpret_cast<const int8_t*>(&v_raw[it][0]);
       const float sc = s_vsc[row];
       __align__(16) __nv_bfloat16 vals[16];
 #pragma unroll
@@ -223,15 +252,15 @@ __global__ void __launch_bounds__(kThreads) refresh_kernel(RefreshArgs a) {
       out[0] = reinterpret_cast<const uint4*>(vals)[0];
       out[1] = reinterpret_cast<const uint4*>(vals)[1];
     } else {
-      const uint4* in = reinterpret_cast<const uint4*>(
-          reinterpret_cast<const __nv_bfloat16*>(a.v) + src_off);
-      out[0] = in[0];
-      out[1] = in[1];
+      out[0] = v_raw[it][0];
+      out[1] = v_raw[it][1];
     }
   }
 }
 
 }  // namespace
+
+extern "C" int shadowkv_kernel_pointer(const void* p, const void** out);
 
 extern "C" int shadowkv_sparse_refresh(
     const void* u, const void* u_scale, const void* sv, const void* v,
@@ -243,11 +272,14 @@ extern "C" int shadowkv_sparse_refresh(
   if (head_dim != kDh || kRows % chunk_size != 0 || rank <= 0) {
     return (int)cudaErrorInvalidValue;
   }
+  const void* v_dev = nullptr;  // v may be pinned host memory
+  const int rc = shadowkv_kernel_pointer(v, &v_dev);
+  if (rc) return rc;
   RefreshArgs a;
   a.u = u;
   a.u_scale = static_cast<const __nv_bfloat16*>(u_scale);
   a.sv = static_cast<const __nv_bfloat16*>(sv);
-  a.v = v;
+  a.v = v_dev;
   a.v_scale = static_cast<const __nv_bfloat16*>(v_scale);
   a.inv_freq = static_cast<const float*>(inv_freq);
   a.miss_chunk = static_cast<const int*>(miss_chunk);

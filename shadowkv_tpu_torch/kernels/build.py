@@ -25,7 +25,7 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
-SOURCES = ("refresh.cu", "prefill_attention.cu")
+SOURCES = ("refresh.cu", "prefill_attention.cu", "gather.cu")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # No --use_fast_math: the refresh kernel's RoPE needs precise sincosf at
 # angles of ~1e5 rad.
@@ -39,6 +39,7 @@ _SIGNATURES = {
     "shadowkv_prefill_attention": (
         [_P] * 4 + [_I] * 5 + [ctypes.c_float, _P], _I
     ),
+    "shadowkv_gather_chunks": ([_P] * 9 + [_I] * 7 + [_P], _I),
 }
 
 _lib = None  # the loaded library; one per process
@@ -119,6 +120,21 @@ def library() -> ctypes.CDLL:
             fn.restype = restype
         _lib = lib
     return _lib
+
+
+def check_v_store(v_full, device, what: str) -> None:
+    """A V store the kernels can read: contiguous, and on ``device`` or in
+    pinned host memory (a kernel reads pageable memory wrongly or not at
+    all)."""
+    if not v_full.is_contiguous():
+        raise ValueError(f"{what}: v_full must be contiguous")
+    if v_full.is_cuda:
+        if v_full.device != device:
+            raise ValueError(f"{what}: v_full on another device")
+    elif not v_full.is_pinned():
+        raise ValueError(f"{what}: a CPU v_full must be pinned "
+                         "(torch.empty(..., pin_memory=True)); the kernel "
+                         "cannot read pageable memory")
 
 
 def check(rc: int, what: str) -> None:

@@ -17,6 +17,12 @@ Hit slots move no bytes. The JAX kernel returns new buffers aliased onto
 its inputs (``input_output_aliases``); here ``k_buf``/``v_buf`` are
 updated IN PLACE and returned.
 
+``v_full`` may be a PINNED CPU tensor (``mode="shadow_offload"``; the TPU
+kernel's ``host_v`` variant): the CUDA kernel then reads the missed chunks'
+V rows in place over the host link. Every other operand, the V scales
+included, lies on the card. CPU miss lists take the plain version; CUDA
+ones launch the kernel or raise.
+
 Store layout (the port's own; see ``core/quant.py``): U is
 ``[L, B, C*cs, rank]`` (no TPU lane padding), V is ``[L, B, K, C*cs, Dh]``;
 int8 stores carry their bf16 per-token scales in separate tensors
@@ -111,16 +117,17 @@ def _check_cuda_args(miss_chunk, miss_slot, miss_cnt, u, sv, v_full,
     l, b, n_rows, rank = u.shape
     kh, dh = sv.shape[2], sv.shape[4]
     quant = u.dtype == torch.int8
-    tensors = [miss_chunk, miss_slot, miss_cnt, u, sv, v_full,
-               inv_freq_full, k_buf, v_buf]
+    tensors = [miss_chunk, miss_slot, miss_cnt, u, sv, inv_freq_full,
+               k_buf, v_buf]
     if quant:
         tensors += [u_scale, v_scale]
     for t in tensors:
         if t is None or not t.is_cuda or not t.is_contiguous():
-            raise ValueError("sparse_refresh: every operand must be a "
-                             "contiguous CUDA tensor")
-        if t.device != u.device:
+            raise ValueError("sparse_refresh: every operand but v_full must "
+                             "be a contiguous CUDA tensor")
+        if t.device != miss_chunk.device:
             raise ValueError("sparse_refresh: operands on different devices")
+    build.check_v_store(v_full, miss_chunk.device, "sparse_refresh")
     if dh != 128:
         raise ValueError(f"sparse_refresh kernel serves head_dim 128, got {dh}")
     if 64 % chunk_size != 0:
@@ -165,7 +172,7 @@ def sparse_refresh(
     miss_cnt: torch.Tensor,  # [B, K] int32
     u: torch.Tensor,  # [L, B, C*cs, r] int8 | model dtype
     sv: torch.Tensor,  # [L, B, K, r, Dh]
-    v_full: torch.Tensor,  # [L, B, K, C*cs, Dh] int8 | model dtype
+    v_full: torch.Tensor,  # [L, B, K, C*cs, Dh]; CUDA or pinned CPU
     inv_freq_full: torch.Tensor,  # [Dh] f32 per-lane inverse frequencies
     k_buf: torch.Tensor,  # [L, B, K, cap, Dh], updated in place
     v_buf: torch.Tensor,  # [L, B, K, cap, Dh], updated in place
@@ -179,13 +186,13 @@ def sparse_refresh(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Refresh layer ``layer``'s sparse region of k_buf/v_buf in place.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel
+    CPU miss lists take the plain version; CUDA ones launch the kernel
     (``csrc/refresh.cu``) on the current stream or raise.
     """
     kw = dict(chunk_size=chunk_size, sparse_start=sparse_start,
               rope_dim=rope_dim, rope_style=rope_style,
               u_scale=u_scale, v_scale=v_scale)
-    if not u.is_cuda:
+    if not miss_chunk.is_cuda:
         return sparse_refresh_plain(
             layer, miss_chunk, miss_slot, miss_cnt, u, sv, v_full,
             inv_freq_full, k_buf, v_buf, **kw,
@@ -207,6 +214,8 @@ def sparse_refresh(
         raise ValueError(f"rank {rank} needs {smem} B of shared memory")
     quant = u.dtype == torch.int8
     sparse_refresh.launches += 1
+    if not v_full.is_cuda:
+        sparse_refresh.host_launches += 1
     rc = lib.shadowkv_sparse_refresh(
         u[layer].data_ptr(),
         u_scale[layer].data_ptr() if quant else None,
@@ -218,10 +227,11 @@ def sparse_refresh(
         k_buf[layer].data_ptr(), v_buf[layer].data_ptr(),
         b, kh, n_rows, rank, dh, select_sets, cap, chunk_size,
         sparse_start, rope_dim, int(rope_style == _GLM), int(quant),
-        torch.cuda.current_stream(u.device).cuda_stream,
+        torch.cuda.current_stream(miss_chunk.device).cuda_stream,
     )
     build.check(rc, "sparse_refresh")
     return k_buf, v_buf
 
 
 sparse_refresh.launches = 0  # kernel launches (CUDA path only)
+sparse_refresh.host_launches = 0  # of which read V from pinned host memory

@@ -6,6 +6,18 @@ device; asking for CUDA on a machine without one raises, it never falls
 back to the CPU. Prefill runs in sub-batches into one preallocated cache.
 Decode runs one eager step per token (JAX jits each step; a CUDA graph of
 the step is later work).
+
+``mode="shadow_offload"`` keeps the V store in host memory: one tensor,
+pinned when the engine runs on the card (a plain CPU tensor on a CPU
+engine, so the same code runs in the tests), allocated at prefill. Each
+layer of each prefill sub-batch copies its V rows straight into it, so the
+full-batch V store is never on the card; the JAX engine instead prefills a
+sub-batch's whole V store on the device and evicts it after the sub-batch.
+Decode reads the host store in place through the fused refresh kernel
+(misses only) or the chunk-gather kernel (every selected chunk); no host
+copy enters the decode step. Not ported (ROADMAP.md §1 'Host offload,
+rest'): the ``HostVStore`` io_callback path, the layer-segmented offload
+prefill, per-slot host parts and the TPU's 4096-byte host layout.
 """
 
 from __future__ import annotations
@@ -84,6 +96,12 @@ class Engine:
             rope_lib.inv_freq_full_neox(model).to(self.device)
             if self.is_shadow else None
         )
+        # Decode strategy (JAX engine._build_jits): the fused refresh kernel
+        # with use_pallas=True, else the XLA-gather branch, through the
+        # chunk-gather kernel with ring_gather=True.
+        self.use_kernel = bool(rt.use_pallas)
+        self.ring_gather = bool(rt.ring_gather)
+        self.v_on_host = cache_cfg.mode == "shadow_offload"
         self._cache = None
         self._hit_samples: list[torch.Tensor] = []
         self._hit_ema: torch.Tensor | None = None
@@ -92,7 +110,7 @@ class Engine:
 
     @property
     def is_shadow(self) -> bool:
-        return self.cache_cfg.mode == "shadow"
+        return self.cache_cfg.is_shadow
 
     # -- prefill ------------------------------------------------------------
 
@@ -113,7 +131,8 @@ class Engine:
         parts = []
         if self.is_shadow:
             layout = ShadowLayout.build(self.cache_cfg, s)
-            cache = ShadowCache.init(self.model, layout, b, self.device)
+            cache = ShadowCache.init(self.model, layout, b, self.device,
+                                     v_on_host=self.v_on_host)
             for b0 in range(0, b, t):
                 parts.append(forward.prefill_shadow_into(
                     self.model, self.params, cache, input_ids[b0:b0 + t],
@@ -138,6 +157,9 @@ class Engine:
                 self.model, self.params, cache, tokens, self.cos_table,
                 self.sin_table, self.inv_freq_full,
                 hysteresis=self.rt.selection_hysteresis,
+                use_kernel=self.use_kernel, ring=self.ring_gather,
+                debug_hit_rate=self.rt.debug_hit_rate,
+                debug_hit_layout=self.rt.debug_hit_layout,
             )
             if self.rt.track_hit_rate:
                 self._observe_hits(cache)
@@ -267,8 +289,9 @@ class Engine:
 
     def kv_stats(self) -> dict:
         """Cache statistics from the live cache: bytes per field, the
-        cached length and, with ``track_hit_rate``, the sampled slot hit
-        rate."""
+        device and host bytes (an offloaded V store counts as host bytes
+        only), the cached length and, with ``track_hit_rate``, the sampled
+        slot hit rate."""
         cc = self.cache_cfg
         out: dict = {"mode": cc.mode, "quant": cc.kv_quant}
         cache = self._cache
@@ -284,7 +307,11 @@ class Engine:
             if t is not None:
                 bytes_by_field[name] = t.numel() * t.element_size()
         out["bytes_by_field"] = bytes_by_field
+        host_bytes = 0
+        if self.is_shadow and cache.v_on_host:
+            host_bytes = bytes_by_field.pop("v_full")
         out["device_bytes"] = sum(bytes_by_field.values())
+        out["host_bytes"] = host_bytes
         if self.is_shadow:
             out["cached"] = cache.kv_len
             if self._hit_samples:

@@ -5,8 +5,9 @@ here it is a Python loop over layers. Caches are updated in place.
 
 - ``prefill_full`` / ``decode_full``: the full-attention baseline;
 - ``prefill_shadow_into`` / ``decode_shadow``: the ShadowKV path (dense
-  prefill building the shadow cache; sparse decode through the fused
-  refresh kernel).
+  prefill building the shadow cache, its V store on the card or in host
+  memory; sparse decode through the fused refresh kernel or the
+  XLA-gather branch, see ``cache/shadow.py``).
 
 Prefill attention is the causal GQA kernel (``kernels/prefill_attention.py``)
 for both ``prefill_pattern`` values this port serves; on CPU tensors it is
@@ -144,7 +145,8 @@ def shadow_prefill_body(
     """One prefill layer (JAX ``make_shadow_prefill_body``, non-segmented):
     QKV + RoPE, the layer's shadow-cache slices written into ``cache`` at
     (layer, batch_start), dense causal attention, MLP. Returns the new
-    residual."""
+    residual. A host V store takes its rows by a synchronous copy from the
+    card, so the layer's V rows are on the card only while it runs."""
     q, k_r, k_pre, v = _layer_qkv(model, lp, x, cos, sin)
     slices = shadow_prefill_layer(
         model, cache.layout, k_pre, k_r, v, q[:, -1:], omega=omega
@@ -190,8 +192,14 @@ def decode_shadow(
     sin_table: torch.Tensor,
     inv_freq_full: torch.Tensor,
     hysteresis: float = 0.0,
+    use_kernel: bool = False,
+    ring: bool = False,
+    debug_hit_rate: float | None = None,
+    debug_hit_layout: str = "scatter",
 ) -> torch.Tensor:
-    """One sparse decode step over all layers; advances ``cache.gen_len``."""
+    """One sparse decode step over all layers; advances ``cache.gen_len``.
+    ``use_kernel`` picks the fused refresh, else the XLA-gather branch
+    (through the chunk-gather kernel with ``ring``)."""
     b, qn = tokens.shape
     x = params.embed[tokens]
     cos, sin = _tables(cos_table, sin_table, cache.kv_len, qn)
@@ -199,7 +207,10 @@ def decode_shadow(
         lp = params.layer(layer)
         q, k_r, _, v = _layer_qkv(model, lp, x, cos, sin)
         k_view, v_view, valid_len = shadow_decode_layer(
-            model, cache, layer, q, k_r, v, inv_freq_full, hysteresis
+            model, cache, layer, q, k_r, v, inv_freq_full, hysteresis,
+            use_kernel=use_kernel, ring=ring, cos_table=cos_table,
+            sin_table=sin_table, debug_hit_rate=debug_hit_rate,
+            debug_hit_layout=debug_hit_layout,
         )
         ctx = decode_attention_hm(q, k_view, v_view, valid_len)
         x = _layer_tail(lp, model, x, ctx)

@@ -2,8 +2,15 @@
 
 Runs the same Llama-3.1-8B-shape slice as ``chip_smoke.py`` (synthetic
 bf16 weights, shadow cache with budget 2048 / rank 160 / chunk 16 / int8
-stores, or the full-attention baseline), then traces with
-``torch.profiler`` (CPU + CUDA activities):
+stores, or the full-attention baseline) with one of its decode paths:
+
+- ``shadow``: V store on the card, fused refresh (kernel A);
+- ``ring``: V store on the card, XLA-gather branch through kernel D;
+- ``offload-fused`` / ``offload-ring``: the same two with the V store
+  pinned in host memory (the kernels read it over the host link);
+- ``full``: the full-attention baseline;
+
+then traces with ``torch.profiler`` (CPU + CUDA activities):
 
 - the whole prefill;
 - ``--steps`` greedy decode steps after two untimed ones.
@@ -11,10 +18,11 @@ stores, or the full-attention baseline), then traces with
 For each window it prints one JSON line: wall seconds (host clock around
 work that ends in a synchronize), device-busy seconds (the union of the
 CUDA kernels' intervals), the idle share, and the kernels and operators
-that take the most device time. The full tables go to
+that take the most device time, with the device time of the port's own
+decode kernels (A, D) summed apart. The full tables go to
 ``<out-dir>/profile_<mode>_<window>.txt``.
 
-    python -m shadowkv_tpu_torch.tools.profile_slice --mode shadow
+    python -m shadowkv_tpu_torch.tools.profile_slice --mode offload-fused
 """
 
 from __future__ import annotations
@@ -66,6 +74,30 @@ def _top(prof, n: int = 12) -> list[dict]:
     return rows[:n]
 
 
+# mode -> (cache mode, decode runtime settings)
+MODES = {
+    "shadow": ("shadow", dict(use_pallas=True)),
+    "ring": ("shadow", dict(ring_gather=True)),
+    "offload-fused": ("shadow_offload", dict(use_pallas=True)),
+    "offload-ring": ("shadow_offload", dict(ring_gather=True)),
+    "full": ("full", dict()),
+}
+# the port's decode kernels, by the argument struct in their names
+KERNELS = {"RefreshArgs": "A refresh", "GatherArgs": "D gather"}
+
+
+def _kernel_ms(prof) -> dict:
+    """Device ms and calls of the port's decode kernels."""
+    out = {}
+    for a in prof.key_averages():
+        for key, label in KERNELS.items():
+            if key in a.key:
+                ms, n = out.get(label, (0.0, 0))
+                out[label] = (ms + getattr(a, "self_device_time_total", 0.0)
+                              / 1e3, n + a.count)
+    return {k: {"device_ms": ms, "calls": n} for k, (ms, n) in out.items()}
+
+
 def _report(prof, wall: float, label: str, extra: dict, out_dir: Path) -> None:
     busy = _busy_seconds(prof)
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -76,13 +108,13 @@ def _report(prof, wall: float, label: str, extra: dict, out_dir: Path) -> None:
     print(json.dumps({
         "window": label, "wall_s": wall, "device_busy_s": busy,
         "idle_share": 1.0 - busy / wall if wall > 0 else None,
-        "top": _top(prof), **extra,
+        "kernels": _kernel_ms(prof), "top": _top(prof), **extra,
     }), flush=True)
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--mode", choices=("shadow", "full"), default="shadow")
+    ap.add_argument("--mode", choices=tuple(MODES), default="shadow")
     ap.add_argument("--prompt", type=int, default=32768)
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--steps", type=int, default=4)
@@ -97,10 +129,11 @@ def main() -> None:
     params = init_synthetic_params(
         cfg, torch.Generator(device="cuda").manual_seed(args.seed),
         device="cuda")
-    cc = CacheConfig(mode=args.mode, max_length=args.prompt + 256,
+    mode, rt_kw = MODES[args.mode]
+    cc = CacheConfig(mode=mode, max_length=args.prompt + 256,
                      sparse_budget=2048, rank=160, chunk_size=16,
                      kv_quant="int8", gen_capacity=256)
-    rt = RuntimeConfig(prefill_pattern="dense-splash", use_pallas=True)
+    rt = RuntimeConfig(prefill_pattern="dense-splash", **rt_kw)
     eng = Engine(cfg, cc, rt, params, device="cuda")
     ids = np.random.RandomState(args.seed).randint(
         1, cfg.vocab_size, (args.batch, args.prompt))

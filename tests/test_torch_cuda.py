@@ -3,10 +3,12 @@ small shapes. These need an NVIDIA GPU and skip without one; on the GPU
 machine run ``python -m pytest tests/test_torch_cuda.py -q``.
 
 Tolerances: K rows within 2 bf16 ulps of the largest value (f32 sums in
-another order, one bf16 rounding); int8 V rows exact; attention outputs
-within 2^-6 of each row's largest value, per (b, s, h) row, since the
-output's scale falls with the row index (bf16 probabilities and one bf16
-rounding give a few 2^-9)."""
+another order, one bf16 rounding); int8 V rows exact; gathered chunks
+bit-equal (the gather moves bytes only); attention outputs within 2^-6 of
+each row's largest value, per (b, s, h) row, since the output's scale falls
+with the row index (bf16 probabilities and one bf16 rounding give a few
+2^-9). The refresh and the gather run with the V store on the card and
+pinned in host memory."""
 
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import torch
 from shadowkv_tpu_torch.core.attention import causal_prefill_attention
 from shadowkv_tpu_torch.core.quant import quantize_store
 from shadowkv_tpu_torch.core.selection import assign_slots_stable, compact_misses
+from shadowkv_tpu_torch.kernels.gather import gather_chunks, gather_chunks_plain
 from shadowkv_tpu_torch.kernels.prefill_attention import causal_prefill_splash
 from shadowkv_tpu_torch.kernels.reconstruct import (
     sparse_refresh,
@@ -41,11 +44,12 @@ def _row_rel_err(out, ref):
     return float((err / ref.float().abs().amax(dim=-1).clamp_min(1e-6)).max())
 
 
-@pytest.mark.parametrize("quant, style, cs", [
-    (True, "neox", 16), (False, "neox", 16), (True, "glm", 16),
-    (True, "neox", 8),
+@pytest.mark.parametrize("quant, style, cs, host_v", [
+    (True, "neox", 16, False), (False, "neox", 16, False),
+    (True, "glm", 16, False), (True, "neox", 8, False),
+    (True, "neox", 16, True), (False, "neox", 16, True),
 ])
-def test_refresh_kernel_matches_plain(gen, quant, style, cs):
+def test_refresh_kernel_matches_plain(gen, quant, style, cs, host_v):
     l, b, kh, c, rank, dh, s = 2, 2, 4, 64, 96, 128, 16
     dev = "cuda"
     u = torch.randn(l, b, c * cs, rank, device=dev, generator=gen).bfloat16()
@@ -76,10 +80,12 @@ def test_refresh_kernel_matches_plain(gen, quant, style, cs):
               rope_style=style, u_scale=u_sc, v_scale=v_sc)
     k_ref, v_ref = k_buf.clone(), v_buf.clone()
     sparse_refresh_plain(1, mc, ms, cnt, u, sv, v, inv, k_ref, v_ref, **kw)
-    before = sparse_refresh.launches
-    sparse_refresh(1, mc, ms, cnt, u, sv, v, inv, k_buf, v_buf, **kw)
+    v_in = v.cpu().pin_memory() if host_v else v
+    before = (sparse_refresh.launches, sparse_refresh.host_launches)
+    sparse_refresh(1, mc, ms, cnt, u, sv, v_in, inv, k_buf, v_buf, **kw)
     torch.cuda.synchronize()
-    assert sparse_refresh.launches == before + 1
+    assert (sparse_refresh.launches, sparse_refresh.host_launches) == (
+        before[0] + 1, before[1] + int(host_v))
     assert float((k_buf.float() - k_ref.float()).abs().max()) <= _bf16_tol(k_ref)
     assert torch.equal(v_buf, v_ref)
 
@@ -96,6 +102,56 @@ def test_prefill_attention_kernel_matches_plain(gen, s, g):
     torch.cuda.synchronize()
     assert causal_prefill_splash.launches == before + 1
     assert _row_rel_err(out, ref) <= 2.0**-6
+
+
+def _gather_inputs(gen, quant, l=2, b=2, kh=4, c=64, cs=16, rank=96, s=24):
+    u = torch.randn(l, b, c * cs, rank, device="cuda", generator=gen).bfloat16()
+    v = torch.randn(l, b, kh, c * cs, 128, device="cuda", generator=gen).bfloat16()
+    u_sc = v_sc = None
+    if quant:
+        u, u_sc = quantize_store(u)
+        v, v_sc = quantize_store(v)
+    ids = torch.randint(0, c, (b, kh, s), device="cuda", generator=gen,
+                        dtype=torch.int32)
+    return ids, u, v, u_sc, v_sc
+
+
+@pytest.mark.parametrize("quant", [True, False])
+@pytest.mark.parametrize("host_v", [False, True])
+def test_gather_kernel_matches_plain(gen, quant, host_v):
+    ids, u, v, u_sc, v_sc = _gather_inputs(gen, quant)
+    ref = gather_chunks_plain(1, ids, u, v, u_sc, v_sc, chunk_size=16)
+    v_in = v.cpu().pin_memory() if host_v else v
+    before = (gather_chunks.launches, gather_chunks.host_launches)
+    out = gather_chunks(1, ids, u, v_in, u_sc, v_sc, chunk_size=16)
+    torch.cuda.synchronize()
+    assert (gather_chunks.launches, gather_chunks.host_launches) == (
+        before[0] + 1, before[1] + int(host_v))
+    for got, want in zip(out, ref):
+        if want is None:
+            assert got is None
+        else:
+            assert got.is_cuda and torch.equal(got, want)
+
+
+def test_host_store_must_be_pinned_and_the_rest_on_the_card(gen):
+    ids, u, v, u_sc, v_sc = _gather_inputs(gen, True)
+    with pytest.raises(ValueError, match="pinned"):
+        gather_chunks(0, ids, u, v.cpu(), u_sc, v_sc, chunk_size=16)
+    with pytest.raises(ValueError):
+        gather_chunks(0, ids, u.cpu(), v, u_sc, v_sc, chunk_size=16)
+    b, kh, s = ids.shape
+    mc, ms, cnt = ids, ids, torch.full((b, kh), s, device="cuda",
+                                        dtype=torch.int32)
+    sv = torch.zeros(2, b, kh, u.shape[-1], 128, device="cuda").bfloat16()
+    buf = torch.zeros(2, b, kh, 16 + s * 16, 128, device="cuda").bfloat16()
+    inv = torch.ones(128, device="cuda")
+    kw = dict(chunk_size=16, sparse_start=16, rope_dim=128, u_scale=u_sc,
+              v_scale=v_sc)
+    with pytest.raises(ValueError, match="pinned"):
+        sparse_refresh(0, mc, ms, cnt, u, sv, v.cpu(), inv, buf, buf.clone(), **kw)
+    with pytest.raises(ValueError):
+        sparse_refresh(0, mc, ms, cnt, u.cpu(), sv, v, inv, buf, buf.clone(), **kw)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(gen):

@@ -4,8 +4,9 @@ on a float32 toy model (head_dim 128, hidden 512, 4 heads / 2 KV heads,
 same prompt and the same low-rank sketch.
 
 Shadow mode runs the fused-refresh decode (``use_pallas=True``: the JAX
-Pallas kernel in interpret mode, the port's plain kernel versions) on int8
-stores with chunk 16 (and on unquantized stores). Checks: prefill logits
+Pallas kernel in interpret mode, the port's plain kernel versions) and the
+XLA-gather branch (``use_pallas=None``, the JAX default) on int8 stores
+with chunk 16 (and on unquantized stores). Checks: prefill logits
 within atol 1e-4 (+ rtol 1e-5); greedy tokens equal; cached chunk ids
 equal; compact buffers within 5 % of their largest entry on int8 stores
 (the two f32 factorizations round some U entries to neighbouring int8
@@ -67,21 +68,39 @@ def models():
             from_jax_params(np_params, device="cpu"), ids)
 
 
-def _engines(models, **cache_kw):
+def _engines(models, rt_kw=None, t_cache_kw=None, **cache_kw):
+    """A JAX and a port engine on the same weights and sketch; ``rt_kw``
+    sets both runtimes (default: the fused refresh), ``t_cache_kw``
+    overrides the port's cache config only."""
     jcfg, jparams, tcfg, tparams, _ = models
+    rt_kw = dict(use_pallas=True) if rt_kw is None else rt_kw
     kw = dict(max_length=PROMPT + 32, sparse_budget=128, rank=RANK,
               chunk_size=16, outlier_chunks=4, gen_capacity=32, **cache_kw)
-    je = JEngine(jcfg, JCache(**kw), JRuntime(prefill_block_q=128,
-                                              use_pallas=True), jparams)
+    je = JEngine(jcfg, JCache(**kw), JRuntime(prefill_block_q=128, **rt_kw),
+                 jparams)
     # JAX draws its sketch from PRNGKey(7) inside lowrank_kv_factors; hand
     # the port the same one.
     d = jcfg.num_kv_heads * jcfg.head_dim
     omega = jax.random.normal(jax.random.PRNGKey(7), (d, min(d, RANK + 32)),
                               jnp.float32)
-    te = TEngine(tcfg, TCache(**kw),
-                 TRuntime(use_pallas=True), tparams,
+    te = TEngine(tcfg, TCache(**dict(kw, **(t_cache_kw or {}))),
+                 TRuntime(**rt_kw), tparams,
                  device="cpu", sketch=torch.from_numpy(np.array(omega)))
     return je, te
+
+
+def _compare_decode(je, te, ids, kv_quant):
+    """Greedy tokens and cached ids equal; compact buffers close (see the
+    module docstring for the tolerances)."""
+    jt, _ = je.generate(ids, gen_len=GEN)
+    tt, _ = te.generate(ids, gen_len=GEN)
+    np.testing.assert_array_equal(tt, jt)
+    jc, tc = je._cache, te._cache
+    assert tc.gen_len == int(jc.gen_len) == GEN - 1
+    np.testing.assert_array_equal(tc.cached_ids.numpy(), np.asarray(jc.cached_ids))
+    frac = 5e-2 if kv_quant == "int8" else 1e-3
+    _close_rel(tc.k_buf.numpy(), jc.k_buf, frac)
+    _close_rel(tc.v_buf.numpy(), jc.v_buf, frac)
 
 
 def _close_rel(a, b, frac):
@@ -97,17 +116,29 @@ def test_shadow_engine_matches_jax(models, kv_quant):
     jl, _ = je.prefill(ids)
     tl, _ = te.prefill(ids)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4, rtol=1e-5)
+    _compare_decode(je, te, ids, kv_quant)
 
-    jt, _ = je.generate(ids, gen_len=GEN)
-    tt, _ = te.generate(ids, gen_len=GEN)
-    np.testing.assert_array_equal(tt, jt)
 
-    jc, tc = je._cache, te._cache
-    assert tc.gen_len == int(jc.gen_len) == GEN - 1
-    np.testing.assert_array_equal(tc.cached_ids.numpy(), np.asarray(jc.cached_ids))
-    frac = 5e-2 if kv_quant == "int8" else 1e-3
-    _close_rel(tc.k_buf.numpy(), jc.k_buf, frac)
-    _close_rel(tc.v_buf.numpy(), jc.v_buf, frac)
+@pytest.mark.parametrize("kv_quant", ["int8", "none"])
+def test_xla_gather_engine_matches_jax(models, kv_quant):
+    """The XLA-gather decode branch (use_pallas=None, the JAX default):
+    every selected chunk gathered, hits kept by a select, K rotated in two
+    stages."""
+    je, te = _engines(models, rt_kw=dict(use_pallas=None), mode="shadow",
+                      kv_quant=kv_quant)
+    assert not te.use_kernel and not te.ring_gather
+    _compare_decode(je, te, models[-1], kv_quant)
+
+
+def test_forced_hit_rate_engine_matches_jax(models):
+    """The benchmark-only forced selection (``debug_hit_rate``) on the
+    XLA-gather engine: JAX's ids, tokens and buffers, and a sampled slot hit
+    rate equal to the forced one (8 slots, the window slides by 2)."""
+    rt_kw = dict(use_pallas=None, debug_hit_rate=0.75, track_hit_rate=True,
+                 pallas_auto_interval=2)
+    je, te = _engines(models, rt_kw=rt_kw, mode="shadow", kv_quant="int8")
+    _compare_decode(je, te, models[-1], "int8")
+    assert te.kv_stats()["hit_rate_mean"] == 0.75
 
 
 def test_full_engine_matches_jax(models):

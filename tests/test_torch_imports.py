@@ -40,6 +40,7 @@ def test_port_files_exist():
         "chip_smoke.py",
         "shadowkv_tpu_torch/config.py",
         "shadowkv_tpu_torch/kernels/reconstruct.py",
+        "shadowkv_tpu_torch/kernels/gather.py",
         "shadowkv_tpu_torch/kernels/prefill_attention.py",
         "shadowkv_tpu_torch/models/engine.py",
     ):
@@ -73,19 +74,21 @@ def test_engine_cuda_without_gpu_raises():
 @pytest.mark.parametrize(
     "cache_kw, rt_kw",
     [
-        (dict(mode="shadow"), dict()),  # XLA gather decode branch
+        # the JAX HostVStore io_callback path (bf16 offload, no kernel)
+        (dict(mode="shadow_offload"), dict()),
         (dict(mode="shadow"), dict(use_pallas="auto")),
-        (dict(mode="shadow_offload"), dict(use_pallas=True)),
+        (dict(mode="shadow_offload"),
+         dict(use_pallas=True, offload_prefill_segments=2)),
         (dict(mode="full"), dict(tp=2)),
         (dict(mode="full"), dict(prefill_pattern="stream")),
         (dict(mode="full"), dict(weight_quant="int8")),
-        (dict(mode="shadow"), dict(use_pallas=True, ring_gather=True)),
+        (dict(mode="shadow"), dict(decode_segmented=True)),
     ],
 )
 def test_unserved_settings_are_rejected(cache_kw, rt_kw):
     """Unported values of served fields raise NotImplementedError naming
-    the ROADMAP item; fields of unported paths (parallelism, int8 weights,
-    ring gather) do not exist, so passing one is a TypeError."""
+    the ROADMAP item; fields of unported paths (parallelism, int8 weights)
+    do not exist, so passing one is a TypeError."""
     served = {f.name for f in dataclasses.fields(RuntimeConfig)}
     if not set(rt_kw) <= served:
         with pytest.raises(TypeError):

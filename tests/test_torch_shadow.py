@@ -1,7 +1,9 @@
 """Shadow-cache building blocks of the PyTorch port against the JAX package
 on the same numpy inputs: low-rank factors, landmarks and outliers,
-selection, slot-stable reuse, miss compaction, int8 stores and the cache
-geometry. float32 module math at atol = rtol = 1e-5 unless stated; int8
+selection, slot-stable reuse, miss compaction, int8 stores, the cache
+geometry, and one decode layer through the XLA-gather branch (tensor
+gather and ring gather, with and without the forced ``debug_hit_rate``
+selection). float32 module math at atol = rtol = 1e-5 unless stated; int8
 values, bf16 scales and integer ids exactly equal."""
 
 from __future__ import annotations
@@ -14,16 +16,24 @@ import jax.numpy as jnp
 import torch
 
 from shadowkv_tpu.cache.shadow import ShadowLayout as JLayout
+from shadowkv_tpu.cache.shadow import ShadowMut, ShadowStatic
+from shadowkv_tpu.cache.shadow import shadow_decode_layer as j_decode_layer
 from shadowkv_tpu.config import CacheConfig as JCache
 from shadowkv_tpu.core import lowrank as jlr
 from shadowkv_tpu.core import quant as jq
 from shadowkv_tpu.core import selection as jsel
+from shadowkv_tpu.core import rope as jrope
 from shadowkv_tpu.kernels.reconstruct import compact_misses as j_compact
+from shadowkv_tpu.models.registry import toy_config as j_toy
+from shadowkv_tpu_torch.cache.shadow import ShadowCache as TShadowCache
 from shadowkv_tpu_torch.cache.shadow import ShadowLayout as TLayout
+from shadowkv_tpu_torch.cache.shadow import shadow_decode_layer as t_decode_layer
 from shadowkv_tpu_torch.config import CacheConfig as TCache
 from shadowkv_tpu_torch.core import lowrank as tlr
 from shadowkv_tpu_torch.core import quant as tq
+from shadowkv_tpu_torch.core import rope as trope
 from shadowkv_tpu_torch.core import selection as tsel
+from shadowkv_tpu_torch.models.registry import toy_config as t_toy
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 
@@ -221,3 +231,110 @@ def test_layout_geometry(prefill_len, budget, cs):
 def test_layout_rejects_unaligned_prefill():
     with pytest.raises(ValueError):
         TLayout.build(TCache(sparse_budget=128, chunk_size=16), 1028)
+
+
+# --------------------------------------------------------------------------
+# One decode layer, XLA-gather branch
+# --------------------------------------------------------------------------
+
+DEC = dict(head_dim=128, num_heads=4, num_kv_heads=2)
+DEC_PROMPT, DEC_RANK, DEC_GEN = 512, 40, 3
+
+
+def _decode_inputs(seed, quant, ring):
+    """Both packages' caches packed from the same float values, plus the
+    step's queries and new K/V rows."""
+    jcfg, tcfg = j_toy(dtype=jnp.float32, **DEC), t_toy(dtype=torch.float32, **DEC)
+    kw = dict(mode="shadow", max_length=DEC_PROMPT + 32, sparse_budget=128,
+              rank=DEC_RANK, chunk_size=16, outlier_chunks=4, gen_capacity=16,
+              kv_quant=quant)
+    jl = JLayout.build(JCache(**kw), DEC_PROMPT, kernel_store=ring,
+                       num_kv_heads=jcfg.num_kv_heads)
+    tl = TLayout.build(TCache(**kw), DEC_PROMPT)
+    rng = np.random.default_rng(seed)
+    l, b, kh, h, dh = jcfg.num_layers, 2, jcfg.num_kv_heads, jcfg.num_heads, 128
+    c, cs, s, cap, rp = tl.chunks, tl.chunk_size, tl.select_sets, tl.buffer_cap, jl.rank_pad
+
+    def f(*shape, scale=1.0):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    u, sv, v = f(l, b, c, cs, DEC_RANK), f(l, b, kh, DEC_RANK, dh, scale=0.1), f(l, b, kh, c, cs, dh)
+    lms, k_buf, v_buf = f(l, b, kh, c, dh), f(l, b, kh, cap, dh), f(l, b, kh, cap, dh)
+    mask = rng.random((l, b, kh, c)) > 0.15
+    ids = np.stack([rng.permutation(c)[:s] for _ in range(l * b * kh)])
+    ids = ids.reshape(l, b, kh, s).astype(np.int32)
+    step = dict(q=f(b, 1, h, dh), k_new=f(b, 1, kh, dh), v_new=f(b, 1, kh, dh))
+
+    u_pad = np.zeros((l, b, c, cs, rp), np.float32)
+    u_pad[..., :DEC_RANK] = u
+    sv_pad = np.zeros((l, b, kh, rp, dh), np.float32)
+    sv_pad[..., :DEC_RANK, :] = sv
+    u_t = _t(u.reshape(l, b, c * cs, DEC_RANK))
+    v_t = _t(v.reshape(l, b, kh, c * cs, dh))
+    lm_sc = u_sc = v_sc = None
+    if quant == "int8":
+        j_u, j_v = jq.pack_shadow_int8(jnp.asarray(u_pad), jnp.asarray(v),
+                                       rank=DEC_RANK, tiled=ring)
+        lq, lm_sc = tq.quantize_rows(_t(lms))
+        lms = lq.numpy()
+        u_t, u_sc = tq.quantize_store(u_t)
+        v_t, v_sc = tq.quantize_store(v_t)
+    else:
+        j_u, j_v = jnp.asarray(u_pad), jnp.asarray(v)
+    jstate = (
+        ShadowStatic(u=j_u, sv=jnp.asarray(sv_pad), landmarks=jnp.asarray(lms),
+                     landmark_mask=jnp.asarray(mask), v_full=j_v,
+                     lm_scale=None if lm_sc is None else jnp.asarray(lm_sc.numpy())),
+        ShadowMut(k_buf=jnp.asarray(k_buf), v_buf=jnp.asarray(v_buf),
+                  cached_ids=jnp.asarray(ids)),
+    )
+    tcache = TShadowCache(
+        u=u_t, sv=_t(sv), landmarks=_t(lms), landmark_mask=_t(mask),
+        k_buf=_t(k_buf), v_buf=_t(v_buf), v_full=v_t, cached_ids=_t(ids),
+        layout=tl, gen_len=DEC_GEN, lm_scale=lm_sc, u_scale=u_sc, v_scale=v_sc,
+    )
+    return jcfg, jl, jstate, tcfg, tcache, step
+
+
+def _decode_both(quant, ring, layer=1, seed=11, **force):
+    jcfg, jl, (static, mut), tcfg, cache, step = _decode_inputs(seed, quant, ring)
+    n = DEC_PROMPT + 32 + 16
+    jcos, jsin = jrope.compute_cos_sin(jcfg, n, jnp.float32)
+    tcos, tsin = trope.compute_cos_sin(tcfg, n, torch.float32)
+    _, _, jvalid, mut = j_decode_layer(
+        jcfg, jl, static, mut, jnp.int32(DEC_GEN), jnp.int32(layer),
+        *(jnp.asarray(step[k]) for k in ("q", "k_new", "v_new")), jcos, jsin,
+        ring_gather=ring, **force)
+    _, _, tvalid = t_decode_layer(
+        tcfg, cache, layer, *(_t(step[k]) for k in ("q", "k_new", "v_new")),
+        trope.inv_freq_full_neox(tcfg), use_kernel=False, ring=ring,
+        cos_table=tcos, sin_table=tsin, **force)
+    assert tvalid == int(jvalid)
+    np.testing.assert_array_equal(cache.cached_ids.numpy(), np.asarray(mut.cached_ids))
+    np.testing.assert_allclose(cache.k_buf.numpy(), np.asarray(mut.k_buf), **TOL)
+    if quant == "int8":  # exact int8 x bf16 products, one rounding each side
+        np.testing.assert_array_equal(cache.v_buf.numpy(), np.asarray(mut.v_buf))
+    else:
+        np.testing.assert_allclose(cache.v_buf.numpy(), np.asarray(mut.v_buf), **TOL)
+    return cache
+
+
+@pytest.mark.parametrize("ring", [False, True])
+@pytest.mark.parametrize("quant", ["int8", "none"])
+def test_xla_gather_decode_layer_matches_jax(quant, ring):
+    _decode_both(quant, ring)
+
+
+@pytest.mark.parametrize("layout", ["scatter", "contig"])
+def test_debug_hit_rate_forced_ids_match_jax(layout):
+    """The forced window (benchmark-only) selects the same ids as JAX's,
+    including the scatter bijection's multiplier."""
+    cache = _decode_both("int8", False, debug_hit_rate=0.5,
+                         debug_hit_layout=layout)
+    lo = cache.layout
+    m = lo.select_sets // 2  # the window slides by S * (1 - 0.5)
+    window = (DEC_GEN * m + np.arange(lo.select_sets)) % lo.chunks
+    if layout == "scatter":
+        window = window * 4097 % lo.chunks  # gcd(4097, 24) = 1
+    for ids in cache.cached_ids[1].reshape(-1, lo.select_sets).tolist():
+        assert set(ids) == set(window.tolist())
