@@ -23,25 +23,43 @@ to the CPU):
    B 1 / S 4104 (ragged tile) and at the main path's shape, B 2 / S 32768,
    H 32 / KV 8, with a per-row tolerance that is shown to reject a skipped
    KV tile; timed at the main path's shape, with SDPA as a yardstick only.
-6. Kernel D (``gather_chunks``) against its plain version at the slice's
+6. Kernel C (sink + sliding-window prefill attention) against its plain
+   version at B 1 / S 4104 (window 1024, sink 64) and at the main path's
+   shape, B 2 / S 32768 (window 8192, sink 1024), per-row tolerance as B;
+   timed, with SDPA under the boolean [S, S] mask and the compiled
+   ``flex_attention`` under a block mask of the same function as
+   yardsticks (the faster one is the library time).
+7. Kernel D (``gather_chunks``) against its plain version at the slice's
    per-layer shapes (int8 and bf16 stores), with V on the card and pinned
    in host memory (row E of the TPU kernels); bit-equal; timed, with two
    ``index_select`` calls as the yardstick.
-7. A toy bf16 engine on the card against the same engine on the CPU
+8. Kernels F (vertical + slash tiles) and G (block walk) against their
+   blockwise plain versions at B*H 64, S 32768, Dh 128 on two flag sets
+   (estimation on random q/k at the JAX default sizes, and a clustered set:
+   slashes decaying from the diagonal plus 512 hot verticals), and at a
+   ragged S with duplicate and past-the-end verticals; timed on both sets,
+   each bound counted from the active pairs of its flags, with the
+   compiled ``flex_attention`` under a block mask built from the same
+   flags as the library yardstick (held to the kernel's output first).
+9. A toy bf16 engine on the card against the same engine on the CPU
    (plain kernel versions) for the four decode strategies (fused refresh,
-   XLA-gather, and both over an offloaded V store) and the full baseline:
-   the logits of the
+   XLA-gather, and both over an offloaded V store), the full baseline and
+   the sparse prefills on the full cache (stream with a window below the
+   prompt, vs tile, vs walk, a per-layer vs table): the logits of the
    prefill and of eight decode steps fed the CPU's greedy tokens, the
    greedy tokens wherever the CPU's choice is not a near-tie, and the
    final cached chunk ids.
-8. The slice end to end: Llama-3.1-8B shape (32 layers, full width) with
+10. The slice end to end: Llama-3.1-8B shape (32 layers, full width) with
    synthetic bf16 weights, shadow cache (budget 2048, rank 160, chunk 16,
-   int8 stores), dense prefill through kernel B, greedy ``batch_generate``;
-   five runs: shadow with the fused refresh (kernel A), shadow with the
+   int8 stores), prefill through kernel B, greedy ``batch_generate``;
+   eight runs: shadow with the fused refresh (kernel A), shadow with the
    ring gather (kernel D), shadow_offload with each of the two (A and D
-   reading V from pinned host memory), and the full-attention baseline.
+   reading V from pinned host memory), the full-attention baseline, and
+   shadow with the fused refresh after each sparse prefill: stream (kernel
+   C), vs tile (F) and vs walk (G), at the JAX default settings.
    Kernel launch counts are reset just before each run and asserted just
-   after; each offload run's tokens and final cached ids equal its HBM
+   after (C, F or G once per layer and prefill sub-batch, B none in those
+   runs); each offload run's tokens and final cached ids equal its HBM
    twin's, its device cache is at least 1.9 GiB smaller and its host store
    is the int8 V store's 1.99 GiB.
 
@@ -53,6 +71,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -641,16 +660,436 @@ def check_prefill_attention(torch, cfg) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Kernel C: attention sink + sliding window prefill
+# ---------------------------------------------------------------------------
+
+
+# ---------------------------------------------------------------------------
+# Library yardstick of kernels C, F and G: flex_attention (timed only)
+# ---------------------------------------------------------------------------
+
+
+FLEX_BLOCK = 128  # flex_attention's block; also vs_block at the JAX defaults
+_FLEX = {}
+
+
+def _flex_call(torch):
+    """``flex_attention`` under ``torch.compile``: the one PyTorch call that
+    computes C's, F's and G's functions without a dense [S, S] mask. Timed
+    beside the kernels only; the port never calls it."""
+    if "fn" not in _FLEX:
+        from torch.nn.attention.flex_attention import flex_attention
+
+        _FLEX["fn"] = torch.compile(flex_attention, dynamic=False)
+    return _FLEX["fn"]
+
+
+def _block_grid(torch, n: int, device):
+    """(qb [n, 1], kb [1, n]) block indices."""
+    i = torch.arange(n, device=device)
+    return i[:, None], i[None, :]
+
+
+def flex_block_mask(torch, active, full, mask_mod, s: int):
+    """A ``BlockMask`` from [B, H, nQ, nK] block flags: ``full`` blocks hold
+    only active pairs and skip ``mask_mod``; the other ``active`` blocks
+    apply it pair by pair."""
+    from torch.nn.attention.flex_attention import BlockMask
+
+    def lists(m):
+        ids = torch.argsort((~m).to(torch.uint8), dim=-1, stable=True)
+        return m.sum(-1, dtype=torch.int32), ids.to(torch.int32).contiguous()
+
+    kv_num, kv_ids = lists(active & ~full)
+    f_num, f_ids = lists(full)
+    return BlockMask.from_kv_blocks(kv_num, kv_ids, f_num, f_ids,
+                                    BLOCK_SIZE=FLEX_BLOCK, mask_mod=mask_mod,
+                                    seq_lengths=(s, s))
+
+
+def stream_flex_mask(torch, s: int, window: int, sink: int, device):
+    """C's function, causal & (k < sink | q - k < window), one mask for
+    every batch row and head."""
+    qb, kb = _block_grid(torch, s // FLEX_BLOCK, device)
+    d = (qb - kb) * FLEX_BLOCK  # q - k spans d - 127 .. d + 127 in a block
+    active = (kb <= qb) & ((kb * FLEX_BLOCK < sink)
+                           | (d - (FLEX_BLOCK - 1) < window))
+    full = (kb < qb) & (((kb + 1) * FLEX_BLOCK <= sink)
+                        | (d + (FLEX_BLOCK - 1) < window))
+
+    def mask_mod(b, h, q, k):
+        return (q >= k) & ((k < sink) | (q - k < window))
+
+    return flex_block_mask(torch, active[None, None], full[None, None],
+                           mask_mod, s)
+
+
+def walk_flex_mask(torch, col_flag, diag_flag, b: int, h: int, s: int):
+    """G's function at 128-blocks: causal & (col_flag[k // 128] |
+    diag_flag[q // 128 - k // 128]), flags [B*H, S / 128]."""
+    n = s // FLEX_BLOCK
+    col = (col_flag > 0).reshape(b, h, n)
+    dg = (diag_flag > 0).reshape(b, h, n)
+    qb, kb = _block_grid(torch, n, col.device)
+    active = (kb <= qb) & (col[..., None, :] | dg[..., (qb - kb).clamp(min=0)])
+    full = active & (kb < qb)
+
+    def mask_mod(bi, hi, q, k):
+        kbi = k // FLEX_BLOCK
+        return (q >= k) & (col[bi, hi, kbi]
+                           | dg[bi, hi, (q // FLEX_BLOCK - kbi).clamp(min=0)])
+
+    return flex_block_mask(torch, active, full, mask_mod, s)
+
+
+def tile_flex_mask(torch, v_idx, diag_flag, b: int, h: int, s: int,
+                   seq_len: int):
+    """F's function: causal & k < seq_len & (diag_flag[(q - k) // 128] |
+    k in v_idx), v_idx [B*H, NV] (pads >= seq_len), flags [B*H, S / 128]."""
+    n = s // FLEX_BLOCK
+    vert = torch.zeros(v_idx.shape[0], s + 1, dtype=torch.bool,
+                       device=v_idx.device)
+    vert.scatter_(1, torch.where(v_idx < seq_len, v_idx, s).long(), True)
+    vert = vert[:, :s].reshape(b, h, s)
+    dg = (diag_flag > 0).reshape(b, h, n)
+    qb, kb = _block_grid(torch, n, vert.device)
+    below = kb < qb
+    # A block below the diagonal spans bands qb - kb - 1 and qb - kb.
+    hi_band = dg[..., (qb - kb).clamp(min=0)]
+    lo_band = dg[..., (qb - kb - 1).clamp(min=0)] & below
+    any_vert = vert.reshape(b, h, n, FLEX_BLOCK).any(-1)[..., None, :]
+    active = (kb <= qb) & (hi_band | lo_band | any_vert)
+    full = below & hi_band & lo_band & ((kb + 1) * FLEX_BLOCK <= seq_len)
+
+    def mask_mod(bi, hi, q, k):
+        band = dg[bi, hi, ((q - k) // FLEX_BLOCK).clamp(min=0)]
+        return (q >= k) & (k < seq_len) & (band | vert[bi, hi, k])
+
+    return flex_block_mask(torch, active, full, mask_mod, s)
+
+
+def flex_ms(torch, label, q, k, v, block_mask, scale, kernel_out):
+    """Device ms of the compiled ``flex_attention`` on q [B, H, S, Dh] and
+    k/v [B, KV, S, Dh] under ``block_mask``, after holding its output to
+    the kernel's ([B*H, S, Dh]) at the kernels' per-row tolerance; None,
+    with the reason logged, when it fails to compile, run or agree."""
+    fn = _flex_call(torch)
+
+    def run():
+        return fn(q, k, v, block_mask=block_mask, scale=scale,
+                  enable_gqa=True)
+
+    try:
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        rel = row_rel_err(torch, out.reshape(kernel_out.shape), kernel_out)
+        del out
+        if not rel <= ATTN_ROW_TOL:
+            log(f"[{label}] flex_attention disagrees with the kernel: "
+                f"per-row relative {rel:.3e}; library: none")
+            return None
+        ms = time_ms(torch, run, reps=3, warmup=1)
+    except Exception as e:  # noqa: BLE001 — a yardstick, not the port
+        log(f"[{label}] flex_attention failed ({type(e).__name__}: {e}); "
+            "library: none")
+        return None
+    log(f"[{label}] flex_attention (compiled) {ms:.4f} ms; per-row relative "
+        f"to the kernel {rel:.3e}; first call with compile {first_s:.1f} s")
+    return ms
+
+
+STREAM = dict(stream_window=8192, stream_sink=1024)  # the JAX defaults
+
+
+def _stream_pairs(torch, s: int, window: int, sink: int) -> int:
+    """Active (query, key) pairs of one head: the window's keys plus the
+    sink keys below it."""
+    q = torch.arange(s, dtype=torch.int64)
+    win = q.clamp(max=window - 1) + 1
+    extra = (q - window + 1).clamp(min=0).clamp(max=sink)
+    return int((win + extra).sum())
+
+
+def check_sparse_prefill(torch, cfg) -> dict:
+    """Kernel C against its plain version at B 1 / S 4104 (window 1024, sink
+    64) and at the main path's shape, B 2 / S 32768 (window 8192, sink
+    1024), timed at the latter beside SDPA under the same boolean mask and
+    the compiled flex_attention under the same function's block mask."""
+    import torch.nn.functional as F
+
+    from shadowkv_tpu_torch.core.attention import sparse_prefill_attention
+    from shadowkv_tpu_torch.kernels.prefill_attention import (
+        sparse_prefill_splash,
+    )
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
+    h, kh, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    entry = None
+    for b, s, window, sink in ((1, 4104, 1024, 64),
+                               (BATCH, PROMPT_LEN, STREAM["stream_window"],
+                                STREAM["stream_sink"])):
+        q = torch.randn(b, s, h, dh, device=DEVICE, generator=gen,
+                        dtype=torch.bfloat16)
+        k = torch.randn(b, s, kh, dh, device=DEVICE, generator=gen,
+                        dtype=torch.bfloat16)
+        v = torch.randn(b, s, kh, dh, device=DEVICE, generator=gen,
+                        dtype=torch.bfloat16)
+        run = lambda: sparse_prefill_splash(q, k, v, window, sink)  # noqa: E731
+        ref, plain_ms = _timed(torch, lambda: sparse_prefill_attention(
+            q, k, v, window, sink))
+        out = run()
+        torch.cuda.synchronize()
+        err = float((out.float() - ref.float()).abs().max())
+        rel = row_rel_err(torch, out, ref)
+        log(f"[stream-attn B={b} S={s} window {window} sink {sink}] "
+            f"max_abs_err {err:.3e}; per-row relative {rel:.3e} (tol "
+            f"{ATTN_ROW_TOL:.3e})")
+        if not rel <= ATTN_ROW_TOL:
+            raise AssertionError(f"stream attention B={b} S={s}: kernel "
+                                 "disagrees with its plain version")
+        del ref
+        if s != PROMPT_LEN:
+            del out
+            continue
+        ms = time_ms(torch, run, reps=5, warmup=1)
+        pairs = _stream_pairs(torch, s, window, sink) * b * h
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
+        b_ms, b_by = bound(nbytes, 4 * dh * pairs)
+        qh = q.transpose(1, 2).contiguous()
+        kh_, vh = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+        flex = flex_ms(torch, f"stream-attn B={b} S={s}", qh, kh_, vh,
+                       stream_flex_mask(torch, s, window, sink, DEVICE),
+                       dh**-0.5, out.transpose(1, 2))
+        del out
+        sdpa = None
+        try:
+            pos = torch.arange(s, device=DEVICE)
+            mask = (pos[None] <= pos[:, None]) & (
+                (pos[None] < sink) | (pos[:, None] - pos[None] < window))
+            kr = kh_.repeat_interleave(h // kh, dim=1)
+            vr = vh.repeat_interleave(h // kh, dim=1)
+            sdpa = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qh, kr, vr, attn_mask=mask), reps=3, warmup=1)
+            del kr, vr, mask
+        except (RuntimeError, torch.OutOfMemoryError) as e:
+            log(f"[stream-attn] SDPA under the [S, S] mask: none ({e})")
+        del qh, kh_, vh
+        # The faster of the two library calls is the yardstick.
+        lib_ms = min((t for t in (flex, sdpa) if t is not None), default=None)
+        entry = dict(
+            name="sparse_prefill_attention", route="cuda",
+            source="shadowkv_tpu_torch/csrc/prefill_attention.cu",
+            replaces="shadowkv_tpu/core/attention.py:158",
+            launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+        )
+        log(f"[stream-attn B={b} S={s}] kernel_ms {ms:.4f} plain_ms "
+            f"{plain_ms:.4f} flex_ms {flex} sdpa_masked_ms {sdpa} bound_ms "
+            f"{b_ms:.4f} ({b_by}; {pairs} active pairs, "
+            f"{4 * dh * pairs / ms / 1e9:.1f} TFLOP/s achieved)")
+        del q, k, v
+        torch.cuda.empty_cache()
+    return entry
+
+
+# ---------------------------------------------------------------------------
+# Kernels F and G: MInference vertical + slash prefill (tile and walk)
+# ---------------------------------------------------------------------------
+
+
+VS = dict(vs_vertical_size=1000, vs_slash_size=6144,
+          vs_block=128)  # the JAX defaults
+
+
+def _vs_flag_sets(torch, gen, q, k, s: int):
+    """{label: ([BH, S] vertical, [BH, S] slash scores)}: the estimate from
+    q/k, and a clustered set (slashes decaying from the diagonal with
+    noise, 512 hot vertical tokens; the forced regions as the estimate's)."""
+    from shadowkv_tpu_torch.core.minference import estimate_vertical_slash
+
+    vert, sl = estimate_vertical_slash(q, k)
+    bh = vert.shape[0] * vert.shape[1]
+    sets = {"estimated": (vert.reshape(bh, s), sl.reshape(bh, s))}
+    del vert, sl
+    d = torch.arange(s, device=DEVICE, dtype=torch.float32)
+    sl = -d / 2048.0 + 0.2 * torch.randn(bh, s, device=DEVICE, generator=gen)
+    vert = 0.1 * torch.rand(bh, s, device=DEVICE, generator=gen)
+    hot = torch.randint(0, s, (bh, 512), device=DEVICE, generator=gen)
+    vert.scatter_add_(1, hot, torch.ones(bh, 512, device=DEVICE))
+    vert[:, :30] = torch.inf
+    sl[:, :100] = torch.inf
+    sets["clustered"] = (vert, sl)
+    return sets
+
+
+def _vs_inputs(torch, vert, sl, s: int):
+    """F's vertical ids [BH, 1000] and band flags, G's block metadata and
+    column flags, from scores at the JAX default sizes (as
+    minference_prefill(_tile) with every head vertical_and_slash)."""
+    from shadowkv_tpu_torch.core import minference as mi
+
+    vsz, ssz = mi.topk_sizes(VS["vs_vertical_size"], VS["vs_slash_size"], s)
+    block = VS["vs_block"]
+    v_idx, s_top = mi.top_k(vert, vsz), mi.top_k(sl, ssz)
+    col, dflag = mi.vs_flags(v_idx, s_top, s // block, block)
+    return v_idx, dflag, mi.meta_from_flags(col, dflag), col
+
+
+def _check_rows(torch, label, out, ref, seq_len):
+    rel = row_rel_err(torch, out[:, :seq_len], ref[:, :seq_len])
+    err = float((out[:, :seq_len].float() - ref[:, :seq_len].float()).abs().max())
+    log(f"[{label}] max_abs_err {err:.3e}; per-row relative {rel:.3e} (tol "
+        f"{ATTN_ROW_TOL:.3e}) over the rows below {seq_len}")
+    if not rel <= ATTN_ROW_TOL:
+        raise AssertionError(f"{label}: kernel disagrees with its plain version")
+    return err
+
+
+def check_vs_kernels(torch, cfg) -> tuple[dict, dict]:
+    """Kernels F and G against their plain versions at the path's shape
+    (B*H 64, S 32768, Dh 128) on both flag sets, timed on each; then at a
+    ragged S with duplicate and past-the-end verticals. Returns (F, G)
+    entries timed on the estimated set."""
+    from shadowkv_tpu_torch.core import minference as mi
+    from shadowkv_tpu_torch.kernels import vs_sparse, vs_tile
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 6)
+    b, s, h, kh, dh = BATCH, PROMPT_LEN, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    block, scale = VS["vs_block"], dh**-0.5
+    q = torch.randn(b, s, h, dh, device=DEVICE, generator=gen, dtype=torch.bfloat16)
+    k = torch.randn(b, s, kh, dh, device=DEVICE, generator=gen, dtype=torch.bfloat16)
+    v = torch.randn(b, s, kh, dh, device=DEVICE, generator=gen, dtype=torch.bfloat16)
+    sets = _vs_flag_sets(torch, gen, q, k, s)
+    q_f, k_f, v_f = mi.flat_heads(q, s), mi.flat_heads(k, s), mi.flat_heads(v, s)
+    del q, k, v
+    kv_map = mi.kv_map_of(b, kh, range(h), h // kh, DEVICE)
+    io_bytes = (2 * q_f.numel() + k_f.numel() + v_f.numel()) * 2
+    if block != FLEX_BLOCK:
+        raise AssertionError("the flex_attention masks assume vs_block 128")
+    q4, k4, v4 = (t.view(b, -1, s, dh) for t in (q_f, k_f, v_f))
+    entries = {}
+    for label, (vert, sl) in sets.items():
+        v_idx, dflag, meta, col = _vs_inputs(torch, vert, sl, s)
+        kw = dict(block=block, scale=scale, seq_len=s)
+        runs = {
+            "F": (lambda: vs_tile.vs_tile_attention(
+                      q_f, k_f, v_f, v_idx, dflag, kv_map, **kw),
+                  lambda: vs_tile.vs_tok_attention_reference(
+                      q_f, k_f, v_f, v_idx, dflag, kv_map, **kw),
+                  vs_tile.tile_masks(v_idx, dflag, block, s, s, 256),
+                  (v_idx.numel() + dflag.numel()) * 4,
+                  lambda: tile_flex_mask(torch, v_idx, dflag, b, h, s, s)),
+            "G": (lambda: vs_sparse.vs_sparse_attention(
+                      q_f, k_f, v_f, meta.col_ids, meta.col_cnt,
+                      meta.col_flag, meta.diag_ids, meta.diag_cnt, kv_map,
+                      **kw),
+                  lambda: mi.vs_attention_reference(
+                      q_f, k_f, v_f, meta, kv_map, **kw),
+                  mi.walk_masks(meta, block, s, s, 256),
+                  5 * meta.col_ids.numel() * 4,
+                  lambda: walk_flex_mask(torch, col, dflag, b, h, s)),
+        }
+        for name, (run, plain, masks, extra_bytes, flex_mask) in runs.items():
+            ref, plain_ms = _timed(torch, plain)
+            out = run()
+            torch.cuda.synchronize()
+            err = _check_rows(torch, f"vs {name} {label}, BH {b * h} S {s}",
+                              out, ref, s)
+            del ref
+            lib_ms = flex_ms(torch, f"vs {name} {label}", q4, k4, v4,
+                             flex_mask(), scale, out)
+            del out
+            ms = time_ms(torch, run, reps=3, warmup=1)
+            pairs = mi.active_pairs(masks, s)
+            b_ms, b_by = bound(io_bytes + extra_bytes, 4 * dh * pairs)
+            log(f"[vs {name} {label}] kernel_ms {ms:.4f} plain_ms "
+                f"{plain_ms:.4f} flex_ms {lib_ms} bound_ms {b_ms:.4f} "
+                f"({b_by}; {pairs} active pairs = "
+                f"{pairs / (b * h * s * (s + 1) / 2):.4f} of causal; "
+                f"{4 * dh * pairs / ms / 1e9:.1f} TFLOP/s achieved)")
+            if label == "estimated":
+                entries[name] = dict(
+                    name=("vs_tile_attention" if name == "F"
+                          else "vs_sparse_attention"),
+                    route="cuda",
+                    source=("shadowkv_tpu_torch/csrc/vs_tile.cu" if name == "F"
+                            else "shadowkv_tpu_torch/csrc/vs_sparse.cu"),
+                    replaces=("shadowkv_tpu/kernels/vs_tile.py:48" if name == "F"
+                              else "shadowkv_tpu/kernels/vs_sparse.py:39"),
+                    launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                )
+        del v_idx, dflag, meta, col, runs
+    del q_f, k_f, v_f, q4, k4, v4, sets
+    torch.cuda.empty_cache()
+    _check_vs_ragged(torch, gen)
+    return entries["F"], entries["G"]
+
+
+def _check_vs_ragged(torch, gen) -> None:
+    """F and G at S 4104 (padded to 4608 and 4224) with random flags, and
+    for F verticals with duplicates, entries past the sequence and pads."""
+    from shadowkv_tpu_torch.core import minference as mi
+    from shadowkv_tpu_torch.kernels import vs_sparse, vs_tile
+
+    s, block, bh, bkv = 4104, 128, 8, 2
+    kv_map = torch.arange(bh, device=DEVICE, dtype=torch.int32) // (bh // bkv)
+    for name, s_pad in (("F", 4608), ("G", 4224)):
+        n_blk = s_pad // block
+        q = torch.randn(bh, s_pad, 128, device=DEVICE, generator=gen).bfloat16()
+        k = torch.randn(bkv, s_pad, 128, device=DEVICE, generator=gen).bfloat16()
+        v = torch.randn(bkv, s_pad, 128, device=DEVICE, generator=gen).bfloat16()
+        diag = (torch.rand(bh, n_blk, device=DEVICE, generator=gen) < 0.3).int()
+        diag[:, 0] = 1
+        kw = dict(block=block, scale=128**-0.5, seq_len=s)
+        if name == "F":
+            v_idx = torch.randint(0, s_pad, (bh, 1024), device=DEVICE,
+                                  generator=gen, dtype=torch.int32)
+            v_idx[:, 100:200] = v_idx[:, :100]
+            v_idx[:, -64:] = 2 * s_pad
+            ref = vs_tile.vs_tok_attention_reference(q, k, v, v_idx, diag,
+                                                     kv_map, **kw)
+            out = vs_tile.vs_tile_attention(q, k, v, v_idx, diag, kv_map, **kw)
+        else:
+            col = (torch.rand(bh, n_blk, device=DEVICE, generator=gen) < 0.3).int()
+            meta = mi.meta_from_flags(col, diag)
+            ref = mi.vs_attention_reference(q, k, v, meta, kv_map, **kw)
+            out = vs_sparse.vs_sparse_attention(
+                q, k, v, meta.col_ids, meta.col_cnt, meta.col_flag,
+                meta.diag_ids, meta.diag_cnt, kv_map, **kw)
+        torch.cuda.synchronize()
+        _check_rows(torch, f"vs {name} ragged, S {s} in {s_pad}", out, ref, s)
+
+
+# ---------------------------------------------------------------------------
 # The engine: a toy model against the CPU, then the slice at full width
 # ---------------------------------------------------------------------------
 
 
-TOY_SETTINGS = (  # (label, cache mode, runtime settings of the decode)
+TOY_VS = dict(prefill_pattern="vs", vs_vertical_size=64, vs_slash_size=50,
+              vs_block=64, stream_sink=32, stream_window=128)
+TOY_ROW = (("vertical_and_slash", 64, 50), "stream_llm", "dense",
+           ("vertical_and_slash", 100, 120))
+TOY_SETTINGS = (  # (label, cache mode, runtime settings)
     ("shadow fused", "shadow", dict(use_pallas=True)),
     ("shadow xla-gather", "shadow", dict(use_pallas=None)),
     ("offload fused", "shadow_offload", dict(use_pallas=True)),
     ("offload ring", "shadow_offload", dict(ring_gather=True)),
     ("full", "full", dict()),
+    # The sparse prefills run the full cache: a shadow cache turns a
+    # rounding difference of the prefill into a flipped chunk choice at a
+    # near-tie (the slice runs drive them in shadow mode).
+    ("stream prefill", "full", dict(prefill_pattern="stream",
+                                    stream_window=128, stream_sink=32)),
+    ("vs tile prefill", "full", dict(TOY_VS)),
+    ("vs walk prefill", "full", dict(TOY_VS, vs_impl="walk",
+                                     minference_patterns=TOY_ROW)),
+    ("vs per-layer prefill", "full", dict(
+        TOY_VS, minference_layer_patterns=(
+            TOY_ROW, ("dense", "stream_llm", ("vertical_and_slash", 30, 50),
+                      "stream_llm")))),
 )
 TOY_STEPS = 8
 
@@ -694,7 +1133,7 @@ def check_toy_engine(torch) -> None:
         cc = CacheConfig(mode=mode, max_length=544, sparse_budget=128,
                          rank=64, chunk_size=16, kv_quant="int8",
                          outlier_chunks=4, gen_capacity=32)
-        rt = RuntimeConfig(prefill_pattern="dense-splash", **rt_kw)
+        rt = RuntimeConfig(**{"prefill_pattern": "dense-splash", **rt_kw})
         engines = {dev: Engine(cfg, cc, rt, params, device=dev, sketch=omega)
                    for dev in ("cpu", DEVICE)}
         l_ref, fed = _greedy_logits(torch, engines["cpu"], ids)
@@ -752,7 +1191,16 @@ SLICE_RUNS = (
     ("offload-fused", "shadow_offload", dict(use_pallas=True)),
     ("offload-ring", "shadow_offload", dict(ring_gather=True)),
     ("full", "full", dict()),
+    ("stream", "shadow", dict(use_pallas=True, prefill_pattern="stream",
+                              **STREAM)),
+    ("vs-tile", "shadow", dict(use_pallas=True, prefill_pattern="vs",
+                               vs_impl="tile", **VS)),
+    ("vs-walk", "shadow", dict(use_pallas=True, prefill_pattern="vs",
+                               vs_impl="walk", **VS)),
 )
+# the prefill kernel of each prefill_pattern
+PREFILL_KERNEL = {"stream": "sparse_prefill_attention",
+                  "tile": "vs_tile_attention", "walk": "vs_sparse_attention"}
 OFFLOAD_TWINS = {"offload-fused": "shadow", "offload-ring": "shadow-ring"}
 
 
@@ -760,15 +1208,21 @@ def _counters():
     from shadowkv_tpu_torch.kernels.gather import gather_chunks
     from shadowkv_tpu_torch.kernels.prefill_attention import (
         causal_prefill_splash,
+        sparse_prefill_splash,
     )
     from shadowkv_tpu_torch.kernels.reconstruct import sparse_refresh
+    from shadowkv_tpu_torch.kernels.vs_sparse import vs_sparse_attention
+    from shadowkv_tpu_torch.kernels.vs_tile import vs_tile_attention
 
     return {
         "sparse_refresh": (sparse_refresh, "launches"),
         "sparse_refresh_host_v": (sparse_refresh, "host_launches"),
         "prefill_attention": (causal_prefill_splash, "launches"),
+        "sparse_prefill_attention": (sparse_prefill_splash, "launches"),
         "gather_chunks": (gather_chunks, "launches"),
         "gather_chunks_host_v": (gather_chunks, "host_launches"),
+        "vs_tile_attention": (vs_tile_attention, "launches"),
+        "vs_sparse_attention": (vs_sparse_attention, "launches"),
     }
 
 
@@ -785,8 +1239,8 @@ def run_slice(torch, cfg, params, label: str, mode: str, rt_kw: dict,
     cc = CacheConfig(mode=mode, max_length=prompt_len + 256,
                      sparse_budget=2048, rank=160, chunk_size=16,
                      kv_quant="int8", gen_capacity=256)
-    rt = RuntimeConfig(prefill_pattern="dense-splash", track_hit_rate=True,
-                       pallas_auto_interval=4, **rt_kw)
+    rt = RuntimeConfig(**{"prefill_pattern": "dense-splash", **rt_kw},
+                       track_hit_rate=True, pallas_auto_interval=4)
     eng = Engine(cfg, cc, rt, params, device=DEVICE)
     ids = np.random.RandomState(SEED).randint(1, cfg.vocab_size,
                                               (BATCH, prompt_len))
@@ -804,14 +1258,17 @@ def run_slice(torch, cfg, params, label: str, mode: str, rt_kw: dict,
     steps = cfg.num_layers * (GEN_LEN + WARMUP_STEPS)
     sub_batches = math.ceil(BATCH / min(rt.prefill_sub_batch, BATCH))
     want = dict.fromkeys(counters, 0)
-    want["prefill_attention"] = cfg.num_layers * sub_batches
+    pattern = rt.prefill_pattern
+    prefill_kernel = PREFILL_KERNEL.get(
+        rt.vs_impl if pattern == "vs" else pattern, "prefill_attention")
+    want[prefill_kernel] = cfg.num_layers * sub_batches
     if mode != "full":
         kernel = "sparse_refresh" if rt_kw.get("use_pallas") else "gather_chunks"
         want[kernel] = steps
         if mode == "shadow_offload":
             want[kernel + "_host_v"] = steps
     res = dict(
-        run=label, mode=mode, decode=rt_kw, prompt_len=prompt_len,
+        run=label, mode=mode, settings=rt_kw, prompt_len=prompt_len,
         batch=BATCH, gen_len=GEN_LEN,
         prefill_s=stats.prefill_seconds,
         decode_tok_s=stats.decode_tokens_per_second,
@@ -859,6 +1316,14 @@ def check_offload_twins(torch, runs: dict) -> None:
 
 
 def main() -> int:
+    # The flex_attention yardstick compiles in this process (no compile
+    # workers to stop) into the checkout's gitignored build directory.
+    build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "shadowkv_tpu_torch", "build")
+    os.environ.setdefault("TORCHINDUCTOR_COMPILE_THREADS", "1")
+    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR",
+                          os.path.join(build_dir, "inductor"))
+    os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(build_dir, "triton"))
     import torch
 
     if not torch.cuda.is_available():
@@ -888,8 +1353,11 @@ def main() -> int:
     entries = {"sparse_refresh": check_refresh(torch, cfg, lay)}
     entries["sparse_refresh_host_v"] = check_refresh_host(torch, cfg, lay, link)
     entries["prefill_attention"] = check_prefill_attention(torch, cfg)
+    entries["sparse_prefill_attention"] = check_sparse_prefill(torch, cfg)
     entries["gather_chunks"], entries["gather_chunks_host_v"] = check_gather(
         torch, cfg, lay, link)
+    entries["vs_tile_attention"], entries["vs_sparse_attention"] = \
+        check_vs_kernels(torch, cfg)
     check_toy_engine(torch)
 
     t0 = time.perf_counter()
@@ -906,9 +1374,14 @@ def main() -> int:
     home = {"sparse_refresh": "shadow", "prefill_attention": "shadow",
             "sparse_refresh_host_v": "offload-fused",
             "gather_chunks": "shadow-ring",
-            "gather_chunks_host_v": "offload-ring"}
+            "gather_chunks_host_v": "offload-ring",
+            "sparse_prefill_attention": "stream",
+            "vs_tile_attention": "vs-tile", "vs_sparse_attention": "vs-walk"}
     for name, entry in entries.items():
         entry["launches"] = runs[home[name]]["launches"][name]
+    log("[summary] prefill_s " + ", ".join(
+        f"{k} {r['prefill_s']:.3f}" for k, r in runs.items())
+        + f" (dense shadow {runs['shadow']['prefill_s']:.3f})")
     log("[summary] decode tok/s " + ", ".join(
         f"{k} {r['decode_tok_s']:.1f}" for k, r in runs.items())
         + f" at {PROMPT_LEN} x {BATCH}; total "

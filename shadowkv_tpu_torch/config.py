@@ -10,13 +10,18 @@ fields the JAX package has for the paths this port serves:
   ``use_pallas`` None/False (the XLA-gather branch), with
   ``ring_gather=True`` (the chunk-gather kernel D);
 - ``debug_hit_rate`` / ``debug_hit_layout`` (benchmark-only forced
-  selection).
+  selection);
+- prefill attention: ``prefill_pattern`` ``"dense"``/``"dense-splash"``
+  (kernel B), ``"stream"`` (sink + sliding window, kernel C) and ``"vs"``
+  (MInference per-head patterns through ``core/minference.py``:
+  ``vs_impl="tile"``, kernel F, or ``"walk"``, kernel G; uniform
+  ``minference_patterns`` or per-layer ``minference_layer_patterns``).
 
 Fields of paths the port does not serve yet (parallelism, int8 weights,
 approximate top-k) are left out, so passing one is a ``TypeError``. Where a
 field takes a value of an unported path, ``check_served`` raises
 ``NotImplementedError`` naming the ROADMAP.md item that ports it:
-``prefill_pattern="stream"``/``"vs"`` (§2 C, F, G), ``use_pallas="auto"``
+``vs_sim`` (§1 'MInference pattern simulation'), ``use_pallas="auto"``
 (§1 'use_pallas="auto"'), ``decode_segmented=True`` (§1 'Segmented
 decode attention'), ``offload_prefill_segments > 1`` (§1 'Host offload,
 rest'), and
@@ -135,8 +140,30 @@ class RuntimeConfig:
     # Prefill runs in sub-batches of this many sequences.
     prefill_sub_batch: int = 4
     # 'dense' and 'dense-splash' are the same causal function and run the
-    # same prefill kernel here; 'stream' and 'vs' are not ported yet.
+    # same prefill kernel here; 'stream' is attention-sink + sliding
+    # window (kernel C); 'vs' the MInference per-head patterns
+    # (core/minference.py, kernel F or G).
     prefill_pattern: str = "dense"
+    stream_window: int = 8192
+    stream_sink: int = 1024
+    # MInference 'vs' knobs (JAX defaults).
+    vs_vertical_size: int = 1000
+    vs_slash_size: int = 6144
+    vs_block: int = 128
+    # 'tile' = token-granular verticals + diagonal tiles (kernel F);
+    # 'walk' = the per-block walk over column and diagonal blocks (G).
+    vs_impl: str = "tile"
+    # The JAX tile kernel's query-tile width. Kept for config parity; it
+    # changes nothing here: kernel F tiles by 64 and pads S to that.
+    vs_tile: int = 512
+    # Per-q-head table of (kind, vertical_size, slash_size) tuples or kind
+    # strings, uniform over layers; None = all heads vertical_and_slash.
+    minference_patterns: Optional[tuple] = None
+    # Per-layer table: num_layers per-head tables (no block_sparse).
+    # Takes precedence over minference_patterns.
+    minference_layer_patterns: Optional[tuple] = None
+    # Benchmark-only score simulation of the JAX package (not ported).
+    vs_sim: Optional[str] = None
     # Shadow decode path: True = the fused sparse-refresh kernel (hit
     # reuse, misses only); None/False = the XLA-gather branch (every
     # selected chunk gathered, hits kept by a select); 'auto' = switch
@@ -165,13 +192,16 @@ class RuntimeConfig:
     def check_served(self, cache: CacheConfig) -> None:
         """Raise for settings of paths this port does not serve yet, and
         for combinations the JAX engine rejects."""
-        if self.prefill_pattern in ("stream", "vs"):
-            raise NotImplementedError(
-                f"prefill_pattern={self.prefill_pattern!r} is not ported yet "
-                "(ROADMAP.md §2 kernels C, F, G and §1 'MInference prefill')"
-            )
-        if self.prefill_pattern not in ("dense", "dense-splash"):
+        if self.prefill_pattern not in ("dense", "dense-splash", "stream",
+                                        "vs"):
             raise ValueError(f"unknown prefill_pattern {self.prefill_pattern!r}")
+        if self.vs_impl not in ("tile", "walk"):
+            raise ValueError(f"unknown vs_impl {self.vs_impl!r}")
+        if self.vs_sim is not None:
+            raise NotImplementedError(
+                "vs_sim (benchmark-only MInference score simulation) is not "
+                "ported yet (ROADMAP.md §1 'MInference pattern simulation')"
+            )
         if self.use_pallas not in (None, True, False, "auto"):
             raise ValueError(
                 f"use_pallas must be None/True/False/'auto', got "

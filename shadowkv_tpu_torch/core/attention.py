@@ -1,10 +1,11 @@
 """Attention primitives (plain PyTorch).
 
 Counterpart of ``shadowkv_tpu/core/attention.py``. These are the plain
-versions: ``causal_prefill_attention`` is also the reference that the
-prefill kernel (``kernels/prefill_attention.py``, which takes the place of
-the TPU splash and flash library kernels) is held against, and the path
-that kernel takes for CPU tensors. Decode attention over the compact or
+versions: ``causal_prefill_attention`` and ``sparse_prefill_attention``
+are also the references that the prefill kernels B and C
+(``kernels/prefill_attention.py``, which take the place of the TPU splash
+and flash library kernels) are held against, and the paths those kernels
+take for CPU tensors. Decode attention over the compact or
 full cache stays tensor code, as it is plain einsum math in JAX too.
 
 Conventions: q is [B, S, H, Dh], k/v are [B, T, K, Dh] with GQA
@@ -51,6 +52,25 @@ def causal_prefill_attention(
     """Blockwise causal self-attention (query blocks of ``block_q`` keep the
     score temporaries at [B, H, block_q, T]); q occupies the last S of the
     T key positions."""
+    return _blockwise(q, k, v, scale, block_q, None, 0)
+
+
+def sparse_prefill_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    window: int,
+    sink: int,
+    scale: float | None = None,
+    block_q: int = 512,
+) -> torch.Tensor:
+    """Blockwise causal self-attention under the attention-sink + sliding
+    window mask ``kv <= q & (kv < sink | q - kv < window)`` (the JAX
+    ``SinkLocalMask`` of ``sparse_prefill_splash``)."""
+    return _blockwise(q, k, v, scale, block_q, window, sink)
+
+
+def _blockwise(q, k, v, scale, block_q, window, sink):
     b, s, h, dh = q.shape
     t = k.shape[1]
     offset = t - s
@@ -60,6 +80,9 @@ def causal_prefill_attention(
         qi = q[:, q0 : q0 + block_q]
         pos_q = offset + q0 + torch.arange(qi.shape[1], device=q.device)
         mask = pos_q[:, None] >= pos_k[None, :]
+        if window is not None:
+            mask &= (pos_k[None, :] < sink) \
+                | (pos_q[:, None] - pos_k[None, :] < window)
         outs.append(mha(qi, k, v, mask=mask[None, None, None], scale=scale))
     return torch.cat(outs, dim=1)
 

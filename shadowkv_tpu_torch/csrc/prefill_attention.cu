@@ -1,71 +1,56 @@
-// Dense causal GQA attention for prefill.
+// Causal GQA attention for prefill: dense (kernel B) and attention sink +
+// sliding window (kernel C).
 //
-// Replaces the TPU library kernels reached from shadowkv_tpu/core/attention.py:
-// causal_prefill_splash (-> _splash_mqa -> splash_attention_kernel
-// make_splash_mqa_single_device) and causal_prefill_flash (-> Pallas
-// flash_attention). out[b, s, h] = softmax(q[b, s, h] . k[b, :s+1, h/G]^T
-// * Dh^-0.5) @ v[b, :s+1, h/G], bf16 in and out, f32 accumulation.
+// Kernel B replaces the TPU library kernels reached from
+// shadowkv_tpu/core/attention.py: causal_prefill_splash (-> _splash_mqa ->
+// splash_attention_kernel make_splash_mqa_single_device) and
+// causal_prefill_flash (-> Pallas flash_attention). out[b, s, h] =
+// softmax(q[b, s, h] . k[b, :s+1, h/G]^T * scale) @ v[b, :s+1, h/G], bf16 in
+// and out, f32 accumulation.
 //
-// What bounds it on an H100: tensor-core operations. The causal work is
-// 2*S^2*H*Dh multiply-adds per sequence and layer; at S=32K that is ~8.8e12
-// operations against ~50 MB of q/k/v/out bytes, far above the card's
-// operation-to-byte ratio.
-// What the design does about it: a flash-attention loop. One block of 4 warps
-// owns 64 query rows of one head; it walks 64-key tiles of the matching KV
-// head (h / G: K and V are never repeated in memory; the G query heads of a
-// group read the same tiles through L2), skipping every tile above the
-// diagonal. Scores and P @ V run on bf16 tensor cores through 16x16x16 wmma
-// fragments with f32 accumulation; the online softmax keeps row max and sum
-// per warp. The f32 output accumulator lives in shared memory so the softmax
-// rescale can address it by row; that round trip, the lack of wgmma, TMA and
-// a pipelined K/V ring are what a later, faster version removes. Blocks run
-// heaviest (last) query tiles first to balance the causal triangle.
+// Kernel C replaces sparse_prefill_splash (shadowkv_tpu/core/attention.py:158
+// -> _splash_mqa :250 with the SinkLocalMask): the same function where key kv
+// is visible to query q iff kv <= q and (kv < sink or q - kv < window).
+//
+// What bounds them on an H100: tensor-core operations. B does 2*S^2*H*Dh
+// multiply-adds per sequence and layer (causal half of 4*S^2*H*Dh flops);
+// at S=32K that is ~8.8e12 operations against ~50 MB of q/k/v/out bytes, far
+// above the card's operation-to-byte ratio. C does the same work over the
+// active pairs only, about S*(window+sink)*H*Dh*4 operations, still far
+// above that ratio at window 8192.
+// What the design does about it: the flash loop of flash_tile.cuh. One block
+// owns 64 query rows of one head and walks the 64-key tiles of the matching
+// KV head (h / G: K and V are never repeated in memory; the G query heads of
+// a group read the same tiles through L2), skipping every tile above the
+// diagonal; C also skips every tile that lies wholly outside both the sink
+// and the window (it visits the sink tiles, then the window's tiles) and
+// masks the edge tiles by token. Blocks run heaviest (last) query tiles
+// first to balance the causal triangle. The f32 accumulator in shared
+// memory, the lack of wgmma, TMA and a pipelined K/V ring are what a later,
+// faster version removes.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
+#include "flash_tile.cuh"
 
 namespace {
 
-using namespace nvcuda;
+using flash::kBM;
+using flash::kBN;
+using flash::kD;
 
-constexpr int kBM = 64;    // query rows per block (16 per warp)
-constexpr int kBN = 64;    // keys per tile
-constexpr int kD = 128;    // head_dim served by this kernel
-constexpr int kWarps = 4;
-constexpr int kLdT = kD + 8;    // bf16 q/k/v tiles
-constexpr int kLdS = kBN + 4;   // f32 scores
-constexpr int kLdP = kBN + 8;   // bf16 probabilities
-constexpr int kLdO = kD + 4;    // f32 output accumulator
-
-constexpr size_t kSmemBytes =
-    3 * kBM * kLdT * sizeof(__nv_bfloat16) + kBM * kLdS * sizeof(float) +
-    kBM * kLdP * sizeof(__nv_bfloat16) + kBM * kLdO * sizeof(float) +
-    kBM * sizeof(float);
-
-__global__ void __launch_bounds__(kWarps * 32)
+template <bool kSparse>
+__global__ void __launch_bounds__(flash::kThreads)
 prefill_attention_kernel(const __nv_bfloat16* __restrict__ q,
                          const __nv_bfloat16* __restrict__ k,
                          const __nv_bfloat16* __restrict__ v,
                          __nv_bfloat16* __restrict__ out, int seq, int heads,
-                         int kv_heads, float scale_log2) {
+                         int kv_heads, float scale_log2, int window, int sink) {
   extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sK = sQ + kBM * kLdT;
-  __nv_bfloat16* sV = sK + kBN * kLdT;
-  float* sS = reinterpret_cast<float*>(sV + kBN * kLdT);
-  __nv_bfloat16* sP = reinterpret_cast<__nv_bfloat16*>(sS + kBM * kLdS);
-  float* sO = reinterpret_cast<float*>(sP + kBM * kLdP);
-  float* sRow = sO + kBM * kLdO;  // per-row rescale factor, then 1 / sum
+  const flash::Smem sm = flash::carve(smem);
 
   const int mb = gridDim.x - 1 - blockIdx.x;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kvh = h / (heads / kv_heads);
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
   const int q0 = mb * kBM;
   const size_t q_stride = (size_t)heads * kD;
   const size_t kv_stride = (size_t)kv_heads * kD;
@@ -73,143 +58,65 @@ prefill_attention_kernel(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* kb = k + (size_t)b * seq * kv_stride + (size_t)kvh * kD;
   const __nv_bfloat16* vb = v + (size_t)b * seq * kv_stride + (size_t)kvh * kD;
 
-  const uint4 zero = make_uint4(0, 0, 0, 0);
-  for (int idx = tid; idx < kBM * (kD / 8); idx += kWarps * 32) {
-    const int r = idx / (kD / 8);
-    const int c8 = idx - r * (kD / 8);
-    uint4 val = zero;
-    if (q0 + r < seq) {
-      val = *reinterpret_cast<const uint4*>(qb + (size_t)(q0 + r) * q_stride + c8 * 8);
+  flash::load_rows(sm.q, qb + (size_t)q0 * q_stride, q_stride, seq - q0);
+  flash::Rows st;
+  flash::begin(sm, st);
+
+  // Tiles 0..last hold a causal key of some row; C visits the tiles
+  // [0, n_sink) that hold sink keys and [first_win, last], whose keys lie
+  // inside the window of some row (a tile at k0 does iff
+  // k0 + 63 > q0 - window).
+  const int last = (min(seq, q0 + kBM) - 1) / kBN;
+  int n_sink = last + 1;
+  int first_win = last + 1;
+  if (kSparse) {
+    n_sink = min(last + 1, (sink + kBN - 1) / kBN);
+    if (window > 0) {
+      const int x = q0 - window - (kBN - 2);
+      first_win = max(n_sink, x <= 0 ? 0 : (x + kBN - 1) / kBN);
     }
-    *reinterpret_cast<uint4*>(sQ + r * kLdT + c8 * 8) = val;
   }
-  for (int idx = tid; idx < kBM * kLdO; idx += kWarps * 32) sO[idx] = 0.f;
-
-  float m_i[16];
-  float l_i[16];
-#pragma unroll
-  for (int r = 0; r < 16; ++r) {
-    m_i[r] = -INFINITY;
-    l_i[r] = 0.f;
-  }
-
-  const int row0 = warp * 16;
-  const int kv_end = min(seq, q0 + kBM);
-  const int n_tiles = (kv_end + kBN - 1) / kBN;
-  for (int t = 0; t < n_tiles; ++t) {
+  auto visit = [&](int t) {
     const int k0 = t * kBN;
-    __syncthreads();  // all warps are done with the previous K/V tiles
-    for (int idx = tid; idx < kBN * (kD / 8); idx += kWarps * 32) {
-      const int r = idx / (kD / 8);
-      const int c8 = idx - r * (kD / 8);
-      uint4 kval = zero;
-      uint4 vval = zero;
-      if (k0 + r < seq) {
-        kval = *reinterpret_cast<const uint4*>(kb + (size_t)(k0 + r) * kv_stride + c8 * 8);
-        vval = *reinterpret_cast<const uint4*>(vb + (size_t)(k0 + r) * kv_stride + c8 * 8);
-      }
-      *reinterpret_cast<uint4*>(sK + r * kLdT + c8 * 8) = kval;
-      *reinterpret_cast<uint4*>(sV + r * kLdT + c8 * 8) = vval;
-    }
-    __syncthreads();
+    flash::load_kv(sm, kb + (size_t)k0 * kv_stride, vb + (size_t)k0 * kv_stride,
+                   kv_stride, seq - k0);
+    flash::tile(sm, st, scale_log2, [&](int r, int c) {
+      const int qp = q0 + r;
+      const int kp = k0 + c;
+      bool ok = kp <= qp && kp < seq;
+      if (kSparse) ok = ok && (kp < sink || qp - kp < window);
+      return ok;
+    });
+  };
+  for (int t = 0; t < n_sink; ++t) visit(t);
+  for (int t = first_win; t <= last; ++t) visit(t);
 
-    // S = Q K^T for this warp's 16 rows.
-#pragma unroll
-    for (int nf = 0; nf < kBN / 16; ++nf) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < kD / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fb;
-        wmma::load_matrix_sync(fa, sQ + row0 * kLdT + kk * 16, kLdT);
-        wmma::load_matrix_sync(fb, sK + nf * 16 * kLdT + kk * 16, kLdT);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
-      wmma::store_matrix_sync(sS + row0 * kLdS + nf * 16, acc, kLdS, wmma::mem_row_major);
-    }
-    __syncwarp();
+  flash::finish(sm, st, out + ((size_t)b * seq + q0) * q_stride + (size_t)h * kD,
+                q_stride, seq - q0);
+}
 
-    // Online softmax: two lanes' worth of columns per row, reduced across
-    // the warp.
-#pragma unroll
-    for (int r = 0; r < 16; ++r) {
-      const int row = row0 + r;
-      const int qpos = q0 + row;
-      const int kp0 = k0 + lane;
-      const int kp1 = kp0 + 32;
-      float s0 = sS[row * kLdS + lane] * scale_log2;
-      float s1 = sS[row * kLdS + lane + 32] * scale_log2;
-      if (kp0 > qpos || kp0 >= seq) s0 = -INFINITY;
-      if (kp1 > qpos || kp1 >= seq) s1 = -INFINITY;
-      float mx = fmaxf(s0, s1);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      }
-      const float m_new = fmaxf(m_i[r], mx);
-      const float m_use = m_new == -INFINITY ? 0.f : m_new;
-      const float p0 = exp2f(s0 - m_use);
-      const float p1 = exp2f(s1 - m_use);
-      float sum = p0 + p1;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      }
-      const float alpha = exp2f(m_i[r] - m_use);
-      l_i[r] = l_i[r] * alpha + sum;
-      m_i[r] = m_new;
-      sP[row * kLdP + lane] = __float2bfloat16(p0);
-      sP[row * kLdP + lane + 32] = __float2bfloat16(p1);
-      if (lane == 0) sRow[row] = alpha;
-    }
-    __syncwarp();
-
-    for (int idx = lane; idx < 16 * kD; idx += 32) {
-      const int r = idx / kD;
-      const int c = idx - r * kD;
-      sO[(row0 + r) * kLdO + c] *= sRow[row0 + r];
-    }
-    __syncwarp();
-
-    // O += P V.
-#pragma unroll
-    for (int df = 0; df < kD / 16; ++df) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::load_matrix_sync(acc, sO + row0 * kLdO + df * 16, kLdO, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < kBN / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fa, sP + row0 * kLdP + kk * 16, kLdP);
-        wmma::load_matrix_sync(fb, sV + kk * 16 * kLdT + df * 16, kLdT);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
-      wmma::store_matrix_sync(sO + row0 * kLdO + df * 16, acc, kLdO, wmma::mem_row_major);
-    }
-    __syncwarp();
+template <bool kSparse>
+int launch(const void* q, const void* k, const void* v, void* out, int batch,
+           int seq, int heads, int kv_heads, int head_dim, float scale,
+           int window, int sink, void* stream) {
+  if (head_dim != kD || kv_heads <= 0 || heads % kv_heads != 0 || seq <= 0) {
+    return (int)cudaErrorInvalidValue;
   }
-
-#pragma unroll
-  for (int r = 0; r < 16; ++r) {
-    if (lane == r) sRow[row0 + r] = 1.f / l_i[r];
-  }
-  __syncwarp();
-  for (int idx = lane; idx < 16 * (kD / 8); idx += 32) {
-    const int r = idx / (kD / 8);
-    const int c8 = idx - r * (kD / 8);
-    const int row = row0 + r;
-    if (q0 + row >= seq) continue;
-    const float inv = sRow[row];
-    __align__(16) __nv_bfloat16 vals[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      vals[e] = __float2bfloat16(sO[row * kLdO + c8 * 8 + e] * inv);
-    }
-    *reinterpret_cast<uint4*>(out + ((size_t)b * seq + q0 + row) * q_stride +
-                              (size_t)h * kD + c8 * 8) =
-        *reinterpret_cast<const uint4*>(vals);
-  }
+  cudaError_t err = cudaFuncSetAttribute(
+      prefill_attention_kernel<kSparse>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)flash::kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((seq + kBM - 1) / kBM, heads, batch);
+  const float scale_log2 = scale * 1.4426950408889634f;
+  prefill_attention_kernel<kSparse>
+      <<<grid, flash::kThreads, flash::kSmemBytes,
+         static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const __nv_bfloat16*>(q),
+          static_cast<const __nv_bfloat16*>(k),
+          static_cast<const __nv_bfloat16*>(v),
+          static_cast<__nv_bfloat16*>(out), seq, heads, kv_heads, scale_log2,
+          window, sink);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -219,19 +126,16 @@ extern "C" int shadowkv_prefill_attention(const void* q, const void* k,
                                           int seq, int heads, int kv_heads,
                                           int head_dim, float scale,
                                           void* stream) {
-  if (head_dim != kD || heads % kv_heads != 0 || seq <= 0) {
-    return (int)cudaErrorInvalidValue;
-  }
-  cudaError_t err = cudaFuncSetAttribute(
-      prefill_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kSmemBytes);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((seq + kBM - 1) / kBM, heads, batch);
-  const float scale_log2 = scale * 1.4426950408889634f;
-  prefill_attention_kernel<<<grid, kWarps * 32, kSmemBytes,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      seq, heads, kv_heads, scale_log2);
-  return (int)cudaGetLastError();
+  return launch<false>(q, k, v, out, batch, seq, heads, kv_heads, head_dim,
+                       scale, seq, 0, stream);
+}
+
+// window and sink are clamped to [0, seq] by the caller.
+extern "C" int shadowkv_sparse_prefill_attention(
+    const void* q, const void* k, const void* v, void* out, int batch, int seq,
+    int heads, int kv_heads, int head_dim, float scale, int window, int sink,
+    void* stream) {
+  if (window < 0 || sink < 0) return (int)cudaErrorInvalidValue;
+  return launch<true>(q, k, v, out, batch, seq, heads, kv_heads, head_dim,
+                      scale, window, sink, stream);
 }

@@ -25,7 +25,9 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
-SOURCES = ("refresh.cu", "prefill_attention.cu", "gather.cu")
+SOURCES = ("refresh.cu", "prefill_attention.cu", "gather.cu", "vs_tile.cu",
+           "vs_sparse.cu")
+HEADERS = ("flash_tile.cuh",)  # included by the attention kernels
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # No --use_fast_math: the refresh kernel's RoPE needs precise sincosf at
 # angles of ~1e5 rad.
@@ -39,7 +41,16 @@ _SIGNATURES = {
     "shadowkv_prefill_attention": (
         [_P] * 4 + [_I] * 5 + [ctypes.c_float, _P], _I
     ),
+    "shadowkv_sparse_prefill_attention": (
+        [_P] * 4 + [_I] * 5 + [ctypes.c_float] + [_I] * 2 + [_P], _I
+    ),
     "shadowkv_gather_chunks": ([_P] * 9 + [_I] * 7 + [_P], _I),
+    "shadowkv_vs_sparse_attention": (
+        [_P] * 10 + [_I] * 5 + [ctypes.c_float, _P], _I
+    ),
+    "shadowkv_vs_tile_attention": (
+        [_P] * 10 + [_I] * 7 + [ctypes.c_float, _P], _I
+    ),
 }
 
 _lib = None  # the loaded library; one per process
@@ -60,7 +71,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(CFLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC_DIR / name).read_bytes())
     return BUILD_DIR / f"libshadowkv_kernels_{h.hexdigest()[:16]}.so"

@@ -78,6 +78,7 @@ class Engine:
         self.device = _resolve_device(device)
         cache_cfg.check_served()
         rt.check_served(cache_cfg)
+        forward.check_layer_patterns(rt, model)
         self.model = model
         self.cache_cfg = cache_cfg
         self.rt = rt
@@ -136,14 +137,14 @@ class Engine:
             for b0 in range(0, b, t):
                 parts.append(forward.prefill_shadow_into(
                     self.model, self.params, cache, input_ids[b0:b0 + t],
-                    self.cos_table, self.sin_table, b0, self.sketch,
+                    self.cos_table, self.sin_table, b0, self.sketch, self.rt,
                 ))
         else:
             cache = FullCache.init(self.model, self.cache_cfg, b, self.device)
             for b0 in range(0, b, t):
                 parts.append(forward.prefill_full(
                     self.model, self.params, cache, input_ids[b0:b0 + t],
-                    self.cos_table, self.sin_table, b0,
+                    self.cos_table, self.sin_table, b0, self.rt,
                 ))
         self._cache = cache
         return torch.cat(parts, dim=0), cache

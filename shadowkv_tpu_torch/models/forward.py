@@ -9,9 +9,16 @@ here it is a Python loop over layers. Caches are updated in place.
   memory; sparse decode through the fused refresh kernel or the
   XLA-gather branch, see ``cache/shadow.py``).
 
-Prefill attention is the causal GQA kernel (``kernels/prefill_attention.py``)
-for both ``prefill_pattern`` values this port serves; on CPU tensors it is
-the plain blockwise attention, as the JAX engine's CPU path is.
+Prefill attention follows ``RuntimeConfig.prefill_pattern`` (JAX
+``forward.py`` :244-266 and :544-560): ``"dense"``/``"dense-splash"`` take
+the causal kernel B, ``"stream"`` the sink + window kernel C
+(``kernels/prefill_attention.py``), ``"vs"`` the MInference per-head
+patterns (``core/minference.py``: kernel F for ``vs_impl="tile"``, G for
+``"walk"``), with this layer's row of a per-layer table. On CPU tensors
+every kernel is its plain version. The JAX engine runs ``"stream"`` as
+dense causal attention on the CPU (its splash branch needs an
+accelerator); the port's CPU path is kernel C's plain version, so it
+applies the window there too.
 """
 
 from __future__ import annotations
@@ -24,7 +31,8 @@ from shadowkv_tpu_torch.cache.shadow import (
     shadow_decode_layer,
     shadow_prefill_layer,
 )
-from shadowkv_tpu_torch.config import ModelConfig
+from shadowkv_tpu_torch.config import ModelConfig, RuntimeConfig
+from shadowkv_tpu_torch.core import minference as mi
 from shadowkv_tpu_torch.core import rope as rope_lib
 from shadowkv_tpu_torch.core.attention import decode_attention_hm
 from shadowkv_tpu_torch.core.layers import (
@@ -35,7 +43,12 @@ from shadowkv_tpu_torch.core.layers import (
     rms_norm,
     swiglu_mlp,
 )
-from shadowkv_tpu_torch.kernels.prefill_attention import causal_prefill_splash
+from shadowkv_tpu_torch.kernels.prefill_attention import (
+    causal_prefill_splash,
+    sparse_prefill_splash,
+)
+
+_DENSE = RuntimeConfig()
 
 
 def _layer_qkv(model: ModelConfig, lp: LayerParams, x, cos, sin):
@@ -66,6 +79,37 @@ def _tables(cos_table, sin_table, start: int, n: int):
     return cos_table[start:start + n], sin_table[start:start + n]
 
 
+def check_layer_patterns(rt: RuntimeConfig, model: ModelConfig) -> None:
+    """Validate the pattern tables of a ``"vs"`` run (ValueError on a bad
+    head count, layer count, kind, or block_sparse in a per-layer table)."""
+    if rt.prefill_pattern != "vs":
+        return
+    if rt.minference_layer_patterns is not None:
+        mi.patterns_to_arrays(rt.minference_layer_patterns, model.num_heads,
+                              model.num_layers, rt.vs_vertical_size,
+                              rt.vs_slash_size)
+    else:
+        mi.resolve_patterns(rt.minference_patterns, model.num_heads,
+                            rt.vs_vertical_size, rt.vs_slash_size)
+
+
+def prefill_attention(rt: RuntimeConfig, layer: int, q, k, v) -> torch.Tensor:
+    """The configured prefill attention of one layer; q [B, S, H, Dh], k/v
+    [B, S, K, Dh] (contiguous)."""
+    if rt.prefill_pattern == "stream":
+        return sparse_prefill_splash(q, k, v, rt.stream_window, rt.stream_sink)
+    if rt.prefill_pattern != "vs":
+        return causal_prefill_splash(q, k, v)
+    patterns = (rt.minference_patterns if rt.minference_layer_patterns is None
+                else rt.minference_layer_patterns[layer])
+    kw = dict(patterns=patterns, vertical_size=rt.vs_vertical_size,
+              slash_size=rt.vs_slash_size, block=rt.vs_block,
+              stream_sink=rt.stream_sink, stream_window=rt.stream_window)
+    if rt.vs_impl == "tile":
+        return mi.minference_prefill_tile(q, k, v, **kw)
+    return mi.minference_prefill(q, k, v, **kw)
+
+
 # --------------------------------------------------------------------------
 # Full-attention baseline
 # --------------------------------------------------------------------------
@@ -79,8 +123,9 @@ def prefill_full(
     cos_table: torch.Tensor,
     sin_table: torch.Tensor,
     batch_start: int = 0,
+    rt: RuntimeConfig = _DENSE,
 ) -> torch.Tensor:
-    """Dense prefill of a sub-batch into ``cache`` rows
+    """Prefill of a sub-batch into ``cache`` rows
     [batch_start, batch_start + Bsub); returns last-token logits."""
     b, s = input_ids.shape
     x = params.embed[input_ids]
@@ -91,7 +136,7 @@ def prefill_full(
         q, k_r, _, v = _layer_qkv(model, lp, x, cos, sin)
         cache.k[layer, bs, :, :s] = k_r.transpose(1, 2)
         cache.v[layer, bs, :, :s] = v.transpose(1, 2)
-        ctx = causal_prefill_splash(q, k_r.contiguous(), v.contiguous())
+        ctx = prefill_attention(rt, layer, q, k_r.contiguous(), v.contiguous())
         x = _layer_tail(lp, model, x, ctx)
     cache.length = s
     return _finalize(model, params, x)
@@ -141,10 +186,11 @@ def shadow_prefill_body(
     sin: torch.Tensor,
     batch_start: int,
     omega: torch.Tensor | None = None,
+    rt: RuntimeConfig = _DENSE,
 ) -> torch.Tensor:
     """One prefill layer (JAX ``make_shadow_prefill_body``, non-segmented):
     QKV + RoPE, the layer's shadow-cache slices written into ``cache`` at
-    (layer, batch_start), dense causal attention, MLP. Returns the new
+    (layer, batch_start), the configured prefill attention, MLP. Returns the new
     residual. A host V store takes its rows by a synchronous copy from the
     card, so the layer's V rows are on the card only while it runs."""
     q, k_r, k_pre, v = _layer_qkv(model, lp, x, cos, sin)
@@ -154,7 +200,7 @@ def shadow_prefill_body(
     bs = slice(batch_start, batch_start + x.shape[0])
     for name, val in slices.items():
         getattr(cache, name)[layer, bs] = val
-    ctx = causal_prefill_splash(q, k_r.contiguous(), v.contiguous())
+    ctx = prefill_attention(rt, layer, q, k_r.contiguous(), v.contiguous())
     return _layer_tail(lp, model, x, ctx)
 
 
@@ -167,6 +213,7 @@ def prefill_shadow_into(
     sin_table: torch.Tensor,
     batch_start: int = 0,
     omega: torch.Tensor | None = None,
+    rt: RuntimeConfig = _DENSE,
 ) -> torch.Tensor:
     """Sub-batch shadow prefill writing into the preallocated full-batch
     cache at ``batch_start``; returns last-token logits [Bsub, 1, V]."""
@@ -178,7 +225,7 @@ def prefill_shadow_into(
     for layer in range(model.num_layers):
         x = shadow_prefill_body(
             model, cache, layer, params.layer(layer), x, cos, sin,
-            batch_start, omega,
+            batch_start, omega, rt,
         )
     return _finalize(model, params, x)
 

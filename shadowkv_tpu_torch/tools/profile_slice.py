@@ -9,6 +9,9 @@ stores, or the full-attention baseline) with one of its decode paths:
 - ``offload-fused`` / ``offload-ring``: the same two with the V store
   pinned in host memory (the kernels read it over the host link);
 - ``full``: the full-attention baseline;
+- ``stream``, ``vs``, ``vs-walk``: ``shadow`` with the sparse prefill
+  (attention sink + window, kernel C; MInference vertical + slash through
+  kernel F or the block walk, kernel G; the JAX defaults);
 
 then traces with ``torch.profiler`` (CPU + CUDA activities):
 
@@ -19,7 +22,7 @@ For each window it prints one JSON line: wall seconds (host clock around
 work that ends in a synchronize), device-busy seconds (the union of the
 CUDA kernels' intervals), the idle share, and the kernels and operators
 that take the most device time, with the device time of the port's own
-decode kernels (A, D) summed apart. The full tables go to
+kernels (A, B, C, D, F, G) summed apart. The full tables go to
 ``<out-dir>/profile_<mode>_<window>.txt``.
 
     python -m shadowkv_tpu_torch.tools.profile_slice --mode offload-fused
@@ -81,17 +84,26 @@ MODES = {
     "offload-fused": ("shadow_offload", dict(use_pallas=True)),
     "offload-ring": ("shadow_offload", dict(ring_gather=True)),
     "full": ("full", dict()),
+    "stream": ("shadow", dict(use_pallas=True, prefill_pattern="stream")),
+    "vs": ("shadow", dict(use_pallas=True, prefill_pattern="vs")),
+    "vs-walk": ("shadow", dict(use_pallas=True, prefill_pattern="vs",
+                               vs_impl="walk")),
 }
-# the port's decode kernels, by the argument struct in their names
-KERNELS = {"RefreshArgs": "A refresh", "GatherArgs": "D gather"}
+# the port's kernels, by fragments of their demangled or mangled names
+KERNELS = {("RefreshArgs",): "A refresh", ("GatherArgs",): "D gather",
+           ("prefill_attention_kernel<false>",
+            "prefill_attention_kernelILb0"): "B prefill",
+           ("prefill_attention_kernel<true>",
+            "prefill_attention_kernelILb1"): "C stream prefill",
+           ("vs_tile_kernel",): "F vs tile", ("vs_sparse_kernel",): "G vs walk"}
 
 
 def _kernel_ms(prof) -> dict:
-    """Device ms and calls of the port's decode kernels."""
+    """Device ms and calls of the port's kernels."""
     out = {}
     for a in prof.key_averages():
-        for key, label in KERNELS.items():
-            if key in a.key:
+        for keys, label in KERNELS.items():
+            if any(key in a.key for key in keys):
                 ms, n = out.get(label, (0.0, 0))
                 out[label] = (ms + getattr(a, "self_device_time_total", 0.0)
                               / 1e3, n + a.count)
@@ -133,7 +145,7 @@ def main() -> None:
     cc = CacheConfig(mode=mode, max_length=args.prompt + 256,
                      sparse_budget=2048, rank=160, chunk_size=16,
                      kv_quant="int8", gen_capacity=256)
-    rt = RuntimeConfig(prefill_pattern="dense-splash", **rt_kw)
+    rt = RuntimeConfig(**{"prefill_pattern": "dense-splash", **rt_kw})
     eng = Engine(cfg, cc, rt, params, device="cuda")
     ids = np.random.RandomState(args.seed).randint(
         1, cfg.vocab_size, (args.batch, args.prompt))

@@ -7,22 +7,38 @@ another order, one bf16 rounding); int8 V rows exact; gathered chunks
 bit-equal (the gather moves bytes only); attention outputs within 2^-6 of
 each row's largest value, per (b, s, h) row, since the output's scale falls
 with the row index (bf16 probabilities and one bf16 rounding give a few
-2^-9). The refresh and the gather run with the V store on the card and
-pinned in host memory."""
+2^-9); the sparse prefill kernels (C, F, G) are held to the same per-row
+bound on the rows below ``seq_len``. The refresh and the gather run with
+the V store on the card and pinned in host memory."""
 
 from __future__ import annotations
 
 import pytest
 import torch
 
-from shadowkv_tpu_torch.core.attention import causal_prefill_attention
+from shadowkv_tpu_torch.core.attention import (
+    causal_prefill_attention,
+    sparse_prefill_attention,
+)
+from shadowkv_tpu_torch.core.minference import (
+    meta_from_flags,
+    vs_attention_reference,
+)
 from shadowkv_tpu_torch.core.quant import quantize_store
 from shadowkv_tpu_torch.core.selection import assign_slots_stable, compact_misses
 from shadowkv_tpu_torch.kernels.gather import gather_chunks, gather_chunks_plain
-from shadowkv_tpu_torch.kernels.prefill_attention import causal_prefill_splash
+from shadowkv_tpu_torch.kernels.prefill_attention import (
+    causal_prefill_splash,
+    sparse_prefill_splash,
+)
 from shadowkv_tpu_torch.kernels.reconstruct import (
     sparse_refresh,
     sparse_refresh_plain,
+)
+from shadowkv_tpu_torch.kernels.vs_sparse import vs_sparse_attention
+from shadowkv_tpu_torch.kernels.vs_tile import (
+    vs_tile_attention,
+    vs_tok_attention_reference,
 )
 
 pytestmark = pytest.mark.cuda
@@ -102,6 +118,75 @@ def test_prefill_attention_kernel_matches_plain(gen, s, g):
     torch.cuda.synchronize()
     assert causal_prefill_splash.launches == before + 1
     assert _row_rel_err(out, ref) <= 2.0**-6
+
+
+@pytest.mark.parametrize("s, g, window, sink", [
+    (200, 4, 64, 16), (256, 2, 100, 0), (130, 8, 1, 70), (300, 4, 0, 64),
+    (72, 2, 1000, 1000),
+])
+def test_sparse_prefill_kernel_matches_plain(gen, s, g, window, sink):
+    kh, dh = 2, 128
+    q = torch.randn(2, s, kh * g, dh, device="cuda", generator=gen).bfloat16()
+    k = torch.randn(2, s, kh, dh, device="cuda", generator=gen).bfloat16()
+    v = torch.randn(2, s, kh, dh, device="cuda", generator=gen).bfloat16()
+    ref = sparse_prefill_attention(q, k, v, window, sink)
+    before = (sparse_prefill_splash.launches, causal_prefill_splash.launches)
+    out = sparse_prefill_splash(q, k, v, window, sink)
+    torch.cuda.synchronize()
+    assert (sparse_prefill_splash.launches, causal_prefill_splash.launches) \
+        == (before[0] + 1, before[1])
+    assert _row_rel_err(out, ref) <= 2.0**-6
+
+
+def _vs_inputs(gen, b=2, h=4, kh=2, s_pad=512):
+    q = torch.randn(b * h, s_pad, 128, device="cuda", generator=gen).bfloat16()
+    k = torch.randn(b * kh, s_pad, 128, device="cuda", generator=gen).bfloat16()
+    v = torch.randn(b * kh, s_pad, 128, device="cuda", generator=gen).bfloat16()
+    kv_map = ((torch.arange(b)[:, None] * kh
+               + torch.arange(h)[None, :] // (h // kh)).reshape(-1)
+              .int().cuda())
+    return q, k, v, kv_map
+
+
+@pytest.mark.parametrize("block, seq_len", [(128, 512), (64, 459), (128, 333)])
+def test_vs_tile_kernel_matches_plain(gen, block, seq_len):
+    q, k, v, kv_map = _vs_inputs(gen)
+    bh, s_pad = q.shape[:2]
+    nk = s_pad // block
+    dflag = (torch.rand(bh, nk, device="cuda", generator=gen) < 0.3).int()
+    dflag[:, 0] = 1
+    # verticals with duplicates, entries past seq_len and pads
+    v_idx = torch.randint(0, s_pad, (bh, 100), device="cuda", generator=gen,
+                          dtype=torch.int32)
+    v_idx[:, 10:20] = v_idx[:, :10]
+    v_idx[:, -8:] = 2 * s_pad
+    kw = dict(block=block, scale=128**-0.5, seq_len=seq_len)
+    ref = vs_tok_attention_reference(q, k, v, v_idx, dflag, kv_map, **kw)
+    before = vs_tile_attention.launches
+    out = vs_tile_attention(q, k, v, v_idx, dflag, kv_map, **kw)
+    torch.cuda.synchronize()
+    assert vs_tile_attention.launches == before + 1
+    assert _row_rel_err(out[:, :seq_len], ref[:, :seq_len]) <= 2.0**-6
+
+
+@pytest.mark.parametrize("block, seq_len", [(128, 512), (64, 459), (128, 333)])
+def test_vs_sparse_kernel_matches_plain(gen, block, seq_len):
+    q, k, v, kv_map = _vs_inputs(gen)
+    bh, s_pad = q.shape[:2]
+    nk = s_pad // block
+    col = (torch.rand(bh, nk, device="cuda", generator=gen) < 0.3).int()
+    diag = (torch.rand(bh, nk, device="cuda", generator=gen) < 0.3).int()
+    diag[:, 0] = 1
+    meta = meta_from_flags(col, diag)
+    kw = dict(block=block, scale=128**-0.5, seq_len=seq_len)
+    ref = vs_attention_reference(q, k, v, meta, kv_map, **kw)
+    before = vs_sparse_attention.launches
+    out = vs_sparse_attention(q, k, v, meta.col_ids, meta.col_cnt,
+                              meta.col_flag, meta.diag_ids, meta.diag_cnt,
+                              kv_map, **kw)
+    torch.cuda.synchronize()
+    assert vs_sparse_attention.launches == before + 1
+    assert _row_rel_err(out[:, :seq_len], ref[:, :seq_len]) <= 2.0**-6
 
 
 def _gather_inputs(gen, quant, l=2, b=2, kh=4, c=64, cs=16, rank=96, s=24):

@@ -42,6 +42,10 @@ def test_port_files_exist():
         "shadowkv_tpu_torch/kernels/reconstruct.py",
         "shadowkv_tpu_torch/kernels/gather.py",
         "shadowkv_tpu_torch/kernels/prefill_attention.py",
+        "shadowkv_tpu_torch/kernels/vs_tile.py",
+        "shadowkv_tpu_torch/kernels/vs_sparse.py",
+        "shadowkv_tpu_torch/core/minference.py",
+        "shadowkv_tpu_torch/models/calibrate.py",
         "shadowkv_tpu_torch/models/engine.py",
     ):
         assert must in names
@@ -80,7 +84,7 @@ def test_engine_cuda_without_gpu_raises():
         (dict(mode="shadow_offload"),
          dict(use_pallas=True, offload_prefill_segments=2)),
         (dict(mode="full"), dict(tp=2)),
-        (dict(mode="full"), dict(prefill_pattern="stream")),
+        (dict(mode="full"), dict(prefill_pattern="vs", vs_sim="clustered")),
         (dict(mode="full"), dict(weight_quant="int8")),
         (dict(mode="shadow"), dict(decode_segmented=True)),
     ],

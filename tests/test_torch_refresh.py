@@ -28,6 +28,19 @@ L, B, K, DH = 2, 2, 2, 128
 TOL = dict(atol=1e-5, rtol=1e-5)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """Run this file's torch work on the calling thread. In a fresh pytest
+    worker a new intra-op thread has, at times, computed its share of the
+    plain refresh's f32 product ~1.2e-4 relative off (one thread's 1/8 of
+    the rows, with the BLAS product and an elementwise one alike; ROADMAP
+    §3). The arithmetic and the tolerance are unchanged."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inv_freq_full(rope_dim, style, theta=10000.0):
     invf = 1.0 / theta ** (np.arange(0, rope_dim, 2, dtype=np.float64) / rope_dim)
     if style == "neox":
