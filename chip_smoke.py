@@ -23,6 +23,11 @@ to the CPU):
    B 1 / S 4104 (ragged tile) and at the main path's shape, B 2 / S 32768,
    H 32 / KV 8, with a per-row tolerance that is shown to reject a skipped
    KV tile; timed at the main path's shape, with SDPA as a yardstick only.
+   B and C are one Hopper kernel (wgmma, TMA K/V ring): a line gives its
+   HGMMA and UTMALDG counts from ``cuobjdump -sass`` of the built library
+   (none fails the run) and its registers and spills from ``nvcc.log``,
+   and each timing line its TFLOP/s and the tile plan's visited and masked
+   tiles beside the active pairs.
 6. Kernel C (sink + sliding-window prefill attention) against its plain
    version at B 1 / S 4104 (window 1024, sink 64) and at the main path's
    shape, B 2 / S 32768 (window 8192, sink 1024), per-row tolerance as B;
@@ -72,6 +77,8 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -582,7 +589,63 @@ def _skip_tile_fault(torch, q, k, v, ref, rows, tile):
     return bad
 
 
-def check_prefill_attention(torch, cfg) -> dict:
+PREFILL_KERNEL_SYMBOL = "prefill_attention_kernel"  # B and C, one kernel
+
+
+def prefill_kernel_evidence(so) -> str:
+    """What the built prefill kernel is made of: its HGMMA (wgmma) and
+    UTMALDG (TMA load) instructions in ``cuobjdump -sass`` of the library,
+    and its registers and spills from ``nvcc.log`` (``-Xptxas -v``).
+    Fails when cuobjdump finds no wgmma or no TMA load in it."""
+    from shadowkv_tpu_torch.kernels import build
+
+    log = (build.BUILD_DIR / "nvcc.log").read_text().splitlines()
+    regs = spills = "not found"
+    for i, line in enumerate(log):
+        if ("Compiling entry function" in line
+                and PREFILL_KERNEL_SYMBOL in line):
+            for nxt in log[i + 1:i + 6]:
+                m = re.search(r"Used (\d+) registers", nxt)
+                regs = m.group(1) if m else regs
+                m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", nxt)
+                spills = f"{m.group(1)}/{m.group(2)} B" if m else spills
+    ptxas = f"ptxas: {regs} registers, spill stores/loads {spills}"
+    cuda = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    tool = shutil.which("cuobjdump", path=os.path.join(cuda, "bin")) \
+        or shutil.which("cuobjdump")
+    if tool is None:
+        return f"SASS: cuobjdump absent, no instruction counts; {ptxas}"
+    sass = subprocess.run([tool, "-sass", str(so)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts = {"HGMMA": 0, "UTMALDG": 0}
+    for func in sass.split("Function : ")[1:]:
+        if PREFILL_KERNEL_SYMBOL in func.split("\n", 1)[0]:
+            for op in counts:
+                counts[op] += len(re.findall(rf"\b{op}\b", func))
+    if not (counts["HGMMA"] and counts["UTMALDG"]):
+        raise AssertionError(f"{PREFILL_KERNEL_SYMBOL}: SASS holds {counts}; "
+                             "expected wgmma and TMA loads")
+    return (f"SASS of {PREFILL_KERNEL_SYMBOL}: HGMMA {counts['HGMMA']}, "
+            f"UTMALDG {counts['UTMALDG']}; {ptxas}")
+
+
+def plan_counts(s: int, window=None, sink: int = 0) -> str:
+    """Visited and masked 128-key tiles of one (batch row, head) under the
+    kernel's tile plan, against the causal tiles."""
+    from shadowkv_tpu_torch.kernels.prefill_attention import (
+        prefill_tile_plan,
+    )
+
+    plans = prefill_tile_plan(s, window=window, sink=sink)
+    visited = sum(len(p.full) + len(p.masked) for p in plans)
+    masked = sum(len(p.masked) for p in plans)
+    causal = len(plans) * (len(plans) + 1) // 2
+    return (f"tile plan per (b, h): {visited} of {causal} causal tiles "
+            f"visited, {masked} of them masked")
+
+
+def check_prefill_attention(torch, cfg, evidence: str) -> dict:
     """Kernel B against its plain version at the ragged tile (B 1, S 4104)
     and at the shape the main path gives it (B 2, S 32768: one prefill
     sub-batch), timed at the latter."""
@@ -653,7 +716,11 @@ def check_prefill_attention(torch, cfg) -> dict:
             log(f"[prefill-attn B={b} S={s}] kernel_ms {ms:.4f} plain_ms "
                 f"{plain_ms:.4f} sdpa_ms {lib_ms:.4f} bound_ms "
                 f"{entry['bound_ms']:.4f} ({entry['bound_by']}; "
-                f"{ops / ms / 1e9:.1f} TFLOP/s achieved)")
+                f"{ops / ms / 1e9:.1f} TFLOP/s achieved; "
+                f"{b * h * s * (s + 1) // 2} active pairs; "
+                f"{plan_counts(s)})")
+            log(f"[prefill-attn kernel B] {ops / ms / 1e9:.1f} TFLOP/s; "
+                f"{evidence}")
         del q, k, v, ref, out
         torch.cuda.empty_cache()
     return entry
@@ -812,7 +879,7 @@ def _stream_pairs(torch, s: int, window: int, sink: int) -> int:
     return int((win + extra).sum())
 
 
-def check_sparse_prefill(torch, cfg) -> dict:
+def check_sparse_prefill(torch, cfg, evidence: str) -> dict:
     """Kernel C against its plain version at B 1 / S 4104 (window 1024, sink
     64) and at the main path's shape, B 2 / S 32768 (window 8192, sink
     1024), timed at the latter beside SDPA under the same boolean mask and
@@ -888,7 +955,10 @@ def check_sparse_prefill(torch, cfg) -> dict:
         log(f"[stream-attn B={b} S={s}] kernel_ms {ms:.4f} plain_ms "
             f"{plain_ms:.4f} flex_ms {flex} sdpa_masked_ms {sdpa} bound_ms "
             f"{b_ms:.4f} ({b_by}; {pairs} active pairs, "
-            f"{4 * dh * pairs / ms / 1e9:.1f} TFLOP/s achieved)")
+            f"{4 * dh * pairs / ms / 1e9:.1f} TFLOP/s achieved; "
+            f"{plan_counts(s, window, sink)})")
+        log(f"[stream-attn kernel C] {4 * dh * pairs / ms / 1e9:.1f} TFLOP/s; "
+            f"{evidence}")
         del q, k, v
         torch.cuda.empty_cache()
     return entry
@@ -1352,8 +1422,12 @@ def main() -> int:
     )
     entries = {"sparse_refresh": check_refresh(torch, cfg, lay)}
     entries["sparse_refresh_host_v"] = check_refresh_host(torch, cfg, lay, link)
-    entries["prefill_attention"] = check_prefill_attention(torch, cfg)
-    entries["sparse_prefill_attention"] = check_sparse_prefill(torch, cfg)
+    evidence = prefill_kernel_evidence(so)
+    log(f"[prefill kernel B, C] {evidence}")
+    entries["prefill_attention"] = check_prefill_attention(torch, cfg,
+                                                           evidence)
+    entries["sparse_prefill_attention"] = check_sparse_prefill(torch, cfg,
+                                                               evidence)
     entries["gather_chunks"], entries["gather_chunks_host_v"] = check_gather(
         torch, cfg, lay, link)
     entries["vs_tile_attention"], entries["vs_sparse_attention"] = \

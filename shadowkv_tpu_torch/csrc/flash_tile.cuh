@@ -1,5 +1,6 @@
-// The flash-attention tile loop shared by the prefill attention kernels
-// (B and C in prefill_attention.cu, F in vs_tile.cu, G in vs_sparse.cu).
+// The flash-attention tile loop shared by the sparse prefill kernels F
+// (vs_tile.cu) and G (vs_sparse.cu); B and C (prefill_attention.cu) moved
+// to the Hopper building blocks of flash_sm90.cuh.
 //
 // One block of 4 warps owns 64 query rows of one head (16 rows per warp)
 // and visits the 64-key tiles its kernel picks; which tiles a kernel visits

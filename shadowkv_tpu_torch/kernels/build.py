@@ -5,9 +5,12 @@ started together) for ``sm_90a``, then the objects are linked into one
 shared library with a plain C interface, which is loaded with ``ctypes``.
 No source includes PyTorch's headers, so a cold build takes seconds. The
 library lands in ``shadowkv_tpu_torch/build/`` (git-ignored), named by a
-hash of the sources and flags, so an edited source rebuilds and an
-unchanged one is reused. ``-Xptxas -v`` output (registers, shared memory,
-spills per kernel) is kept beside it in ``nvcc.log``.
+hash of the sources, headers and flags, so an edited source or header
+rebuilds and an unchanged one is reused. The library is linked without
+``-lcuda``: the one driver entry point it needs (``cuTensorMapEncodeTiled``,
+for the prefill kernel's TMA maps) is fetched through the runtime.
+``-Xptxas -v`` output (registers, shared memory, spills per kernel) is kept
+beside it in ``nvcc.log``.
 
 Nothing here runs at import time: the first kernel launch builds.
 """
@@ -27,7 +30,8 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
 SOURCES = ("refresh.cu", "prefill_attention.cu", "gather.cu", "vs_tile.cu",
            "vs_sparse.cu")
-HEADERS = ("flash_tile.cuh",)  # included by the attention kernels
+# included by the attention kernels (F, G; B, C)
+HEADERS = ("flash_tile.cuh", "flash_sm90.cuh")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # No --use_fast_math: the refresh kernel's RoPE needs precise sincosf at
 # angles of ~1e5 rad.

@@ -5,15 +5,22 @@ Takes the place of the TPU library kernels that
 (splash MQA, K/V consumed per GQA group) and ``causal_prefill_flash``
 (flash attention, K/V repeated to H heads) compute the same function, so
 both names route to kernel B; ``sparse_prefill_splash`` (splash MQA under
-the sink + sliding-window mask) is kernel C, the same flash loop given a
-window and a sink, which skips every key tile outside both. Both kernels
-live in ``csrc/prefill_attention.cu`` and read KV head ``h // G`` for query
-head ``h`` without repeating K/V. Their plain versions, taken for CPU
+the sink + sliding-window mask) is kernel C, the same Hopper kernel
+(``csrc/prefill_attention.cu``) given a window and a sink, which skips
+every key tile outside both. It reads KV head ``h // G`` for query head
+``h`` without repeating K/V. Their plain versions, taken for CPU
 tensors, are ``core/attention.py::causal_prefill_attention`` and
 ``sparse_prefill_attention``; each wrapper counts its own launches.
+
+``prefill_tile_plan`` states in Python which key tiles the kernel visits
+for each query block and which of them need a per-pair mask; the CUDA
+kernel transcribes it (``TilePlan``) and the CPU tests hold it against the
+dense mask.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -36,6 +43,58 @@ def _check(q, k, v):
     if dh != 128 or h % kh != 0:
         raise ValueError(f"kernel serves head_dim 128 and H % K == 0 "
                          f"(got Dh {dh}, H {h}, K {kh})")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("prefill attention kernel: q/k/v must start on a "
+                         "16-byte boundary (TMA)")
+
+
+TILE = 128  # query rows of a block and keys of a tile
+
+
+class TilePlan(NamedTuple):
+    """The key tiles of one query block: ``full`` tiles hold only active
+    (query, key) pairs and take no per-pair test, ``masked`` tiles hold
+    some, ``skipped`` tiles none."""
+
+    full: list[int]
+    masked: list[int]
+    skipped: list[int]
+
+
+def prefill_tile_plan(seq: int, window: int | None = None,
+                      sink: int = 0) -> list[TilePlan]:
+    """Per query block (rows ``[i * TILE, (i + 1) * TILE)``), the key tiles
+    (keys ``[t * TILE, (t + 1) * TILE)``) that B (``window=None``: causal) or
+    C (key kv visible to query q iff ``kv <= q`` and ``kv < sink`` or
+    ``q - kv < window``) visits. Visited are the sink tiles ``[0,
+    n_sink)`` and the tiles ``[first_win, last]`` that hold a key inside
+    the window of some row; a visited tile is full when every key lies at
+    or below the block's first row and is a sink key or inside the window
+    of the block's last row. ``csrc/prefill_attention.cu``'s ``TilePlan``
+    is this function in CUDA."""
+    window = seq if window is None else max(0, min(window, seq))
+    sink = max(0, min(sink, seq))
+    n_tiles = -(-seq // TILE)
+    plans = []
+    for q0 in range(0, seq, TILE):
+        q1 = min(q0 + TILE, seq) - 1
+        last = q1 // TILE
+        n_sink = min(last + 1, -(-sink // TILE))
+        first_win = last + 1
+        if window > 0:
+            x = q0 - window - (TILE - 2)
+            first_win = max(n_sink, 0 if x <= 0 else -(-x // TILE))
+        visit = list(range(n_sink)) + list(range(first_win, last + 1))
+        full = [t for t in visit
+                if (t + 1) * TILE - 1 <= q0
+                and ((t + 1) * TILE - 1 < sink
+                     or q1 - max(t * TILE, sink) < window)]
+        plans.append(TilePlan(
+            full=full,
+            masked=[t for t in visit if t not in full],
+            skipped=[t for t in range(n_tiles) if t not in visit],
+        ))
+    return plans
 
 
 def causal_prefill_splash(

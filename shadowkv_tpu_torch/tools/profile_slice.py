@@ -90,11 +90,9 @@ MODES = {
                                vs_impl="walk")),
 }
 # the port's kernels, by fragments of their demangled or mangled names
+# (B and C are one kernel: B in the dense prefill, C in the stream one)
 KERNELS = {("RefreshArgs",): "A refresh", ("GatherArgs",): "D gather",
-           ("prefill_attention_kernel<false>",
-            "prefill_attention_kernelILb0"): "B prefill",
-           ("prefill_attention_kernel<true>",
-            "prefill_attention_kernelILb1"): "C stream prefill",
+           ("prefill_attention_kernel",): "B/C prefill",
            ("vs_tile_kernel",): "F vs tile", ("vs_sparse_kernel",): "G vs walk"}
 
 

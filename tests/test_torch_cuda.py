@@ -8,8 +8,9 @@ bit-equal (the gather moves bytes only); attention outputs within 2^-6 of
 each row's largest value, per (b, s, h) row, since the output's scale falls
 with the row index (bf16 probabilities and one bf16 rounding give a few
 2^-9); the sparse prefill kernels (C, F, G) are held to the same per-row
-bound on the rows below ``seq_len``. The refresh and the gather run with
-the V store on the card and pinned in host memory."""
+bound on the rows below ``seq_len``. The prefill kernel (B, C) gives one
+batch row alone the same bits as that row inside a batch. The refresh and
+the gather run with the V store on the card and pinned in host memory."""
 
 from __future__ import annotations
 
@@ -106,7 +107,8 @@ def test_refresh_kernel_matches_plain(gen, quant, style, cs, host_v):
     assert torch.equal(v_buf, v_ref)
 
 
-@pytest.mark.parametrize("s, g", [(200, 4), (256, 2), (72, 8)])
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("s", [72, 129, 200, 256, 1000])
 def test_prefill_attention_kernel_matches_plain(gen, s, g):
     kh, dh = 2, 128
     q = torch.randn(2, s, kh * g, dh, device="cuda", generator=gen).bfloat16()
@@ -122,7 +124,8 @@ def test_prefill_attention_kernel_matches_plain(gen, s, g):
 
 @pytest.mark.parametrize("s, g, window, sink", [
     (200, 4, 64, 16), (256, 2, 100, 0), (130, 8, 1, 70), (300, 4, 0, 64),
-    (72, 2, 1000, 1000),
+    (72, 2, 1000, 1000), (1000, 1, 300, 129), (1000, 8, 256, 128),
+    (129, 2, 128, 1), (1000, 4, 129, 0), (256, 1, 130, 200),
 ])
 def test_sparse_prefill_kernel_matches_plain(gen, s, g, window, sink):
     kh, dh = 2, 128
@@ -135,6 +138,33 @@ def test_sparse_prefill_kernel_matches_plain(gen, s, g, window, sink):
     torch.cuda.synchronize()
     assert (sparse_prefill_splash.launches, causal_prefill_splash.launches) \
         == (before[0] + 1, before[1])
+    assert _row_rel_err(out, ref) <= 2.0**-6
+
+
+@pytest.mark.parametrize("window, sink", [(None, None), (300, 129)])
+def test_prefill_attention_batch_rows_are_independent(gen, window, sink):
+    """B 2 at a ragged S with different data per batch row (row 1's V 10^4
+    times larger): each row's output is bit-equal to the kernel's output
+    for that row alone, so no tile reads the other row (the 4-D TMA maps
+    zero-fill past S instead)."""
+    s, kh, g, dh = 200, 2, 4, 128
+    q = torch.randn(2, s, kh * g, dh, device="cuda", generator=gen).bfloat16()
+    k = torch.randn(2, s, kh, dh, device="cuda", generator=gen).bfloat16()
+    v = torch.randn(2, s, kh, dh, device="cuda", generator=gen).bfloat16()
+    v[1] *= 1e4
+
+    def run(*t):
+        if window is None:
+            return causal_prefill_splash(*t)
+        return sparse_prefill_splash(*t, window, sink)
+
+    out = run(q, k, v)
+    for b in range(2):
+        alone = run(q[b:b + 1].clone(), k[b:b + 1].clone(), v[b:b + 1].clone())
+        torch.cuda.synchronize()
+        assert torch.equal(out[b:b + 1], alone)
+    ref = (causal_prefill_attention(q, k, v) if window is None
+           else sparse_prefill_attention(q, k, v, window, sink))
     assert _row_rel_err(out, ref) <= 2.0**-6
 
 
@@ -248,3 +278,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
         causal_prefill_splash(qb[..., :64].contiguous(),
                               qb[:, :, :2, :64].contiguous(),
                               qb[:, :, :2, :64].contiguous())
+    # contiguous, but 2 bytes past a 16-byte boundary: TMA cannot map it
+    flat = torch.zeros(1 + 64 * 2 * 128, device="cuda", dtype=torch.bfloat16)
+    kv = flat[1:].view(1, 64, 2, 128)
+    with pytest.raises(ValueError, match="16-byte"):
+        causal_prefill_splash(qb[:, :, :2].contiguous(), kv, kv)
