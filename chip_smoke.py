@@ -23,11 +23,12 @@ to the CPU):
    B 1 / S 4104 (ragged tile) and at the main path's shape, B 2 / S 32768,
    H 32 / KV 8, with a per-row tolerance that is shown to reject a skipped
    KV tile; timed at the main path's shape, with SDPA as a yardstick only.
-   B and C are one Hopper kernel (wgmma, TMA K/V ring): a line gives its
-   HGMMA and UTMALDG counts from ``cuobjdump -sass`` of the built library
-   (none fails the run) and its registers and spills from ``nvcc.log``,
-   and each timing line its TFLOP/s and the tile plan's visited and masked
-   tiles beside the active pairs.
+   B and C are one Hopper kernel, F and G two more on the same tile-plan
+   loop (wgmma, TMA K/V ring): a line gives each one's HGMMA and UTMALDG
+   counts from ``cuobjdump -sass`` of the built library (none fails the
+   run) and its registers and spills from ``nvcc.log``, and each timing
+   line its TFLOP/s and the tile plan's visited and masked tiles beside
+   the active pairs.
 6. Kernel C (sink + sliding-window prefill attention) against its plain
    version at B 1 / S 4104 (window 1024, sink 64) and at the main path's
    shape, B 2 / S 32768 (window 8192, sink 1024), per-row tolerance as B;
@@ -42,7 +43,8 @@ to the CPU):
    blockwise plain versions at B*H 64, S 32768, Dh 128 on two flag sets
    (estimation on random q/k at the JAX default sizes, and a clustered set:
    slashes decaying from the diagonal plus 512 hot verticals), and at a
-   ragged S with duplicate and past-the-end verticals; timed on both sets,
+   ragged S with duplicate and past-the-end verticals, where the per-row
+   check must reject a planted skipped tile of each; timed on both sets,
    each bound counted from the active pairs of its flags, with the
    compiled ``flex_attention`` under a block mask built from the same
    flags as the library yardstick (held to the kernel's output first).
@@ -573,61 +575,83 @@ def _timed(torch, fn):
     return out, start.elapsed_time(end)
 
 
-def _skip_tile_fault(torch, q, k, v, ref, rows, tile):
+def _skip_tile_fault(torch, q, k, v, ref, rows, tile, mask=None,
+                     kv_map=None):
     """``ref`` with rows ``rows`` recomputed by the plain attention without
-    KV positions ``tile``: what a kernel that skips one off-diagonal KV tile
-    would give. The per-row check must reject it."""
-    from shadowkv_tpu_torch.core.attention import mha
-
+    KV positions ``tile``: what a kernel that skips one KV tile would give.
+    The per-row check must reject it. B's layout ([B, S, H, Dh], causal
+    mask) by default; F's and G's ([B*H, S, Dh] with ``kv_map``) when
+    ``mask`` [B*H, rows, S], the function's token mask of those rows, is
+    given."""
     r0, r1 = rows
-    pos_q = torch.arange(r0, r1, device=q.device)
     pos_k = torch.arange(k.shape[1], device=q.device)
-    mask = (pos_q[:, None] >= pos_k[None, :]) \
-        & ~((pos_k >= tile[0]) & (pos_k < tile[1]))[None, :]
+    keep = ~((pos_k >= tile[0]) & (pos_k < tile[1]))
     bad = ref.clone()
-    bad[:, r0:r1] = mha(q[:, r0:r1], k, v, mask=mask[None, None, None])
+    if mask is None:
+        from shadowkv_tpu_torch.core.attention import mha
+
+        pos_q = torch.arange(r0, r1, device=q.device)
+        causal = (pos_q[:, None] >= pos_k[None, :]) & keep[None, :]
+        bad[:, r0:r1] = mha(q[:, r0:r1], k, v, mask=causal[None, None, None])
+    else:
+        from shadowkv_tpu_torch.core.minference import masked_attention
+
+        kv = kv_map.long()
+        bad[:, r0:r1] = masked_attention(
+            q[:, r0:r1], k.float()[kv], v[kv], mask & keep,
+            q.shape[-1] ** -0.5).to(ref.dtype)
     return bad
 
 
-PREFILL_KERNEL_SYMBOL = "prefill_attention_kernel"  # B and C, one kernel
+# the Hopper attention kernels, by the names in their mangled symbols
+ATTN_KERNEL_SYMBOLS = {"B, C": "prefill_attention_kernel",
+                       "F": "vs_tile_kernel", "G": "vs_sparse_kernel"}
 
 
-def prefill_kernel_evidence(so) -> str:
-    """What the built prefill kernel is made of: its HGMMA (wgmma) and
-    UTMALDG (TMA load) instructions in ``cuobjdump -sass`` of the library,
-    and its registers and spills from ``nvcc.log`` (``-Xptxas -v``).
-    Fails when cuobjdump finds no wgmma or no TMA load in it."""
+def attention_kernel_evidence(so) -> dict:
+    """What each built attention kernel (B/C, F, G) is made of: its HGMMA
+    (wgmma) and UTMALDG (TMA load) instructions in ``cuobjdump -sass`` of
+    the library, and its registers and spills from ``nvcc.log``
+    (``-Xptxas -v``). {label: text}. Fails when cuobjdump finds no wgmma
+    or no TMA load in one of them."""
     from shadowkv_tpu_torch.kernels import build
 
-    log = (build.BUILD_DIR / "nvcc.log").read_text().splitlines()
-    regs = spills = "not found"
-    for i, line in enumerate(log):
-        if ("Compiling entry function" in line
-                and PREFILL_KERNEL_SYMBOL in line):
-            for nxt in log[i + 1:i + 6]:
-                m = re.search(r"Used (\d+) registers", nxt)
-                regs = m.group(1) if m else regs
-                m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                              r"loads", nxt)
-                spills = f"{m.group(1)}/{m.group(2)} B" if m else spills
-    ptxas = f"ptxas: {regs} registers, spill stores/loads {spills}"
+    log_lines = (build.BUILD_DIR / "nvcc.log").read_text().splitlines()
     cuda = os.environ.get("CUDA_HOME", "/usr/local/cuda")
     tool = shutil.which("cuobjdump", path=os.path.join(cuda, "bin")) \
         or shutil.which("cuobjdump")
-    if tool is None:
-        return f"SASS: cuobjdump absent, no instruction counts; {ptxas}"
-    sass = subprocess.run([tool, "-sass", str(so)], capture_output=True,
-                          text=True, check=True, timeout=300).stdout
-    counts = {"HGMMA": 0, "UTMALDG": 0}
-    for func in sass.split("Function : ")[1:]:
-        if PREFILL_KERNEL_SYMBOL in func.split("\n", 1)[0]:
-            for op in counts:
-                counts[op] += len(re.findall(rf"\b{op}\b", func))
-    if not (counts["HGMMA"] and counts["UTMALDG"]):
-        raise AssertionError(f"{PREFILL_KERNEL_SYMBOL}: SASS holds {counts}; "
-                             "expected wgmma and TMA loads")
-    return (f"SASS of {PREFILL_KERNEL_SYMBOL}: HGMMA {counts['HGMMA']}, "
-            f"UTMALDG {counts['UTMALDG']}; {ptxas}")
+    funcs = []
+    if tool is not None:
+        sass = subprocess.run([tool, "-sass", str(so)], capture_output=True,
+                              text=True, check=True, timeout=300).stdout
+        funcs = sass.split("Function : ")[1:]
+    out = {}
+    for label, symbol in ATTN_KERNEL_SYMBOLS.items():
+        regs = spills = "not found"
+        for i, line in enumerate(log_lines):
+            if "Compiling entry function" in line and symbol in line:
+                for nxt in log_lines[i + 1:i + 6]:
+                    m = re.search(r"Used (\d+) registers", nxt)
+                    regs = m.group(1) if m else regs
+                    m = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                                  r"spill loads", nxt)
+                    spills = f"{m.group(1)}/{m.group(2)} B" if m else spills
+        ptxas = f"ptxas: {regs} registers, spill stores/loads {spills}"
+        if tool is None:
+            out[label] = ("SASS: cuobjdump absent, no instruction counts; "
+                          + ptxas)
+            continue
+        counts = {"HGMMA": 0, "UTMALDG": 0}
+        for func in funcs:
+            if symbol in func.split("\n", 1)[0]:
+                for op in counts:
+                    counts[op] += len(re.findall(rf"\b{op}\b", func))
+        if not (counts["HGMMA"] and counts["UTMALDG"]):
+            raise AssertionError(f"{symbol}: SASS holds {counts}; expected "
+                                 "wgmma and TMA loads")
+        out[label] = (f"SASS of {symbol}: HGMMA {counts['HGMMA']}, "
+                      f"UTMALDG {counts['UTMALDG']}; {ptxas}")
+    return out
 
 
 def plan_counts(s: int, window=None, sink: int = 0) -> str:
@@ -1017,11 +1041,33 @@ def _check_rows(torch, label, out, ref, seq_len):
     return err
 
 
-def check_vs_kernels(torch, cfg) -> tuple[dict, dict]:
+def vs_plan_counts(name, v_idx, dflag, col, block: int, s: int) -> str:
+    """Visited, masked and (F) vertical tiles of kernel F's or G's tile
+    plan over all rows, against the causal key tiles."""
+    from shadowkv_tpu_torch.kernels import vs_sparse, vs_tile
+
+    if name == "F":
+        vpos = vs_tile.vertical_positions(v_idx, s, s)
+        plan = vs_tile.vs_tile_plan(vpos, dflag, block, s, s)
+        extra = (f", {int(plan.vertical.sum())} vertical tiles of "
+                 f"{plan.vertical.numel()} visited (all masked)")
+    else:
+        plan = vs_sparse.vs_walk_plan(col, dflag, block, s, s)
+        extra = ""
+    nq = plan.full.shape[1]
+    causal = plan.full.shape[0] * nq * (nq + 1) // 2
+    visited = int(plan.full.sum()) + int(plan.masked.sum())
+    return (f"tile plan over {plan.full.shape[0]} rows: {visited} of "
+            f"{causal} causal key tiles visited, {int(plan.masked.sum())} "
+            f"of them masked{extra}")
+
+
+def check_vs_kernels(torch, cfg, evidence: dict) -> tuple[dict, dict]:
     """Kernels F and G against their plain versions at the path's shape
     (B*H 64, S 32768, Dh 128) on both flag sets, timed on each; then at a
-    ragged S with duplicate and past-the-end verticals. Returns (F, G)
-    entries timed on the estimated set."""
+    ragged S with duplicate and past-the-end verticals, where a planted
+    skipped tile must be rejected. Returns (F, G) entries timed on the
+    estimated set."""
     from shadowkv_tpu_torch.core import minference as mi
     from shadowkv_tpu_torch.kernels import vs_sparse, vs_tile
 
@@ -1078,7 +1124,10 @@ def check_vs_kernels(torch, cfg) -> tuple[dict, dict]:
                 f"{plain_ms:.4f} flex_ms {lib_ms} bound_ms {b_ms:.4f} "
                 f"({b_by}; {pairs} active pairs = "
                 f"{pairs / (b * h * s * (s + 1) / 2):.4f} of causal; "
-                f"{4 * dh * pairs / ms / 1e9:.1f} TFLOP/s achieved)")
+                f"{4 * dh * pairs / ms / 1e9:.1f} TFLOP/s achieved; "
+                f"{vs_plan_counts(name, v_idx, dflag, col, block, s)})")
+            log(f"[vs kernel {name}] {4 * dh * pairs / ms / 1e9:.1f} "
+                f"TFLOP/s; {evidence[name]}")
             if label == "estimated":
                 entries[name] = dict(
                     name=("vs_tile_attention" if name == "F"
@@ -1100,11 +1149,15 @@ def check_vs_kernels(torch, cfg) -> tuple[dict, dict]:
 
 def _check_vs_ragged(torch, gen) -> None:
     """F and G at S 4104 (padded to 4608 and 4224) with random flags, and
-    for F verticals with duplicates, entries past the sequence and pads."""
+    for F verticals with duplicates, entries past the sequence and pads.
+    Then each check must reject a planted fault: rows 3584-4095 recomputed
+    without the off-diagonal 128-key tile that holds most of their active
+    pairs."""
     from shadowkv_tpu_torch.core import minference as mi
     from shadowkv_tpu_torch.kernels import vs_sparse, vs_tile
 
     s, block, bh, bkv = 4104, 128, 8, 2
+    r0, r1 = 3584, 4096
     kv_map = torch.arange(bh, device=DEVICE, dtype=torch.int32) // (bh // bkv)
     for name, s_pad in (("F", 4608), ("G", 4224)):
         n_blk = s_pad // block
@@ -1122,6 +1175,7 @@ def _check_vs_ragged(torch, gen) -> None:
             ref = vs_tile.vs_tok_attention_reference(q, k, v, v_idx, diag,
                                                      kv_map, **kw)
             out = vs_tile.vs_tile_attention(q, k, v, v_idx, diag, kv_map, **kw)
+            masks = vs_tile.tile_masks(v_idx, diag, block, s_pad, s, r1 - r0)
         else:
             col = (torch.rand(bh, n_blk, device=DEVICE, generator=gen) < 0.3).int()
             meta = mi.meta_from_flags(col, diag)
@@ -1129,8 +1183,24 @@ def _check_vs_ragged(torch, gen) -> None:
             out = vs_sparse.vs_sparse_attention(
                 q, k, v, meta.col_ids, meta.col_cnt, meta.col_flag,
                 meta.diag_ids, meta.diag_cnt, kv_map, **kw)
+            masks = mi.walk_masks(meta, block, s_pad, s, r1 - r0)
         torch.cuda.synchronize()
         _check_rows(torch, f"vs {name} ragged, S {s} in {s_pad}", out, ref, s)
+        mask = next(m for q0, m in masks if q0 == r0)
+        per_tile = mask.reshape(bh, r1 - r0, -1, 128).sum((0, 1, 3))
+        t = int(per_tile[:r0 // 128].argmax())
+        bad = _skip_tile_fault(torch, q, k, v, ref, (r0, r1),
+                               (128 * t, 128 * t + 128), mask=mask,
+                               kv_map=kv_map)
+        bad_rel = row_rel_err(torch, bad[:, :s], ref[:, :s])
+        log(f"[vs {name} fault: key tile {128 * t}-{128 * t + 127} "
+            f"({int(per_tile[t])} active pairs) skipped for rows "
+            f"{r0}-{r1 - 1}] per-row relative {bad_rel:.3e} (rejected: "
+            f"{bad_rel > ATTN_ROW_TOL})")
+        if not bad_rel > ATTN_ROW_TOL:
+            raise AssertionError(f"vs {name}: the per-row check misses a "
+                                 "skipped tile")
+        del q, k, v, ref, out, bad, mask
 
 
 # ---------------------------------------------------------------------------
@@ -1422,16 +1492,17 @@ def main() -> int:
     )
     entries = {"sparse_refresh": check_refresh(torch, cfg, lay)}
     entries["sparse_refresh_host_v"] = check_refresh_host(torch, cfg, lay, link)
-    evidence = prefill_kernel_evidence(so)
-    log(f"[prefill kernel B, C] {evidence}")
-    entries["prefill_attention"] = check_prefill_attention(torch, cfg,
-                                                           evidence)
-    entries["sparse_prefill_attention"] = check_sparse_prefill(torch, cfg,
-                                                               evidence)
+    evidence = attention_kernel_evidence(so)
+    for label, text in evidence.items():
+        log(f"[attention kernel {label}] {text}")
+    entries["prefill_attention"] = check_prefill_attention(
+        torch, cfg, evidence["B, C"])
+    entries["sparse_prefill_attention"] = check_sparse_prefill(
+        torch, cfg, evidence["B, C"])
     entries["gather_chunks"], entries["gather_chunks_host_v"] = check_gather(
         torch, cfg, lay, link)
     entries["vs_tile_attention"], entries["vs_sparse_attention"] = \
-        check_vs_kernels(torch, cfg)
+        check_vs_kernels(torch, cfg, evidence)
     check_toy_engine(torch)
 
     t0 = time.perf_counter()

@@ -515,7 +515,7 @@ def minference_prefill_tile(
       stream_llm:         v_idx = the sink tokens, diag = the window's bands
       dense:              diag = every band
 
-    S is padded to a multiple of ``block`` and of kernel F's 64-row tile
+    S is padded to a multiple of ``block`` and of kernel F's 128-row tile
     (JAX's ``tile`` argument sizes the TPU kernel's tiles only; padded rows
     are sliced off and padded keys masked, so it changes no result);
     vertical lists are padded to one capacity with ``2 * S_pad``. Returns

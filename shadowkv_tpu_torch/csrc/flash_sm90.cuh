@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks of the prefill attention kernels: TMA
 // loads into 128-byte-swizzled shared memory that complete on mbarriers,
-// wgmma descriptors and m64n128k16 products, and the pieces of a
+// wgmma descriptors and m64n128k16 products, the pieces of a
 // flash-attention visit of one 128-key tile whose scores, probabilities
-// and output accumulator stay in registers.
+// and output accumulator stay in registers, and the loop over a tile plan
+// that kernels B/C (prefill_attention.cu), F (vs_tile.cu) and G
+// (vs_sparse.cu) instantiate (attend).
 //
 // Shared-memory tile. A 128-row x 128-column bf16 tile (query rows or
 // keys x head_dim) is two TMA boxes of 128 rows x 64 columns: a bf16 row
@@ -318,14 +320,18 @@ __device__ inline void scores(float (&s)[64], uint64_t q, uint32_t k_tile) {
 }
 
 // Sets the scores of inactive pairs to -inf: the pair (row, key) counts
-// only if active(dr, c), dr 0 or 8 (this thread's row l/4 or l/4 + 8 of its
-// warp's 16) and c the key's column in the tile. Full tiles skip it.
-template <class Active>
-__device__ inline void mask(float (&s)[64], Active active) {
+// only if row0(c) (this thread's row l/4 of its warp's 16) or row8(c) (row
+// l/4 + 8) holds, c the key's column in the tile. A row functor computes
+// what depends on its row once per tile, so a pair costs a few compares.
+// Full tiles skip it.
+template <class Row>
+__device__ inline void mask_rows(float (&s)[64], const Row& row0,
+                                 const Row& row8) {
   const int c0 = 2 * (threadIdx.x % 4);
 #pragma unroll
   for (int i = 0; i < 64; ++i) {
-    if (!active((i & 2) ? 8 : 0, 8 * (i / 4) + c0 + (i & 1))) s[i] = -INFINITY;
+    const int c = 8 * (i / 4) + c0 + (i & 1);
+    if (!((i & 2) ? row8(c) : row0(c))) s[i] = -INFINITY;
   }
 }
 
@@ -413,6 +419,168 @@ __device__ inline void store_rows(const Acc& acc, __nv_bfloat16* row0,
           pack_bf16(acc.o[4 * n8 + 2], acc.o[4 * n8 + 3]);
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// The attention loop over a tile plan
+// ---------------------------------------------------------------------------
+//
+// A block owns 128 query rows and visits the 128-key tiles its plan names.
+// It has three warpgroups: warpgroup 0 is the producer (one thread issues
+// every TMA load; its registers drop to 40 with setmaxnreg), warpgroups 1
+// and 2 are consumers of 64 query rows each (registers raised to 232).
+// Q is loaded once by TMA. K and V go through a ring of kStages stages (32
+// KB of K and 32 KB of V each) with a full mbarrier for K, one for V and an
+// empty mbarrier per stage; the producer fills stage i % kStages while the
+// consumers work on the stages before it. 32 KB of Q and two stages come to
+// 160 KB, so one block runs per SM.
+//
+// Two passes over the plan's tiles: the first computes each row's max and
+// sum, the second rounds the normalised probabilities to bf16, as the plain
+// versions do, and accumulates P V. The ring carries K alone in the first
+// pass (full_v still completes a phase, so both barriers of a stage keep
+// one parity), K and V in the second.
+//
+// A plan is what tells the kernels apart. It is a per-thread object with
+//   int count() const;                 tiles visited
+//   KvTile kv(int i) const;            where tile i's K and V come from
+//   bool full(int i) const;            every pair of tile i is active
+//   void mask(int i, float (&s)[64], int qp) const;
+//                                      -inf on tile i's inactive pairs of
+//                                      this thread's rows qp and qp + 8
+// and every thread of the block must see the same count and tiles. A plan
+// that keeps its tile list in shared memory has it written, after a
+// __syncthreads, before attend() is called; attend() must be the last
+// statement of the kernel (the producer returns early, and the two
+// warpgroups' paths must not reconverge for setmaxnreg to hold).
+
+constexpr int kStages = 2;
+constexpr int kThreads = 3 * 128;
+constexpr int kConsumerWarps = 8;
+// Q, kStages x (K, V), the barriers (q, kStages x (full K, full V, empty)).
+constexpr uint32_t kBarBytes = 8 * (1 + 3 * kStages);
+constexpr uint32_t kLoopBytes = kTileBytes * (1 + 2 * kStages) + kBarBytes;
+// What the loop asks of dynamic shared memory, with 1024 B to align the
+// swizzled tiles by hand; a plan's own data may follow (plan_smem).
+constexpr size_t kLoopSmemBytes = 1024 + (size_t)kLoopBytes;
+
+// Where one tile's K and V rows come from: row `row` of head `head` and
+// batch row `batch` of the maps k and v.
+struct KvTile {
+  const CUtensorMap* k;
+  const CUtensorMap* v;
+  int head;
+  int row;
+  int batch;
+};
+
+// The 1024-aligned shared address of the loop's tiles.
+__device__ __forceinline__ uint32_t loop_base(unsigned char* smem_raw) {
+  return (smem_u32(smem_raw) + 1023) & ~1023u;
+}
+
+// A plan's own shared memory, past the loop's (8-byte aligned).
+__device__ __forceinline__ unsigned char* plan_smem(unsigned char* smem_raw) {
+  return smem_raw + (loop_base(smem_raw) - smem_u32(smem_raw)) + kLoopBytes;
+}
+
+// O for the 128 rows of Q at (q_head, q_row, q_batch) of q_map, over the
+// plan's tiles; row r (0..127) goes to out + r * row_stride if r < n_rows.
+// q_row is also the position of the block's first query row.
+template <class Plan>
+__device__ __forceinline__ void attend(const Plan& plan, uint32_t base,
+                                       const CUtensorMap* q_map, int q_head,
+                                       int q_row, int q_batch,
+                                       float scale_log2, __nv_bfloat16* out,
+                                       size_t row_stride, int n_rows) {
+  const uint32_t q_s = base;
+  const uint32_t bars = base + kTileBytes * (1 + 2 * kStages);
+  const uint32_t q_bar = bars;
+  auto k_s = [&](int st) { return base + kTileBytes * (1 + 2 * st); };
+  auto v_s = [&](int st) { return base + kTileBytes * (2 + 2 * st); };
+  auto full_k = [&](int st) { return bars + 8 * (1 + st); };
+  auto full_v = [&](int st) { return bars + 8 * (1 + kStages + st); };
+  auto empty = [&](int st) { return bars + 8 * (1 + 2 * kStages + st); };
+  const int n_visit = plan.count();
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_bar, 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(full_k(st), 1);
+      mbar_init(full_v(st), 1);
+      mbar_init(empty(st), kConsumerWarps);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // producer warpgroup
+    regs_dec<40>();
+    if (threadIdx.x == 0) {
+      tma_load_tile(q_s, q_map, q_bar, q_head, q_row, q_batch);
+      for (int i = 0; i < 2 * n_visit; ++i) {
+        const int st = i % kStages;
+        mbar_wait(empty(st), ((i / kStages) & 1) ^ 1);
+        const bool second = i >= n_visit;
+        const KvTile t = plan.kv(second ? i - n_visit : i);
+        tma_load_tile(k_s(st), t.k, full_k(st), t.head, t.row, t.batch);
+        if (second) {
+          tma_load_tile(v_s(st), t.v, full_v(st), t.head, t.row, t.batch);
+        } else {
+          mbar_arrive(full_v(st));
+        }
+      }
+    }
+    return;
+  }
+
+  regs_inc<232>();
+  const int cw = threadIdx.x / 128 - 1;  // consumer warpgroup: rows 64 cw..
+  const int lane = threadIdx.x % 32;
+  const int r0 = 64 * cw + 16 * ((threadIdx.x / 32) % 4) + lane / 4;
+  const uint64_t q_desc = desc_k_major(q_s + cw * 64 * 128);
+  Acc acc;
+  acc.init();
+  mbar_wait(q_bar, 0);
+  // S of ring entry i (the plan's tile i % n_visit), masked unless full.
+  auto tile_scores = [&](int i, float (&s)[64]) {
+    const int st = i % kStages;
+    const int j = i % n_visit;
+    mbar_wait(full_k(st), (i / kStages) & 1);
+    scores(s, q_desc, k_s(st));
+    if (!plan.full(j)) plan.mask(j, s, q_row + r0);
+  };
+  for (int i = 0; i < n_visit; ++i) {  // first pass: row max and sum
+    float s[64];
+    tile_scores(i, s);
+    if (lane == 0) mbar_arrive(empty(i % kStages));
+    add_stats(acc, s, scale_log2);
+  }
+  finish_stats(acc);
+  for (int i = n_visit; i < 2 * n_visit; ++i) {  // second pass: O = P V
+    const int st = i % kStages;
+    float s[64];
+    tile_scores(i, s);
+    add_pv(acc, s, scale_log2, v_s(st), full_v(st), (i / kStages) & 1);
+    if (lane == 0) mbar_arrive(empty(st));
+  }
+  store_rows(acc, out + r0 * row_stride, r0 < n_rows,
+             out + (r0 + 8) * row_stride, r0 + 8 < n_rows);
+}
+
+// Appends to list[count..], in order, eval(c) for each candidate c in [0,
+// n) where it is not negative; returns the new count. Called by all 32
+// lanes of one warp (the lists stay in candidate order for every thread).
+template <class Eval>
+__device__ inline int warp_compact(int* list, int count, int n, Eval eval) {
+  const int lane = threadIdx.x % 32;
+  for (int b = 0; b < n; b += 32) {
+    const int e = b + lane < n ? eval(b + lane) : -1;
+    const unsigned m = __ballot_sync(0xffffffffu, e >= 0);
+    if (e >= 0) list[count + __popc(m & ((1u << lane) - 1))] = e;
+    count += __popc(m);
+  }
+  return count;
 }
 
 // ---------------------------------------------------------------------------

@@ -20,34 +20,21 @@
 // active pairs only, about S*(window+sink)*H*Dh*4 operations, still far
 // above that ratio at window 8192.
 //
-// What the design does about it (building blocks in flash_sm90.cuh):
-// - A block owns 128 query rows of one head and walks 128-key tiles of the
-//   KV head h / G. It has three warpgroups: warpgroup 0 is the producer
-//   (one thread issues every TMA load; its registers drop to 40 with
-//   setmaxnreg), warpgroups 1 and 2 are consumers of 64 query rows each
-//   (registers raised to 232).
-// - Q is loaded once by TMA. K and V go through a ring of kStages stages
-//   (32 KB of K and 32 KB of V each), with a full mbarrier for K, one for
-//   V and an empty mbarrier per stage; the producer fills stage i % kStages
-//   while the consumers work on the stages before it. 32 KB of Q and two
-//   stages come to 160 KB, so one block runs per SM.
-// - The tensor maps are 4-D (head_dim, heads, seq, batch) with the real
-//   strides: a tile past a sequence's end is zero-filled by TMA, not read
-//   from the next batch row.
-// - S = Q K^T and O += P V are wgmma m64n128k16 (8 k-steps each); S, P and
-//   O live in registers (P as the register A operand), and the softmax
-//   scale is folded into exp2.
-// - Two passes over the plan's tiles: the first computes each row's max and
-//   sum, the second rounds the normalised probabilities to bf16, as the
-//   plain version does, and accumulates P V (flash_sm90.cuh says why).
-//   The ring carries K alone in the first pass, K and V in the second.
+// What the design does about it: the tile-plan loop of flash_sm90.cuh
+// (wgmma m64n128k16 with S, P and O in registers, a TMA/mbarrier K/V ring
+// fed by a producer warpgroup to two consumer warpgroups, two passes so P
+// is rounded after normalising, as the plain version does), over this
+// kernel's plan:
 // - The tile plan (kernels/prefill_attention.py::prefill_tile_plan states
-//   it in Python and is tested against the dense mask; TilePlan transcribes
-//   it) visits the sink tiles [0, n_sink) and the window tiles
+//   it in Python and is tested against the dense mask; WindowPlan
+//   transcribes it) visits the sink tiles [0, n_sink) and the window tiles
 //   [first_win, last] and skips the rest. A visited tile whose every
 //   (row, key) pair is active is full and takes no per-pair test; the
 //   others (the diagonal tile, the sink's and window's edge tiles) are
 //   masked. Keys at or past seq are in masked tiles only.
+// - The tensor maps are 4-D (head_dim, heads, seq, batch) with the real
+//   strides: a tile past a sequence's end is zero-filled by TMA, not read
+//   from the next batch row.
 // - Grid (heads, batch, query blocks), the last (heaviest) query blocks
 //   first; the G query heads of a KV group are adjacent in launch order, so
 //   the heads sharing a K/V tile find it in L2 (K and V are never repeated
@@ -61,156 +48,98 @@
 namespace {
 
 using sm90::kD;
-using sm90::kTileBytes;
 using sm90::kTileRows;
-
-constexpr int kStages = 2;
-constexpr int kThreads = 3 * 128;
-constexpr int kConsumerWarps = 8;
-// Q, kStages x (K, V), the barriers (q, kStages x (full K, full V,
-// empty)), and 1024 B to align the swizzled tiles by hand.
-constexpr uint32_t kBarBytes = 8 * (1 + 3 * kStages);
-constexpr size_t kSmemBytes =
-    1024 + (size_t)kTileBytes * (1 + 2 * kStages) + kBarBytes;
 
 // Which key tiles a query block visits (kernels/prefill_attention.py::
 // prefill_tile_plan): the sink tiles [0, n_sink), then [first_win, last],
 // the tiles holding a key inside the window of some row. q1 is the
 // block's last row below seq.
-struct TilePlan {
+struct WindowPlan {
+  const CUtensorMap* k;
+  const CUtensorMap* v;
+  int kv_head;
+  int batch;
+  int q0;
+  int q1;
+  int seq;
+  int window;
+  int sink;
   int n_sink;
   int first_win;
   int last;
 
-  __device__ TilePlan(int q0, int q1, int window, int sink) {
-    last = q1 / kTileRows;
-    n_sink = min(last + 1, (sink + kTileRows - 1) / kTileRows);
-    first_win = last + 1;
-    if (window > 0) {
-      // A tile at k0 holds a window key of some row iff
-      // k0 + kTileRows - 1 > q0 - window.
-      const int x = q0 - window - (kTileRows - 2);
-      first_win = max(n_sink, x <= 0 ? 0 : (x + kTileRows - 1) / kTileRows);
+  // The keys of one row that count: kp <= qp, below seq, and a sink key or
+  // inside the window.
+  struct Row {
+    int qp;
+    int k0;
+    int seq;
+    int window;
+    int sink;
+    __device__ bool operator()(int c) const {
+      const int kp = k0 + c;
+      return kp <= qp && kp < seq && (kp < sink || qp - kp < window);
     }
-  }
+  };
+
   __device__ int count() const {
     return n_sink + max(0, last - first_win + 1);
   }
   __device__ int tile(int i) const {
     return i < n_sink ? i : first_win + (i - n_sink);
   }
+  __device__ sm90::KvTile kv(int i) const {
+    return {k, v, kv_head, tile(i) * kTileRows, batch};
+  }
   // Every pair of rows [q0, q1] and keys [k0, k0 + 127] is active: all keys
   // at or below the block's first row, and each either a sink key or
   // within the window of the block's last row.
-  __device__ static bool full(int t, int q0, int q1, int window, int sink) {
-    const int k0 = t * kTileRows;
+  __device__ bool full(int i) const {
+    const int k0 = tile(i) * kTileRows;
     const int k1 = k0 + kTileRows - 1;
     return k1 <= q0 && (k1 < sink || q1 - max(k0, sink) < window);
   }
+  __device__ void mask(int i, float (&s)[64], int qp) const {
+    const int k0 = tile(i) * kTileRows;
+    sm90::mask_rows(s, Row{qp, k0, seq, window, sink},
+                    Row{qp + 8, k0, seq, window, sink});
+  }
 };
 
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(sm90::kThreads, 1)
 prefill_attention_kernel(const __grid_constant__ CUtensorMap q_map,
                          const __grid_constant__ CUtensorMap k_map,
                          const __grid_constant__ CUtensorMap v_map,
                          __nv_bfloat16* __restrict__ out, int seq, int heads,
                          int kv_heads, float scale_log2, int window, int sink) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
-  const uint32_t base = (sm90::smem_u32(smem_raw) + 1023) & ~1023u;
-  const uint32_t q_s = base;
-  const uint32_t bars = base + kTileBytes * (1 + 2 * kStages);
-  const uint32_t q_bar = bars;
-  auto k_s = [&](int st) { return base + kTileBytes * (1 + 2 * st); };
-  auto v_s = [&](int st) { return base + kTileBytes * (2 + 2 * st); };
-  auto full_k = [&](int st) { return bars + 8 * (1 + st); };
-  auto full_v = [&](int st) { return bars + 8 * (1 + kStages + st); };
-  auto empty = [&](int st) { return bars + 8 * (1 + 2 * kStages + st); };
-
   const int h = blockIdx.x;
   const int b = blockIdx.y;
-  const int q0 = (gridDim.z - 1 - blockIdx.z) * kTileRows;
-  const int q1 = min(seq, q0 + kTileRows) - 1;
-  const int kvh = h / (heads / kv_heads);
-  const TilePlan plan(q0, q1, window, sink);
-  const int n_visit = plan.count();
-
-  if (threadIdx.x == 0) {
-    sm90::mbar_init(q_bar, 1);
-    for (int st = 0; st < kStages; ++st) {
-      sm90::mbar_init(full_k(st), 1);
-      sm90::mbar_init(full_v(st), 1);
-      sm90::mbar_init(empty(st), kConsumerWarps);
-    }
-    sm90::mbar_init_fence();
+  WindowPlan plan;
+  plan.k = &k_map;
+  plan.v = &v_map;
+  plan.kv_head = h / (heads / kv_heads);
+  plan.batch = b;
+  plan.q0 = (gridDim.z - 1 - blockIdx.z) * kTileRows;
+  plan.q1 = min(seq, plan.q0 + kTileRows) - 1;
+  plan.seq = seq;
+  plan.window = window;
+  plan.sink = sink;
+  plan.last = plan.q1 / kTileRows;
+  plan.n_sink = min(plan.last + 1, (sink + kTileRows - 1) / kTileRows);
+  plan.first_win = plan.last + 1;
+  if (window > 0) {
+    // A tile at k0 holds a window key of some row iff
+    // k0 + kTileRows - 1 > q0 - window.
+    const int x = plan.q0 - window - (kTileRows - 2);
+    plan.first_win = max(plan.n_sink,
+                         x <= 0 ? 0 : (x + kTileRows - 1) / kTileRows);
   }
-  __syncthreads();
-
-  if (threadIdx.x < 128) {  // producer warpgroup
-    sm90::regs_dec<40>();
-    if (threadIdx.x == 0) {
-      sm90::tma_load_tile(q_s, &q_map, q_bar, h, q0, b);
-      // The ring carries the plan's tiles twice: K alone for the first
-      // pass (full_v still completes a phase, so both barriers of a stage
-      // keep one parity), K and V for the second.
-      for (int i = 0; i < 2 * n_visit; ++i) {
-        const int st = i % kStages;
-        sm90::mbar_wait(empty(st), ((i / kStages) & 1) ^ 1);
-        const bool second = i >= n_visit;
-        const int k0 = plan.tile(second ? i - n_visit : i) * kTileRows;
-        sm90::tma_load_tile(k_s(st), &k_map, full_k(st), kvh, k0, b);
-        if (second) {
-          sm90::tma_load_tile(v_s(st), &v_map, full_v(st), kvh, k0, b);
-        } else {
-          sm90::mbar_arrive(full_v(st));
-        }
-      }
-    }
-    return;
-  }
-
-  sm90::regs_inc<232>();
-  const int cw = threadIdx.x / 128 - 1;  // consumer warpgroup: rows 64 cw..
-  const int lane = threadIdx.x % 32;
-  const int r0 = 64 * cw + 16 * ((threadIdx.x / 32) % 4) + lane / 4;
-  const uint64_t q_desc = sm90::desc_k_major(q_s + cw * 64 * 128);
-  sm90::Acc acc;
-  acc.init();
-  sm90::mbar_wait(q_bar, 0);
-  // S of ring entry i (the plan's tile i % n_visit), masked unless full.
-  auto tile_scores = [&](int i, float (&s)[64]) {
-    const int st = i % kStages;
-    const int t = plan.tile(i % n_visit);
-    const int k0 = t * kTileRows;
-    sm90::mbar_wait(full_k(st), (i / kStages) & 1);
-    sm90::scores(s, q_desc, k_s(st));
-    if (!TilePlan::full(t, q0, q1, window, sink)) {
-      sm90::mask(s, [&](int dr, int c) {
-        const int qp = q0 + r0 + dr;
-        const int kp = k0 + c;
-        return kp <= qp && kp < seq && (kp < sink || qp - kp < window);
-      });
-    }
-  };
-  for (int i = 0; i < n_visit; ++i) {  // first pass: row max and sum
-    float s[64];
-    tile_scores(i, s);
-    if (lane == 0) sm90::mbar_arrive(empty(i % kStages));
-    sm90::add_stats(acc, s, scale_log2);
-  }
-  sm90::finish_stats(acc);
-  for (int i = n_visit; i < 2 * n_visit; ++i) {  // second pass: O = P V
-    const int st = i % kStages;
-    float s[64];
-    tile_scores(i, s);
-    sm90::add_pv(acc, s, scale_log2, v_s(st), full_v(st), (i / kStages) & 1);
-    if (lane == 0) sm90::mbar_arrive(empty(st));
-  }
-
   const size_t row_stride = (size_t)heads * kD;
-  __nv_bfloat16* row =
-      out + ((size_t)b * seq + q0 + r0) * row_stride + (size_t)h * kD;
-  sm90::store_rows(acc, row, q0 + r0 < seq, row + 8 * row_stride,
-                   q0 + r0 + 8 < seq);
+  sm90::attend(plan, sm90::loop_base(smem_raw), &q_map, h, plan.q0, b,
+               scale_log2,
+               out + ((size_t)b * seq + plan.q0) * row_stride + (size_t)h * kD,
+               row_stride, seq - plan.q0);
 }
 
 int launch(const void* q, const void* k, const void* v, void* out, int batch,
@@ -232,12 +161,12 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch,
   if (err == cudaSuccess) {
     err = cudaFuncSetAttribute(prefill_attention_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)kSmemBytes);
+                               (int)sm90::kLoopSmemBytes);
   }
   if (err != cudaSuccess) return (int)err;
   dim3 grid(heads, batch, q_blocks);
   const float scale_log2 = scale * 1.4426950408889634f;
-  prefill_attention_kernel<<<grid, kThreads, kSmemBytes,
+  prefill_attention_kernel<<<grid, sm90::kThreads, sm90::kLoopSmemBytes,
                              static_cast<cudaStream_t>(stream)>>>(
       q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out), seq, heads,
       kv_heads, scale_log2, window, sink);

@@ -8,7 +8,7 @@ library lands in ``shadowkv_tpu_torch/build/`` (git-ignored), named by a
 hash of the sources, headers and flags, so an edited source or header
 rebuilds and an unchanged one is reused. The library is linked without
 ``-lcuda``: the one driver entry point it needs (``cuTensorMapEncodeTiled``,
-for the prefill kernel's TMA maps) is fetched through the runtime.
+for the attention kernels' TMA maps) is fetched through the runtime.
 ``-Xptxas -v`` output (registers, shared memory, spills per kernel) is kept
 beside it in ``nvcc.log``.
 
@@ -25,13 +25,15 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import torch
+
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
 SOURCES = ("refresh.cu", "prefill_attention.cu", "gather.cu", "vs_tile.cu",
            "vs_sparse.cu")
-# included by the attention kernels (F, G; B, C)
-HEADERS = ("flash_tile.cuh", "flash_sm90.cuh")
+# included by the attention kernels (B, C, F, G)
+HEADERS = ("flash_sm90.cuh",)
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # No --use_fast_math: the refresh kernel's RoPE needs precise sincosf at
 # angles of ~1e5 rad.
@@ -50,10 +52,10 @@ _SIGNATURES = {
     ),
     "shadowkv_gather_chunks": ([_P] * 9 + [_I] * 7 + [_P], _I),
     "shadowkv_vs_sparse_attention": (
-        [_P] * 10 + [_I] * 5 + [ctypes.c_float, _P], _I
+        [_P] * 8 + [_I] * 5 + [ctypes.c_float, _P], _I
     ),
     "shadowkv_vs_tile_attention": (
-        [_P] * 10 + [_I] * 7 + [ctypes.c_float, _P], _I
+        [_P] * 9 + [_I] * 7 + [ctypes.c_float, _P], _I
     ),
 }
 
@@ -150,6 +152,24 @@ def check_v_store(v_full, device, what: str) -> None:
         raise ValueError(f"{what}: a CPU v_full must be pinned "
                          "(torch.empty(..., pin_memory=True)); the kernel "
                          "cannot read pageable memory")
+
+
+def check_rows(q, k, v, what: str) -> None:
+    """q [BH, S_pad, 128] and k/v [BKV, S_pad, 128] as the sparse prefill
+    kernels read them through TMA: contiguous bf16 on the card, starting
+    on a 16-byte boundary."""
+    for t in (q, k, v):
+        if not t.is_cuda or t.dtype != torch.bfloat16 or not t.is_contiguous():
+            raise ValueError(f"{what}: q/k/v must be contiguous bf16 CUDA "
+                             "tensors")
+    if q.dim() != 3 or q.shape[2] != 128 or k.shape[1:] != q.shape[1:] \
+            or v.shape != k.shape:
+        raise ValueError(f"{what}: kernel serves q [BH, S, 128], k/v "
+                         f"[BKV, S, 128]; got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError(f"{what}: q/k/v must start on a 16-byte boundary "
+                         "(TMA)")
 
 
 def check(rc: int, what: str) -> None:

@@ -48,7 +48,7 @@ def _check(q, k, v):
                          "16-byte boundary (TMA)")
 
 
-TILE = 128  # query rows of a block and keys of a tile
+TILE = 128  # query rows of a block and keys of a tile (B, C, F and G)
 
 
 class TilePlan(NamedTuple):

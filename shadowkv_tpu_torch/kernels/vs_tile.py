@@ -6,27 +6,27 @@ TPU kernel ``_vs_tile_kernel``), the default ``vs_impl="tile"`` execution of
 
     active(q, k) = causal & k < seq_len & (diag_flag[(q-k)//block] | k in v_idx)
 
-with one online softmax per query row, each active pair counted once: the
-diagonal phase skips vertical tokens, the vertical phase is masked by
-causality only. The host side prepares what the TPU wrapper prepared in
-XLA: duplicate verticals demoted to padding, the vertical K/V rows
-gathered once per row, a per-token vertical flag and the vertical
-positions. The CUDA kernel (``csrc/vs_tile.cu``) walks 64-key tiles and
-reads the 128-granular diagonal flags itself, so the TPU's 512-wide
-diagonal groups have no counterpart. Its plain version, taken for CPU
-tensors, is ``vs_tok_attention_reference``.
+with one softmax per query row, each active pair counted once: the CUDA
+kernel's diagonal phase counts the pairs whose band is on, its vertical
+phase the vertical tokens whose band is off. The host side prepares what
+the TPU wrapper prepared in XLA: duplicate verticals demoted to padding,
+the vertical positions sorted and the vertical K/V rows gathered once per
+row. The CUDA kernel (``csrc/vs_tile.cu``) walks 128-key tiles and reads
+the block-granular band flags itself, so the TPU's 512-wide diagonal
+groups have no counterpart; ``vs_tile_plan`` states which tiles it visits.
+Its plain version, taken for CPU tensors, is ``vs_tok_attention_reference``.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from shadowkv_tpu_torch.core.minference import masked_attention
 from shadowkv_tpu_torch.kernels import build
-
-TILE = 64  # key and query tile of the CUDA kernel
+# query rows of a block, keys of a tile and of a vertical tile
+from shadowkv_tpu_torch.kernels.prefill_attention import TILE
 
 
 def vs_tok_attention_reference(
@@ -77,15 +77,11 @@ def tile_masks(v_idx, diag_flag, block: int, s: int, seq_len: int,
             & (diag[:, band] | vert[:, None, :])
 
 
-def prepare_verticals(k, v, v_idx, kv_map, seq_len: int):
-    """Host-side preparation of the kernel's vertical phase: each row's
-    vertical tokens deduplicated (repeats demoted to the pad 2*S_pad) and
-    sorted so that the pads come last, the NV list padded to a multiple
-    of 64, the vertical K/V rows gathered [BH, NV, Dh], their positions
-    [BH, NV] (pad where >= seq_len) and the per-token vertical flag
-    [BH, S_pad] uint8 that the diagonal phase skips."""
-    bh = v_idx.shape[0]
-    s_pad = k.shape[1]
+def vertical_positions(v_idx, s_pad: int, seq_len: int) -> torch.Tensor:
+    """Each row's vertical tokens as kernel F reads them, [BH, NV] int32:
+    duplicates and entries at or past ``seq_len`` demoted to the pad
+    ``2 * S_pad``, ascending so that the pads come last, NV padded to a
+    multiple of TILE."""
     pad = 2 * s_pad
     nv = -(-v_idx.shape[1] // TILE) * TILE
     srt = torch.sort(v_idx.to(torch.int32), dim=-1).values
@@ -94,13 +90,83 @@ def prepare_verticals(k, v, v_idx, kv_map, seq_len: int):
     pos = torch.where(dup | (srt >= seq_len), pad, srt)
     pos = torch.sort(pos, dim=-1).values
     pos = torch.nn.functional.pad(pos, (0, nv - pos.shape[1]), value=pad)
+    return pos.contiguous()
+
+
+def prepare_verticals(k, v, v_idx, kv_map, seq_len: int):
+    """Host-side preparation of the kernel's vertical phase: the positions
+    of ``vertical_positions`` and the vertical K/V rows they name, gathered
+    [BH, NV, Dh] (pads read the last row; the kernel masks them)."""
+    s_pad = k.shape[1]
+    pos = vertical_positions(v_idx, s_pad, seq_len)
     idx = pos.long().clamp(max=s_pad - 1)
     rows = kv_map.long()[:, None]
-    k_sel = k[rows, idx].contiguous()
-    v_sel = v[rows, idx].contiguous()
-    flag = torch.zeros(bh, s_pad + 1, dtype=torch.uint8, device=k.device)
-    flag.scatter_(1, torch.where(pos < seq_len, pos, s_pad).long(), 1)
-    return k_sel, v_sel, pos.contiguous(), flag[:, :s_pad].contiguous()
+    return k[rows, idx].contiguous(), v[rows, idx].contiguous(), pos
+
+
+class VsTilePlan(NamedTuple):
+    """Kernel F's tiles for every (row, 128-row query block): ``full`` and
+    ``masked`` [BH, nQ, nT] mark the visited key tiles of the diagonal
+    phase (full ones hold only pairs whose band is on and take no per-pair
+    test), ``vertical`` [BH, nQ, NV / TILE] the visited tiles of the
+    vertical list (always masked). The rest are skipped."""
+
+    full: torch.Tensor
+    masked: torch.Tensor
+    vertical: torch.Tensor
+
+
+def _bands_on(diag_flag, lo, hi):
+    """How many bands of [lo, hi] (inclusive) are on: lo and hi are long
+    tensors of 3 dimensions that broadcast to [BH, n, m]."""
+    cs = torch.nn.functional.pad(torch.cumsum((diag_flag > 0).int(), -1),
+                                 (1, 0))
+    lo, hi = torch.broadcast_tensors(lo, hi)
+    shape = (cs.shape[0],) + lo.shape[1:]
+    lo, hi = (x.expand(shape).reshape(shape[0], -1) for x in (lo, hi))
+    return (cs.gather(1, hi + 1) - cs.gather(1, lo)).reshape(shape)
+
+
+def vs_tile_plan(vpos, diag_flag, block: int, s_pad: int,
+                 seq_len: int) -> VsTilePlan:
+    """The tiles kernel F visits (``csrc/vs_tile.cu``'s ``BandPlan``
+    transcribes this function). For the query block of rows [q0, q1] (q1
+    the last row below ``seq_len``; blocks at or past it visit nothing):
+
+    - diagonal phase: key tile t (keys [k0, k1]) with k0 <= q1 is visited
+      iff a band of [max(0, q0 - k1) // block, (q1 - k0) // block] is on,
+      and full iff every one is, k1 <= q0 and k1 < seq_len;
+    - vertical phase: tile j of ``vpos`` (``vertical_positions``) is
+      visited iff its first position v_lo <= q1 and some band of
+      [max(0, q0 - v_hi) // block, (q1 - v_lo) // block] is off, v_hi its
+      last position capped at q1.
+
+    Its pairs count in the diagonal phase iff causal, below ``seq_len`` and
+    their band is on, in the vertical phase iff causal, below ``seq_len``
+    and their band is off."""
+    nk = diag_flag.shape[1]
+    dev = diag_flag.device
+    nq = -(-s_pad // TILE)
+    q0 = torch.arange(nq, device=dev) * TILE
+    q1 = (q0 + TILE).clamp(max=seq_len) - 1
+    live = (q0 < seq_len)[:, None]
+    k0 = q0[None, :]
+    k1 = k0 + TILE - 1
+    lo = ((q0[:, None] - k1).clamp(min=0) // block)[None]
+    hi = (((q1[:, None] - k0).clamp(min=0) // block).clamp(max=nk - 1))[None]
+    n_on = _bands_on(diag_flag, lo, hi)
+    visit = live & (k0 <= q1[:, None]) & (n_on > 0)
+    full = visit & (n_on == hi - lo + 1) & (k1 <= q0[:, None]) \
+        & (k1 < seq_len)
+    v_lo = vpos[:, ::TILE].long()[:, None, :]  # [BH, 1, nV]
+    v_hi = torch.minimum(vpos[:, TILE - 1::TILE].long()[:, None, :],
+                         q1[None, :, None])
+    lo = (q0[None, :, None] - v_hi).clamp(min=0) // block
+    hi = ((q1[None, :, None] - v_lo).clamp(min=0) // block).clamp(
+        max=nk - 1)
+    vertical = live & (v_lo <= q1[None, :, None]) \
+        & (_bands_on(diag_flag, lo, hi) < hi - lo + 1)
+    return VsTilePlan(full=full, masked=visit & ~full, vertical=vertical)
 
 
 def vs_tile_attention(
@@ -118,8 +184,9 @@ def vs_tile_attention(
     """Token-granular-vertical + band-granular-slash flash attention;
     returns [BH, S_pad, Dh] (rows past ``seq_len`` are garbage). The JAX
     wrapper's 512-row tiles (``tq``, ``tk``) have no counterpart: the CUDA
-    kernel tiles by 64. CPU tensors take the plain version; CUDA tensors
-    launch the kernel on the current stream or raise."""
+    kernel tiles by 128 (``vs_tile_plan``). CPU tensors take the plain
+    version; CUDA tensors launch the kernel on the current stream or
+    raise."""
     bh, s_pad, dh = q.shape
     if diag_flag.shape != (bh, -(-s_pad // block)):
         raise ValueError(f"diag_flag must be [BH, S_pad / block], got "
@@ -128,15 +195,9 @@ def vs_tile_attention(
         return vs_tok_attention_reference(q, k, v, v_idx, diag_flag, kv_map,
                                           block=block, scale=scale,
                                           seq_len=seq_len)
-    for t in (q, k, v):
-        if not t.is_cuda or t.dtype != torch.bfloat16 or not t.is_contiguous():
-            raise ValueError("vs_tile_attention: q/k/v must be contiguous "
-                             "bf16 CUDA tensors")
-    if dh != 128 or k.shape[1:] != (s_pad, dh) or v.shape != k.shape:
-        raise ValueError(f"kernel serves q [BH, S, 128], k/v [BKV, S, 128]; "
-                         f"got {tuple(q.shape)}, {tuple(k.shape)}")
-    if s_pad % TILE or not 0 < seq_len <= s_pad:
-        raise ValueError(f"S_pad {s_pad} must be a multiple of {TILE} and "
+    build.check_rows(q, k, v, "vs_tile_attention")
+    if s_pad % 64 or not 0 < seq_len <= s_pad:
+        raise ValueError(f"S_pad {s_pad} must be a multiple of 64 and "
                          "0 < seq_len <= S_pad")
     for t in (v_idx, diag_flag, kv_map):
         if not t.is_cuda:
@@ -144,17 +205,16 @@ def vs_tile_attention(
     if kv_map.shape != (bh,) or kv_map.dtype != torch.int32 \
             or v_idx.shape[0] != bh:
         raise ValueError("v_idx must be [BH, NV] and kv_map [BH] int32")
-    k_sel, v_sel, vpos, vflag = prepare_verticals(k, v, v_idx, kv_map, seq_len)
+    k_sel, v_sel, vpos = prepare_verticals(k, v, v_idx, kv_map, seq_len)
     dflag = (diag_flag > 0).to(torch.uint8).contiguous()
     out = torch.empty_like(q)
     lib = build.library()
     vs_tile_attention.launches += 1
     rc = lib.shadowkv_vs_tile_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), k_sel.data_ptr(),
-        v_sel.data_ptr(), vpos.data_ptr(), vflag.data_ptr(),
-        dflag.data_ptr(), kv_map.contiguous().data_ptr(),
-        out.data_ptr(), bh, k.shape[0], s_pad, vpos.shape[1],
-        dflag.shape[1], block, seq_len, float(scale),
+        v_sel.data_ptr(), vpos.data_ptr(), dflag.data_ptr(),
+        kv_map.contiguous().data_ptr(), out.data_ptr(), bh, k.shape[0],
+        s_pad, vpos.shape[1], dflag.shape[1], block, seq_len, float(scale),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     build.check(rc, "vs_tile_attention")

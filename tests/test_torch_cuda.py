@@ -8,9 +8,10 @@ bit-equal (the gather moves bytes only); attention outputs within 2^-6 of
 each row's largest value, per (b, s, h) row, since the output's scale falls
 with the row index (bf16 probabilities and one bf16 rounding give a few
 2^-9); the sparse prefill kernels (C, F, G) are held to the same per-row
-bound on the rows below ``seq_len``. The prefill kernel (B, C) gives one
-batch row alone the same bits as that row inside a batch. The refresh and
-the gather run with the V store on the card and pinned in host memory."""
+bound on the rows below ``seq_len``. The attention kernels (B, C, F, G)
+give one batch row alone the same bits as that row inside a batch. The
+refresh and the gather run with the V store on the card and pinned in host
+memory."""
 
 from __future__ import annotations
 
@@ -178,18 +179,42 @@ def _vs_inputs(gen, b=2, h=4, kh=2, s_pad=512):
     return q, k, v, kv_map
 
 
-@pytest.mark.parametrize("block, seq_len", [(128, 512), (64, 459), (128, 333)])
-def test_vs_tile_kernel_matches_plain(gen, block, seq_len):
-    q, k, v, kv_map = _vs_inputs(gen)
-    bh, s_pad = q.shape[:2]
-    nk = s_pad // block
-    dflag = (torch.rand(bh, nk, device="cuda", generator=gen) < 0.3).int()
+# (block, S_pad, seq_len): blocks {64, 128, 256} x ragged seq_len at S_pad
+# 512, S_pad a multiple of 64 but not of 128, and a block that is a
+# multiple of 64 but not a power of two.
+VS_CASES = [(block, 512, seq_len) for block in (64, 128, 256)
+            for seq_len in (512, 459, 333)] + [(64, 448, 391), (192, 576, 500)]
+
+
+def _vs_tile_args(gen, block, s_pad, seq_len, b=2):
+    q, k, v, kv_map = _vs_inputs(gen, b=b, s_pad=s_pad)
+    bh = q.shape[0]
+    dflag = (torch.rand(bh, -(-s_pad // block), device="cuda",
+                        generator=gen) < 0.3).int()
     dflag[:, 0] = 1
     # verticals with duplicates, entries past seq_len and pads
-    v_idx = torch.randint(0, s_pad, (bh, 100), device="cuda", generator=gen,
+    v_idx = torch.randint(0, s_pad, (bh, 300), device="cuda", generator=gen,
                           dtype=torch.int32)
     v_idx[:, 10:20] = v_idx[:, :10]
     v_idx[:, -8:] = 2 * s_pad
+    return q, k, v, v_idx, dflag, kv_map
+
+
+def _vs_sparse_args(gen, block, s_pad, seq_len, b=2):
+    q, k, v, kv_map = _vs_inputs(gen, b=b, s_pad=s_pad)
+    bh = q.shape[0]
+    nk = s_pad // block
+    col = (torch.rand(bh, nk, device="cuda", generator=gen) < 0.3).int()
+    diag = (torch.rand(bh, nk, device="cuda", generator=gen) < 0.3).int()
+    diag[:, 0] = 1
+    meta = meta_from_flags(col, diag)
+    return (q, k, v, meta.col_ids, meta.col_cnt, meta.col_flag,
+            meta.diag_ids, meta.diag_cnt, kv_map), meta
+
+
+@pytest.mark.parametrize("block, s_pad, seq_len", VS_CASES)
+def test_vs_tile_kernel_matches_plain(gen, block, s_pad, seq_len):
+    q, k, v, v_idx, dflag, kv_map = _vs_tile_args(gen, block, s_pad, seq_len)
     kw = dict(block=block, scale=128**-0.5, seq_len=seq_len)
     ref = vs_tok_attention_reference(q, k, v, v_idx, dflag, kv_map, **kw)
     before = vs_tile_attention.launches
@@ -199,24 +224,48 @@ def test_vs_tile_kernel_matches_plain(gen, block, seq_len):
     assert _row_rel_err(out[:, :seq_len], ref[:, :seq_len]) <= 2.0**-6
 
 
-@pytest.mark.parametrize("block, seq_len", [(128, 512), (64, 459), (128, 333)])
-def test_vs_sparse_kernel_matches_plain(gen, block, seq_len):
-    q, k, v, kv_map = _vs_inputs(gen)
-    bh, s_pad = q.shape[:2]
-    nk = s_pad // block
-    col = (torch.rand(bh, nk, device="cuda", generator=gen) < 0.3).int()
-    diag = (torch.rand(bh, nk, device="cuda", generator=gen) < 0.3).int()
-    diag[:, 0] = 1
-    meta = meta_from_flags(col, diag)
+@pytest.mark.parametrize("block, s_pad, seq_len", VS_CASES)
+def test_vs_sparse_kernel_matches_plain(gen, block, s_pad, seq_len):
+    args, meta = _vs_sparse_args(gen, block, s_pad, seq_len)
+    q, k, v, kv_map = args[0], args[1], args[2], args[-1]
     kw = dict(block=block, scale=128**-0.5, seq_len=seq_len)
     ref = vs_attention_reference(q, k, v, meta, kv_map, **kw)
     before = vs_sparse_attention.launches
-    out = vs_sparse_attention(q, k, v, meta.col_ids, meta.col_cnt,
-                              meta.col_flag, meta.diag_ids, meta.diag_cnt,
-                              kv_map, **kw)
+    out = vs_sparse_attention(*args, **kw)
     torch.cuda.synchronize()
     assert vs_sparse_attention.launches == before + 1
     assert _row_rel_err(out[:, :seq_len], ref[:, :seq_len]) <= 2.0**-6
+
+
+@pytest.mark.parametrize("kernel", ["F", "G"])
+def test_vs_kernel_batch_rows_are_independent(gen, kernel):
+    """F and G at a ragged S with different data per row (the second K/V
+    row's V 10^4 times larger): each row of [B*H] gives the same bits
+    alone (with its own K/V row) as inside the batch, so no tile reads
+    another row (the maps zero-fill past S_pad instead)."""
+    block, s_pad, seq_len = 64, 448, 391
+    if kernel == "F":
+        q, k, v, v_idx, dflag, kv_map = _vs_tile_args(gen, block, s_pad,
+                                                      seq_len)
+        run = lambda q, k, v, r: vs_tile_attention(  # noqa: E731
+            q, k, v, v_idx[r], dflag[r], kv_map[r] - kv_map[r][0],
+            block=block, scale=128**-0.5, seq_len=seq_len)
+    else:
+        args, _ = _vs_sparse_args(gen, block, s_pad, seq_len)
+        q, k, v, kv_map = args[0], args[1], args[2], args[-1]
+        run = lambda q, k, v, r: vs_sparse_attention(  # noqa: E731
+            q, k, v, *(t[r].contiguous() for t in args[3:8]),
+            (kv_map[r] - kv_map[r][0]).contiguous(), block=block,
+            scale=128**-0.5, seq_len=seq_len)
+    v[1] *= 1e4
+    every = slice(None)
+    out = run(q, k, v, every)
+    for r in range(q.shape[0]):
+        kv = int(kv_map[r])
+        alone = run(q[r:r + 1].clone(), k[kv:kv + 1].clone(),
+                    v[kv:kv + 1].clone(), slice(r, r + 1))
+        torch.cuda.synchronize()
+        assert torch.equal(out[r:r + 1], alone), r
 
 
 def _gather_inputs(gen, quant, l=2, b=2, kh=4, c=64, cs=16, rank=96, s=24):
@@ -283,3 +332,35 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     kv = flat[1:].view(1, 64, 2, 128)
     with pytest.raises(ValueError, match="16-byte"):
         causal_prefill_splash(qb[:, :, :2].contiguous(), kv, kv)
+
+
+@pytest.mark.parametrize("kernel", ["F", "G"])
+def test_vs_wrappers_refuse_what_the_kernels_do_not_take(gen, kernel):
+    """F and G: f32 q/k/v, head_dim 64 and a q/k/v two bytes past a 16-byte
+    boundary (TMA cannot map it) raise; the well-formed call runs."""
+    block, s_pad, seq_len = 128, 256, 256
+    if kernel == "F":
+        q, k, v, v_idx, dflag, kv_map = _vs_tile_args(gen, block, s_pad,
+                                                      seq_len)
+
+        def run(q, k, v):
+            return vs_tile_attention(q, k, v, v_idx, dflag, kv_map,
+                                     block=block, scale=0.1, seq_len=seq_len)
+    else:
+        args, _ = _vs_sparse_args(gen, block, s_pad, seq_len)
+        q, k, v = args[:3]
+
+        def run(q, k, v):
+            return vs_sparse_attention(q, k, v, *args[3:], block=block,
+                                       scale=0.1, seq_len=seq_len)
+    with pytest.raises(ValueError):
+        run(q.float(), k.float(), v.float())
+    with pytest.raises(ValueError):
+        run(q[..., :64].contiguous(), k[..., :64].contiguous(),
+            v[..., :64].contiguous())
+    flat = torch.zeros(1 + k.numel(), device="cuda", dtype=torch.bfloat16)
+    k_off = flat[1:].view(k.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        run(q, k_off, v)
+    run(q, k, v)
+    torch.cuda.synchronize()

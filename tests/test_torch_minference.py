@@ -208,13 +208,14 @@ def test_prepare_verticals_dedups_and_sorts():
     k = torch.randn(2, 128, 8)
     v_idx = torch.tensor([[5, 5, 90, 3, 300, 100], [7, 1, 1, 1, 2, 120]],
                          dtype=torch.int32)
-    k_sel, _, pos, flag = vs_tile.prepare_verticals(k, k, v_idx,
-                                                    torch.tensor([0, 1]), 100)
+    k_sel, _, pos = vs_tile.prepare_verticals(k, k, v_idx,
+                                              torch.tensor([0, 1]), 100)
     pad = 256
-    assert pos.shape == (2, 64)
+    assert pos.shape == (2, vs_tile.TILE)
     assert pos[0, :4].tolist() == [3, 5, 90, pad] and (pos[0, 3:] == pad).all()
     assert pos[1, :4].tolist() == [1, 2, 7, pad]
-    assert flag.sum(1).tolist() == [3, 3] and flag[0, 90] == 1
+    assert ((pos < 100).sum(1)).tolist() == [3, 3]
+    assert torch.equal(pos, vs_tile.vertical_positions(v_idx, 128, 100))
     assert torch.equal(k_sel[1, 2], k[1, 7])
 
 
