@@ -13,22 +13,26 @@ to the CPU):
 2. Build the CUDA kernels from ``shadowkv_tpu_torch/csrc`` (nvcc, sm_90a).
 3. Host-link peak: a 1 GiB pinned-host -> device copy, the yardstick of
    the bounds of kernels that read host memory.
-4. Kernel A (``sparse_refresh``) against its plain PyTorch version at the
-   slice's per-layer shapes: int8 stores with a miss mix of all-hit heads,
-   all-miss heads, contiguous runs and partial overlap; one bf16-store case
-   and one glm partial-RoPE case. Then A with the V store pinned in host
-   memory (``shadow_offload``), held to the same tolerances and timed at
-   that mix and at 40 % missed slots.
+4. The SASS of the built kernels (``cuobjdump -sass``, registers and
+   spills from ``nvcc.log``): kernel A must hold tensor-core (HMMA) and
+   asynchronous-load (LDGSTS) instructions, B/C, F and G wgmma (HGMMA) and
+   TMA loads (UTMALDG). Then kernel A (``sparse_refresh``) against its
+   plain PyTorch version at the slice's per-layer shapes: int8 stores with
+   a miss mix of all-hit heads, all-miss heads, contiguous runs and partial
+   overlap; one bf16-store case and one glm partial-RoPE case; timed with a
+   cold L2 (each launch refreshes the next of 32 stacked layers, as a
+   decode step does), the warm-L2 time of one layer beside it. Then A with
+   the V store pinned in host memory (``shadow_offload``), held to the same
+   tolerances and timed, with the store on the card beside it, at that mix
+   and at 40 % missed slots (``tools/time_refresh.py``'s inputs).
 5. Kernel B (causal GQA prefill attention) against its plain version at
    B 1 / S 4104 (ragged tile) and at the main path's shape, B 2 / S 32768,
    H 32 / KV 8, with a per-row tolerance that is shown to reject a skipped
    KV tile; timed at the main path's shape, with SDPA as a yardstick only.
    B and C are one Hopper kernel, F and G two more on the same tile-plan
-   loop (wgmma, TMA K/V ring): a line gives each one's HGMMA and UTMALDG
-   counts from ``cuobjdump -sass`` of the built library (none fails the
-   run) and its registers and spills from ``nvcc.log``, and each timing
-   line its TFLOP/s and the tile plan's visited and masked tiles beside
-   the active pairs.
+   loop (wgmma, TMA K/V ring): each timing line gives its TFLOP/s, its
+   SASS evidence (phase 4) and the tile plan's visited and masked tiles
+   beside the active pairs.
 6. Kernel C (sink + sliding-window prefill attention) against its plain
    version at B 1 / S 4104 (window 1024, sink 64) and at the main path's
    shape, B 2 / S 32768 (window 8192, sink 1024), per-row tolerance as B;
@@ -56,7 +60,12 @@ to the CPU):
    prefill and of eight decode steps fed the CPU's greedy tokens, the
    greedy tokens wherever the CPU's choice is not a near-tie, and the
    final cached chunk ids.
-10. The slice end to end: Llama-3.1-8B shape (32 layers, full width) with
+10. head_dim 96 (Phi-3): B, C, F and G against their plain versions at S
+   4096 through the wrappers that zero-pad to the kernels' 128 lanes, per
+   row as above; then a toy bf16 engine with head_dim 96 on the card
+   against the CPU as in 9: dense prefill, then the XLA-gather decode
+   branch (kernel A serves head_dim 128 only) or the full cache.
+11. The slice end to end: Llama-3.1-8B shape (32 layers, full width) with
    synthetic bf16 weights, shadow cache (budget 2048, rank 160, chunk 16,
    int8 stores), prefill through kernel B, greedy ``batch_generate``;
    eight runs: shadow with the fused refresh (kernel A), shadow with the
@@ -114,29 +123,6 @@ def time_ms(torch, fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(torch, fn, reps: int, warmup: int = 2) -> float:
-    """Mean device time of ``fn``: the summed durations of the CUDA
-    kernels and copies it runs, from ``torch.profiler`` over ``reps``
-    calls. Unlike ``time_ms`` it leaves out the idle time between launches
-    when the host enqueues more slowly than the card runs, which decides
-    the event time of a kernel of a few microseconds."""
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    if us <= 0:
-        raise RuntimeError("the profiler recorded no device time")
-    return us / reps / 1e3
-
-
 def device_facts(torch) -> dict:
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -179,133 +165,18 @@ def host_link_peak(torch) -> float:
     return rate
 
 
-def cycle_layers(fn, layers: int):
-    """``fn(layer)`` over layers 0, 1, ... in turn: stacked layers of
-    stores larger than the 50 MB L2 keep each launch's reads cold, as in
-    a decode step."""
-    it = iter(range(10**9))
-    return lambda: fn(next(it) % layers)
-
-
 # ---------------------------------------------------------------------------
 # Kernel A: sparse refresh
 # ---------------------------------------------------------------------------
-
-
-def _refresh_inputs(torch, lay, cfg, batch, layers, quant, gen):
-    """Stacked stores at the slice's per-layer shapes plus a miss list with
-    all-hit heads, all-miss heads, contiguous runs and partial overlap."""
-    from shadowkv_tpu_torch.core.quant import quantize_store
-    from shadowkv_tpu_torch.core.selection import (
-        assign_slots_stable, compact_misses,
-    )
-
-    dev = DEVICE
-    kh, dh, cs = cfg.num_kv_heads, cfg.head_dim, lay.chunk_size
-    n_rows, s = lay.chunks * cs, lay.select_sets
-    rank = lay.rank
-    u_f = torch.randn(layers, batch, n_rows, rank, device=dev,
-                      generator=gen, dtype=torch.bfloat16)
-    v_f = torch.randn(layers, batch, kh, n_rows, dh, device=dev,
-                      generator=gen, dtype=torch.bfloat16)
-    sv = (0.05 * torch.randn(layers, batch, kh, rank, dh, device=dev,
-                             generator=gen)).to(torch.bfloat16)
-    if quant:
-        u, u_sc = quantize_store(u_f)
-        v, v_sc = quantize_store(v_f)
-        del u_f, v_f
-    else:
-        u, v, u_sc, v_sc = u_f, v_f, None, None
-    cap = lay.buffer_cap
-    k_buf = torch.randn(layers, batch, kh, cap, dh, device=dev,
-                        generator=gen, dtype=torch.bfloat16)
-    v_buf = torch.randn(layers, batch, kh, cap, dh, device=dev,
-                        generator=gen, dtype=torch.bfloat16)
-
-    c = lay.chunks
-    prev = torch.stack([
-        torch.randperm(c, device=dev, generator=gen)[:s]
-        for _ in range(batch * kh)
-    ]).reshape(batch, kh, s).to(torch.int32)
-    new = prev.clone()
-    for bk in range(batch * kh):
-        b_, k_ = divmod(bk, kh)
-        kind = bk % 4
-        if kind == 0:  # all hits
-            continue
-        others = torch.randperm(c, device=dev, generator=gen)
-        others = others[~torch.isin(others, prev[b_, k_].long())]
-        if kind == 1:  # all misses, scattered
-            new[b_, k_] = others[:s].to(torch.int32)
-        elif kind == 2:  # all misses, one contiguous run of chunk ids
-            start = int(torch.randint(0, c - 2 * s, (1,), device=dev,
-                                      generator=gen))
-            run = torch.arange(start, start + s, device=dev)
-            prev[b_, k_] = (run + s).to(torch.int32)
-            new[b_, k_] = run.to(torch.int32)
-        else:  # half the slots stay
-            keep = prev[b_, k_][: s // 2]
-            new[b_, k_] = torch.cat([keep, others[: s - s // 2].to(torch.int32)])
-    asg = assign_slots_stable(prev, new)
-    mc, ms, cnt = compact_misses(asg.slot_ids, asg.stay_mask)
-    return dict(u=u, sv=sv, v_full=v, k_buf=k_buf, v_buf=v_buf,
-                u_scale=u_sc, v_scale=v_sc, mc=mc, ms=ms, cnt=cnt)
-
-
-def _miss_fraction_lists(torch, lay, batch, kh, frac, gen):
-    """Miss lists in which every (b, kv head) keeps S - round(frac * S) of
-    its chunks and takes new ones in the other slots."""
-    from shadowkv_tpu_torch.core.selection import (
-        assign_slots_stable, compact_misses,
-    )
-
-    c, s = lay.chunks, lay.select_sets
-    n_new = round(frac * s)
-    prev, new = [], []
-    for _ in range(batch * kh):
-        perm = torch.randperm(c, device=DEVICE, generator=gen)
-        prev.append(perm[:s])
-        new.append(torch.cat([perm[:s - n_new], perm[s:s + n_new]]))
-    shape = (batch, kh, s)
-    asg = assign_slots_stable(torch.stack(prev).reshape(shape).to(torch.int32),
-                              torch.stack(new).reshape(shape).to(torch.int32))
-    return compact_misses(asg.slot_ids, asg.stay_mask)
-
-
-def _refresh_bytes_ops(torch, t, lay, dh):
-    """Bytes the refresh must move and products it must do for this miss
-    list: each missed chunk's V rows (+ scales) read once per head and its
-    U rows (+ scales) once per batch row, its K and V rows written once, SV
-    read once per head with misses, the miss lists."""
-    cs, rank = lay.chunk_size, lay.rank
-    cnt = t["cnt"].long()
-    misses = int(cnt.sum())
-    heads = int((cnt > 0).sum())
-    quant = t["u_scale"] is not None
-    store_b = 1 if quant else 2
-    rows = misses * cs
-    # U (and its scales) is shared by the KV heads of a batch row: a chunk
-    # missed by several heads of one row needs its U rows read once.
-    b, kh, s = t["mc"].shape
-    valid = torch.arange(s, device=cnt.device) < cnt[..., None]
-    row_of = torch.arange(b, device=cnt.device)[:, None, None].expand(b, kh, s)
-    u_chunks = int(torch.unique(
-        (row_of * lay.chunks + t["mc"].long())[valid]).numel())
-    u_rows = u_chunks * cs
-    nbytes = u_rows * rank * store_b + rows * dh * store_b
-    if quant:
-        nbytes += (u_rows + rows) * 2
-    nbytes += rows * dh * 2 * 2  # K and V rows written, bf16
-    nbytes += heads * rank * dh * 2
-    nbytes += t["mc"].numel() * 4 * 2 + t["cnt"].numel() * 4 + dh * 4
-    ops = 2 * rows * rank * dh
-    return nbytes, ops, misses
 
 
 def check_refresh(torch, cfg, lay, layer: int = 31) -> dict:
     from shadowkv_tpu_torch.core.rope import inv_freq_full_neox
     from shadowkv_tpu_torch.kernels.reconstruct import (
         sparse_refresh, sparse_refresh_plain,
+    )
+    from shadowkv_tpu_torch.tools.time_refresh import (
+        cycle_layers, device_ms, refresh_bytes_ops, refresh_inputs,
     )
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
@@ -326,7 +197,7 @@ def check_refresh(torch, cfg, lay, layer: int = 31) -> dict:
             inv = inv_freq_full_neox(glm).to(DEVICE)
         layers = cfg.num_layers if label == "int8" else 2
         lyr = layer if label == "int8" else 1
-        t = _refresh_inputs(torch, lay, cfg, BATCH, layers, quant, gen)
+        t = refresh_inputs(cfg, lay, BATCH, layers, quant, gen)
         kw = dict(chunk_size=lay.chunk_size, sparse_start=lay.sparse_start,
                   rope_dim=rope_dim, rope_style=rope_style,
                   u_scale=t["u_scale"], v_scale=t["v_scale"])
@@ -349,13 +220,15 @@ def check_refresh(torch, cfg, lay, layer: int = 31) -> dict:
             raise AssertionError(f"refresh {label}: kernel disagrees with "
                                  "its plain version")
         if label == "int8":
-            nbytes, ops, misses = _refresh_bytes_ops(torch, t, lay, cfg.head_dim)
+            nbytes, ops, misses = refresh_bytes_ops(t, lay, cfg.head_dim)
             k_buf, v_buf = t["k_buf"], t["v_buf"]
-            ev_ms = time_ms(torch, lambda: sparse_refresh(
+            # Cold L2, as in a decode step (the bound counts device-memory
+            # bytes): each launch refreshes the next of the 32 layers.
+            ms = device_ms(cycle_layers(lambda lyr_: sparse_refresh(
+                lyr_, *args, k_buf, v_buf, **kw), layers), reps=64)
+            warm_ms = device_ms(lambda: sparse_refresh(
                 lyr, *args, k_buf, v_buf, **kw), reps=50)
-            ms = device_ms(torch, lambda: sparse_refresh(
-                lyr, *args, k_buf, v_buf, **kw), reps=50)
-            plain_ms = device_ms(torch, lambda: sparse_refresh_plain(
+            plain_ms = device_ms(lambda: sparse_refresh_plain(
                 lyr, *args, k_buf, v_buf, **kw), reps=5)
             bound_b = nbytes / HBM_BYTES_PER_S * 1e3
             bound_o = ops / BF16_OPS_PER_S * 1e3
@@ -368,9 +241,9 @@ def check_refresh(torch, cfg, lay, layer: int = 31) -> dict:
                 bound_by="bytes" if bound_b >= bound_o else "operations",
                 library_ms=None,
             )
-            log(f"[refresh int8] kernel_ms {ms:.4f} (device time; events "
-                f"around 50 launches: {ev_ms:.4f}) plain_ms "
-                f"{plain_ms:.4f} "
+            log(f"[refresh int8] kernel_ms {ms:.4f} (device time, cold L2, "
+                f"cycling over {layers} layers; one layer over and over, warm "
+                f"L2: {warm_ms:.4f}) plain_ms {plain_ms:.4f} "
                 f"bound_ms {entry['bound_ms']:.4f} ({entry['bound_by']}: "
                 f"{nbytes} B, {ops} operations, {misses} missed chunks)")
         del t, k_ref, v_ref, k_out, v_out
@@ -388,10 +261,14 @@ def check_refresh_host(torch, cfg, lay, link: float, layer: int = 31) -> dict:
     from shadowkv_tpu_torch.kernels.reconstruct import (
         sparse_refresh, sparse_refresh_plain,
     )
+    from shadowkv_tpu_torch.tools.time_refresh import (
+        device_ms, miss_fraction_lists, refresh_bytes_ops, refresh_inputs,
+        time_mixes,
+    )
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
     inv = inv_freq_full_neox(cfg).to(DEVICE)
-    t = _refresh_inputs(torch, lay, cfg, BATCH, cfg.num_layers, True, gen)
+    t = refresh_inputs(cfg, lay, BATCH, cfg.num_layers, True, gen)
     v_host = pinned_copy(torch, t["v_full"])
     kw = dict(chunk_size=lay.chunk_size, sparse_start=lay.sparse_start,
               rope_dim=cfg.head_dim, rope_style="neox",
@@ -414,35 +291,31 @@ def check_refresh_host(torch, cfg, lay, link: float, layer: int = 31) -> dict:
     del k_ref, v_ref, k_out, v_out
     kh, dh, cs = cfg.num_kv_heads, cfg.head_dim, lay.chunk_size
     entry = None
-    mixes = [("mixed heads", (t["mc"], t["ms"], t["cnt"]))]
-    mixes.append(("40% missed", _miss_fraction_lists(
-        torch, lay, BATCH, kh, 0.4, gen)))
-    for label, (mc, ms_, cnt) in mixes:
+    mixes = {"mixed heads": (t["mc"], t["ms"], t["cnt"]),
+             "40% missed": miss_fraction_lists(lay, BATCH, kh, 0.4, gen)}
+    times = time_mixes(cfg, lay, t, v_host, inv, mixes)
+    for label, (mc, ms_, cnt) in mixes.items():
         tt = dict(t, mc=mc, ms=ms_, cnt=cnt)
-        nbytes, ops, misses = _refresh_bytes_ops(torch, tt, lay, dh)
+        nbytes, ops, misses = refresh_bytes_ops(tt, lay, dh)
         host_b = misses * cs * dh  # int8 V rows over the host link
-        times = {}
-        for place, v in (("host", v_host), ("device", t["v_full"])):
-            times[place] = device_ms(torch, cycle_layers(
-                lambda lyr: sparse_refresh(lyr, mc, ms_, cnt, t["u"], t["sv"],
-                                           v, inv, t["k_buf"], t["v_buf"], **kw),
-                cfg.num_layers), reps=64)
-        plain_ms = device_ms(torch, lambda: sparse_refresh_plain(
+        plain_ms = device_ms(lambda: sparse_refresh_plain(
             layer, mc, ms_, cnt, t["u"], t["sv"], t["v_full"], inv,
             t["k_buf"], t["v_buf"], **kw), reps=3)
         b_ms, b_by = bound(nbytes - host_b, ops, host_b, link)
-        log(f"[refresh host-V, {label}] {misses} of {cnt.numel() * lay.select_sets} "
-            f"slots missed; kernel_ms host V {times['host']:.4f}, device V "
-            f"{times['device']:.4f} (both cycling over {cfg.num_layers} "
-            f"layers); plain_ms {plain_ms:.4f}; bound_ms {b_ms:.4f} ({b_by}: "
-            f"{host_b} B over the link at {link / 1e9:.2f} GB/s, "
-            f"{nbytes - host_b} B in device memory)")
+        dev_b_ms, _ = bound(nbytes, ops)
+        log(f"[refresh host-V, {label}] {misses} of "
+            f"{cnt.numel() * lay.select_sets} slots missed; kernel_ms host V "
+            f"{times[label]['host']:.4f} (bound {b_ms:.4f}, {b_by}: {host_b} B "
+            f"over the link at {link / 1e9:.2f} GB/s, {nbytes - host_b} B in "
+            f"device memory), device V {times[label]['device']:.4f} (bound "
+            f"{dev_b_ms:.4f}); both cold L2, cycling over {cfg.num_layers} "
+            f"layers; plain_ms {plain_ms:.4f}")
         if entry is None:
             entry = dict(
                 name="sparse_refresh_host_v", route="cuda",
                 source="shadowkv_tpu_torch/csrc/refresh.cu",
                 replaces="shadowkv_tpu/kernels/reconstruct.py:86",
-                launches=0, max_abs_err=k_err, ms=times["host"],
+                launches=0, max_abs_err=k_err, ms=times[label]["host"],
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=None,
             )
@@ -468,6 +341,7 @@ def check_gather(torch, cfg, lay, link: float, layers: int = 8):
     from shadowkv_tpu_torch.kernels.gather import (
         gather_chunks, gather_chunks_plain,
     )
+    from shadowkv_tpu_torch.tools.time_refresh import cycle_layers, device_ms
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
     kh, dh, cs, s = cfg.num_kv_heads, cfg.head_dim, lay.chunk_size, lay.select_sets
@@ -501,7 +375,7 @@ def check_gather(torch, cfg, lay, link: float, layers: int = 8):
         if not quant:
             del u, v, v_host, ref, out
             continue
-        plain_ms = device_ms(torch, cycle_layers(lambda lyr: gather_chunks_plain(
+        plain_ms = device_ms(cycle_layers(lambda lyr: gather_chunks_plain(
             lyr, ids, u, v, u_sc, v_sc, chunk_size=cs), layers), reps=16)
         # The yardstick: index_select of the same U rows and V rows (not
         # their scales) from the flattened stores.
@@ -512,13 +386,13 @@ def check_gather(torch, cfg, lay, link: float, layers: int = 8):
         u_idx = (bi * n_rows + rows).reshape(-1)
         v_idx = ((bi * kh + ki) * n_rows + rows).reshape(-1)
         u_flat, v_flat = u.reshape(layers, -1, rank), v.reshape(layers, -1, dh)
-        lib_ms = device_ms(torch, cycle_layers(lambda lyr: (
+        lib_ms = device_ms(cycle_layers(lambda lyr: (
             torch.index_select(u_flat[lyr], 0, u_idx),
             torch.index_select(v_flat[lyr], 0, v_idx)), layers), reps=64)
         n_tok = BATCH * kh * s * cs
         u_b, v_b, sc_b = n_tok * rank, n_tok * dh, n_tok * 2 * 2
         for place, v_in in (("device", v), ("host", v_host)):
-            ms = device_ms(torch, cycle_layers(lambda lyr: gather_chunks(
+            ms = device_ms(cycle_layers(lambda lyr: gather_chunks(
                 lyr, ids, u, v_in, u_sc, v_sc, chunk_size=cs), layers), reps=64)
             if place == "device":  # every row read once and written once
                 b_ms, b_by = bound(2 * (u_b + v_b + sc_b), 0)
@@ -603,17 +477,24 @@ def _skip_tile_fault(torch, q, k, v, ref, rows, tile, mask=None,
     return bad
 
 
-# the Hopper attention kernels, by the names in their mangled symbols
-ATTN_KERNEL_SYMBOLS = {"B, C": "prefill_attention_kernel",
-                       "F": "vs_tile_kernel", "G": "vs_sparse_kernel"}
+# The kernels whose SASS is read, by the names in their mangled symbols,
+# with the tensor-core and asynchronous-load instructions each must hold:
+# the Hopper attention kernels (wgmma, TMA) and kernel A's main-path
+# instance (int8 stores, 16-byte U rows: mma.sync, cp.async).
+SASS_KERNELS = {
+    "B, C": ("prefill_attention_kernel", "HGMMA", "UTMALDG"),
+    "F": ("vs_tile_kernel", "HGMMA", "UTMALDG"),
+    "G": ("vs_sparse_kernel", "HGMMA", "UTMALDG"),
+    "A": ("refresh_kernelILb1ELi16E", "HMMA", "LDGSTS"),
+}
 
 
-def attention_kernel_evidence(so) -> dict:
-    """What each built attention kernel (B/C, F, G) is made of: its HGMMA
-    (wgmma) and UTMALDG (TMA load) instructions in ``cuobjdump -sass`` of
-    the library, and its registers and spills from ``nvcc.log``
-    (``-Xptxas -v``). {label: text}. Fails when cuobjdump finds no wgmma
-    or no TMA load in one of them."""
+def kernel_evidence(so) -> dict:
+    """What each built kernel of SASS_KERNELS is made of: its tensor-core
+    and asynchronous-load instructions in ``cuobjdump -sass`` of the
+    library, and its registers and spills from ``nvcc.log`` (``-Xptxas
+    -v``). {label: text}. Fails when cuobjdump finds no tensor-core
+    instruction or no asynchronous load in one of them."""
     from shadowkv_tpu_torch.kernels import build
 
     log_lines = (build.BUILD_DIR / "nvcc.log").read_text().splitlines()
@@ -626,7 +507,7 @@ def attention_kernel_evidence(so) -> dict:
                               text=True, check=True, timeout=300).stdout
         funcs = sass.split("Function : ")[1:]
     out = {}
-    for label, symbol in ATTN_KERNEL_SYMBOLS.items():
+    for label, (symbol, mma, load) in SASS_KERNELS.items():
         regs = spills = "not found"
         for i, line in enumerate(log_lines):
             if "Compiling entry function" in line and symbol in line:
@@ -641,16 +522,16 @@ def attention_kernel_evidence(so) -> dict:
             out[label] = ("SASS: cuobjdump absent, no instruction counts; "
                           + ptxas)
             continue
-        counts = {"HGMMA": 0, "UTMALDG": 0}
+        counts = {mma: 0, load: 0}
         for func in funcs:
             if symbol in func.split("\n", 1)[0]:
                 for op in counts:
                     counts[op] += len(re.findall(rf"\b{op}\b", func))
-        if not (counts["HGMMA"] and counts["UTMALDG"]):
+        if not (counts[mma] and counts[load]):
             raise AssertionError(f"{symbol}: SASS holds {counts}; expected "
-                                 "wgmma and TMA loads")
-        out[label] = (f"SASS of {symbol}: HGMMA {counts['HGMMA']}, "
-                      f"UTMALDG {counts['UTMALDG']}; {ptxas}")
+                                 f"{mma} and {load}")
+        out[label] = (f"SASS of {symbol}: {mma} {counts[mma]}, {load} "
+                      f"{counts[load]}; {ptxas}")
     return out
 
 
@@ -1204,6 +1085,89 @@ def _check_vs_ragged(torch, gen) -> None:
 
 
 # ---------------------------------------------------------------------------
+# head_dim 96 (Phi-3): the attention kernels through their padding wrappers
+# ---------------------------------------------------------------------------
+
+
+HEAD_DIM_96 = 96
+# The toy engines of the head_dim-96 phase: dense prefill (kernel B), then
+# the XLA-gather decode branch (kernel A serves head_dim 128 only, as the
+# JAX kernel does) or the full cache. The shadow cache selects all 20
+# landmark chunks of the toy prompt: with 8 of 20, the card's and the CPU's
+# selections part at near-ties of the chunk scores at this head_dim with
+# the plain prefill attention on the card as well (cuSOLVER and the CPU's
+# eigen-solver give other low-rank bases, bf16 rounds in another order),
+# and the decode logits then compare different caches.
+TOY_96_SETTINGS = (("shadow xla-gather, every chunk selected", "shadow",
+                    dict(use_pallas=None)),
+                   ("full", "full", dict()))
+TOY_96_BUDGET = 320  # 20 landmark chunks of 16 tokens
+
+
+def check_head_dim_96(torch) -> None:
+    """B, C, F and G at head_dim 96 against their plain versions: the
+    wrappers zero-pad q, k and v to the kernels' 128 lanes, keep the
+    softmax scale of the true head_dim and slice the output back. B 1, S
+    4096, 8 query heads on 2 KV heads (B, C; window 1024, sink 64); F and G
+    on the same rows as [B*H, S, 96] with random band, column and vertical
+    flags. Per-row tolerance as at 128. Then the toy engine at head_dim 96
+    on the card against the CPU."""
+    from shadowkv_tpu_torch.core.attention import (
+        causal_prefill_attention, sparse_prefill_attention,
+    )
+    from shadowkv_tpu_torch.core.minference import (
+        flat_heads, kv_map_of, meta_from_flags, vs_attention_reference,
+    )
+    from shadowkv_tpu_torch.kernels.prefill_attention import (
+        causal_prefill_splash, sparse_prefill_splash,
+    )
+    from shadowkv_tpu_torch.kernels.vs_sparse import vs_sparse_attention
+    from shadowkv_tpu_torch.kernels.vs_tile import (
+        vs_tile_attention, vs_tok_attention_reference,
+    )
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 6)
+    b, s, h, kh, dh, block = 1, 4096, 8, 2, HEAD_DIM_96, 128
+    q, k, v = (torch.randn(b, s, n, dh, device=DEVICE, generator=gen,
+                           dtype=torch.bfloat16) for n in (h, kh, kh))
+    outs = {
+        "B": (causal_prefill_splash(q, k, v),
+              causal_prefill_attention(q, k, v)),
+        "C": (sparse_prefill_splash(q, k, v, 1024, 64),
+              sparse_prefill_attention(q, k, v, 1024, 64)),
+    }
+    q_f, k_f, v_f = (flat_heads(t, s) for t in (q, k, v))
+    kv_map = kv_map_of(b, kh, range(h), h // kh, DEVICE)
+    n_blk = s // block
+    col = (torch.rand(b * h, n_blk, device=DEVICE, generator=gen)
+           < 0.3).int()
+    diag = (torch.rand(b * h, n_blk, device=DEVICE, generator=gen)
+            < 0.3).int()
+    diag[:, 0] = 1
+    v_idx = torch.randint(0, s, (b * h, 300), device=DEVICE, generator=gen,
+                          dtype=torch.int32)
+    kw = dict(block=block, scale=dh**-0.5, seq_len=s)
+    outs["F"] = (vs_tile_attention(q_f, k_f, v_f, v_idx, diag, kv_map, **kw),
+                 vs_tok_attention_reference(q_f, k_f, v_f, v_idx, diag,
+                                            kv_map, **kw))
+    meta = meta_from_flags(col, diag)
+    outs["G"] = (vs_sparse_attention(
+        q_f, k_f, v_f, meta.col_ids, meta.col_cnt, meta.col_flag,
+        meta.diag_ids, meta.diag_cnt, kv_map, **kw),
+                 vs_attention_reference(q_f, k_f, v_f, meta, kv_map, **kw))
+    torch.cuda.synchronize()
+    for name, (out, ref) in outs.items():
+        if out.shape != ref.shape:
+            raise AssertionError(f"head_dim 96 {name}: shape {out.shape}, "
+                                 f"expected {ref.shape}")
+        _check_rows(torch, f"head_dim 96 kernel {name}", out, ref, s)
+    del q, k, v, q_f, k_f, v_f, outs
+    torch.cuda.empty_cache()
+    check_toy_engine(torch, head_dim=HEAD_DIM_96, settings=TOY_96_SETTINGS,
+                     sparse_budget=TOY_96_BUDGET)
+
+
+# ---------------------------------------------------------------------------
 # The engine: a toy model against the CPU, then the slice at full width
 # ---------------------------------------------------------------------------
 
@@ -1248,12 +1212,16 @@ def _greedy_logits(torch, eng, ids, forced=None):
     return torch.stack(out, 1), torch.stack(fed, 1)
 
 
-def check_toy_engine(torch) -> None:
+def check_toy_engine(torch, head_dim: int = 128, settings=TOY_SETTINGS,
+                     sparse_budget: int = 128) -> None:
     """The port's engine on the card (kernels) against the same engine on
     the CPU (plain versions), same bf16 weights, prompt and sketch, for
-    each decode strategy. The CPU decodes greedily; the card is fed the
-    CPU's tokens, so every step compares logits of the same history, and
-    the final cached chunk ids must be equal."""
+    each decode strategy of ``settings``. The CPU decodes greedily; the card
+    is fed the CPU's tokens, so every step compares logits of the same
+    history, and the final cached chunk ids must be equal: slot by slot,
+    or, when ``sparse_budget`` selects every landmark chunk, as one set per
+    (layer, b, kv head), since the slot order then follows score near-ties
+    and attention over the slots does not depend on it."""
     import numpy as np
 
     from shadowkv_tpu_torch.config import CacheConfig, RuntimeConfig
@@ -1262,17 +1230,20 @@ def check_toy_engine(torch) -> None:
     from shadowkv_tpu_torch.models.params import init_synthetic_params
     from shadowkv_tpu_torch.models.registry import toy_config
 
-    cfg = toy_config(dtype=torch.bfloat16, head_dim=128, hidden_size=512,
-                     num_heads=4, num_kv_heads=2, intermediate_size=1024)
+    cfg = toy_config(dtype=torch.bfloat16, head_dim=head_dim,
+                     hidden_size=4 * head_dim, num_heads=4, num_kv_heads=2,
+                     intermediate_size=1024)
     params = init_synthetic_params(
         cfg, torch.Generator(device="cpu").manual_seed(SEED), scale=0.2,
         device="cpu")
     omega = sketch(cfg.num_kv_heads * cfg.head_dim, 64 + 32)
     ids = np.random.RandomState(SEED).randint(1, cfg.vocab_size, (2, 512))
-    for label, mode, rt_kw in TOY_SETTINGS:
-        cc = CacheConfig(mode=mode, max_length=544, sparse_budget=128,
-                         rank=64, chunk_size=16, kv_quant="int8",
-                         outlier_chunks=4, gen_capacity=32)
+    for label, mode, rt_kw in settings:
+        if head_dim != 128:
+            label = f"head_dim {head_dim}, {label}"
+        cc = CacheConfig(mode=mode, max_length=544,
+                         sparse_budget=sparse_budget, rank=64, chunk_size=16,
+                         kv_quant="int8", outlier_chunks=4, gen_capacity=32)
         rt = RuntimeConfig(**{"prefill_pattern": "dense-splash", **rt_kw})
         engines = {dev: Engine(cfg, cc, rt, params, device=dev, sketch=omega)
                    for dev in ("cpu", DEVICE)}
@@ -1301,7 +1272,10 @@ def check_toy_engine(torch) -> None:
         c_ref, c_dev = engines["cpu"]._cache, engines[DEVICE]._cache
         same_ids, u_same = True, None
         if mode != "full":
-            same_ids = torch.equal(c_ref.cached_ids, c_dev.cached_ids.cpu())
+            ids_ref, ids_dev = c_ref.cached_ids, c_dev.cached_ids.cpu()
+            if c_ref.layout.select_sets == c_ref.layout.num_landmarks:
+                ids_ref, ids_dev = ids_ref.sort(-1).values, ids_dev.sort(-1).values
+            same_ids = torch.equal(ids_ref, ids_dev)
             u_same = float((c_ref.u == c_dev.u.cpu()).float().mean())
         ratio = err / tol
         log(f"[toy engine, {label}] max_abs_err / tol: prefill "
@@ -1490,11 +1464,11 @@ def main() -> int:
                     gen_capacity=256),
         PROMPT_LEN,
     )
+    evidence = kernel_evidence(so)
+    for label, text in evidence.items():
+        log(f"[kernel {label}] {text}")
     entries = {"sparse_refresh": check_refresh(torch, cfg, lay)}
     entries["sparse_refresh_host_v"] = check_refresh_host(torch, cfg, lay, link)
-    evidence = attention_kernel_evidence(so)
-    for label, text in evidence.items():
-        log(f"[attention kernel {label}] {text}")
     entries["prefill_attention"] = check_prefill_attention(
         torch, cfg, evidence["B, C"])
     entries["sparse_prefill_attention"] = check_sparse_prefill(
@@ -1504,6 +1478,7 @@ def main() -> int:
     entries["vs_tile_attention"], entries["vs_sparse_attention"] = \
         check_vs_kernels(torch, cfg, evidence)
     check_toy_engine(torch)
+    check_head_dim_96(torch)
 
     t0 = time.perf_counter()
     params = init_synthetic_params(

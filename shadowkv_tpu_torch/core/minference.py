@@ -377,9 +377,12 @@ def _pad_seq(t: torch.Tensor, pad: int) -> torch.Tensor:
 
 
 def flat_heads(t: torch.Tensor, s_pad: int) -> torch.Tensor:
-    """[B, S, N, Dh] -> [B*N, S_pad, Dh] (zero rows past S)."""
+    """[B, S, N, Dh] -> [B*N, S_pad, Dh] (zero rows past S), contiguous as
+    the kernels read it (at B 1 the reshape alone would give a strided
+    view)."""
     b, s, n, dh = t.shape
-    return _pad_seq(t, s_pad - s).transpose(1, 2).reshape(b * n, s_pad, dh)
+    return _pad_seq(t, s_pad - s).transpose(1, 2).reshape(
+        b * n, s_pad, dh).contiguous()
 
 
 def _estimate(q, k, pats, scale, meta_heads, g):

@@ -18,23 +18,49 @@
 // address that shadowkv_kernel_pointer (gather.cu) checks and returns. All
 // other operands, the V scales included, stay in device memory.
 //
-// What bounds it on an H100: device-memory bytes. Per missed chunk it reads
-// cs*rank U bytes and cs*Dh V bytes and writes 2*cs*Dh bf16 rows; the product
-// is cs*rank*Dh multiply-adds, far below the card's operation rate per byte.
-// At high hit rates most (b, k) cells have few or no misses, so launch and
-// per-block setup dominate instead. With V on the host, the missed chunks'
-// V bytes over the host link bound it (2 KB per int8 chunk, ~50 GB/s).
-// What the design does about it: one block per (b, k, group of 64/cs misses);
-// blocks past the miss count return before touching memory, so all-hit heads
-// cost a launch slot only. Each block stages SV[b, k] (rank x Dh bf16) and its
-// U rows in shared memory once and computes the [64 x Dh] product with
-// register-tiled scalar FMAs (no tensor cores: the product is too small per
-// block to pay for them in this first version). V rows move as 16-byte
-// vectors, loaded into registers right after the block's miss list is known
-// and stored after the K epilogue, so a V read's latency (1-2 us over the
-// host link) overlaps the U staging and the product instead of adding to them.
-// Scale and RoPE are fused into the epilogue, so K never round-trips through
-// device memory in f32.
+// What bounds it on an H100: bytes. Per missed row it reads rank U bytes and
+// Dh V bytes and writes two bf16 rows of Dh; the product is rank*Dh
+// multiply-adds a row (~0.84 GFLOP at the slice's mix), which the tensor
+// cores finish in under a microsecond. With V on the host, the V bytes over
+// the host link bound it (2 KB per int8 chunk, ~50 GB/s).
+//
+// What the design does about it:
+// - A block owns one (b, k) and a run of kRows = 64 of its missed rows
+//   (rows of the concatenated missed chunks, so any chunk size works); blocks
+//   past the head's missed rows return before touching memory, so all-hit
+//   heads cost a launch slot only. SV[b, k] is staged once per block, from
+//   L2 after the first. Each block's phases (dependent loads of the miss
+//   list, product, RoPE, stores) run in turn, so the time is about one
+//   block's span times the number of waves, not device-memory bytes:
+//   blocks of 64 rows timed fastest of 32, 64, 128 and 256 on an H100
+//   (tools/time_refresh.py, PERF.md), and the shared memory is cut to
+//   ~54 KB so that four blocks fit on an SM and a fully missed layer (512
+//   blocks at the slice's shapes) runs in one wave.
+// - V first: every thread issues the loads of its share of the block's V
+//   rows into registers before anything else, and stores them last, so a
+//   host read's latency (1-2 us) runs under the whole K path and the link is
+//   busy from the first microsecond. (Blocks that only copy V would take the
+//   K blocks' dynamic shared memory too, since one launch has one size.)
+// - Tensor cores: each of the 4 warps owns 16 rows and computes their
+//   [16 x rank] @ [rank x 128] product with mma.sync.m16n8k16 (bf16 in, f32
+//   sums: products of int8 or bf16 values with bf16 are exact in f32, so
+//   only the order of the f32 sums differs from the plain version). U rows
+//   arrive by cp.async (16-, 8- or 4-byte vectors, whatever the row length
+//   allows) into a per-warp region; SV by cp.async into rows of 272 B, read
+//   by ldmatrix.trans without bank conflicts. Rank is padded to a multiple
+//   of 16 with zero U columns and zero SV rows.
+// - int8 U: a thread's A fragment of a k-step needs k = 2q, 2q+1, 2q+8, 2q+9
+//   (q = lane % 4). The k order within each 16 is permuted so that these are
+//   bytes 4q..4q+3 of the row: one 32-bit shared load gives both fragment
+//   registers, and SV's rows are staged in the same permuted order.
+// - Epilogue in registers: the accumulator gives a thread columns
+//   8j + 2q + {0, 1}, so a neox pair (c, c + 64) is tiles j and j + 8 and a
+//   glm pair (c, c + 1) is one tile's two columns: the u_scale multiply and
+//   RoPE take one precise sincosf per pair (angles reach ~1e5 rad at 128K).
+//   The bf16 rows go through the warp's region (reused once its U rows are
+//   read), half a row at a time so that the region stays the size of the U
+//   rows, and leave as 16-byte vectors; K never touches device memory in
+//   f32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -42,12 +68,13 @@
 
 namespace {
 
-constexpr int kRows = 64;       // token rows per block
-constexpr int kThreads = 256;   // 16 x 16 thread tile
-constexpr int kDh = 128;        // head_dim served by this kernel
-constexpr int kUStride = kRows + 4;  // f32 words per rank row of staged U
-constexpr int kVSegs = kDh / 16;     // 16-element V segments per row
-constexpr int kVIters = kRows * kVSegs / kThreads;  // V segments per thread
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kGroup = 16;               // rows of one warp's product
+constexpr int kRows = kWarps * kGroup;   // missed rows of one block
+constexpr int kDh = 128;                 // head_dim served by this kernel
+constexpr int kRowStride = kDh * 2 + 16; // bytes per staged SV row
+constexpr int kHalfStride = kDh + 16;     // bytes per staged half K row
 
 struct RefreshArgs {
   const void* u;              // [B, n_rows, rank] int8 | bf16
@@ -63,199 +90,354 @@ struct RefreshArgs {
   __nv_bfloat16* v_buf;       // [B, K, cap, Dh]
   int kv_heads, n_rows, rank, select_sets, cap;
   int chunk_size, sparse_start, rope_dim, glm;
+  int rank_pad;   // rank rounded up to 16
+  int u_stride;   // bytes per staged U row
+  int region;     // bytes of one warp's region (U rows, then K half rows)
 };
 
-size_t region_bytes(int rank) {
-  size_t u_stage = (size_t)rank * kUStride * sizeof(float);
-  size_t out_tile = (size_t)kRows * kDh * sizeof(float);
-  return u_stage > out_tile ? u_stage : out_tile;
+// Shared memory: SV (rank_pad rows of kRowStride) and kWarps regions.
+struct Geometry {
+  int rank_pad, u_stride, region;
+  size_t smem;
+};
+
+Geometry geometry(int rank, bool quant) {
+  Geometry g;
+  g.rank_pad = (rank + 15) / 16 * 16;
+  // An odd number of 16-byte units per U row: the 8 rows a fragment load
+  // reads then start in 8 different 4-bank groups.
+  int units = (g.rank_pad * (quant ? 1 : 2) + 15) / 16;
+  units |= 1;
+  g.u_stride = 16 * units;
+  g.region = kGroup * (g.u_stride > kHalfStride ? g.u_stride : kHalfStride);
+  g.smem = (size_t)g.rank_pad * kRowStride + (size_t)kWarps * g.region;
+  return g;
 }
 
-size_t smem_bytes(int rank) {
-  return 5 * kRows * sizeof(int) + (size_t)rank * kDh * sizeof(__nv_bfloat16) +
-         region_bytes(rank);
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-template <bool kQuant>
-__global__ void __launch_bounds__(kThreads) refresh_kernel(RefreshArgs a) {
+// Copies kBytes from global memory to shared memory asynchronously, or
+// writes kBytes of zeros when `valid` is false (src is then not read).
+template <int kBytes>
+__device__ __forceinline__ void cp_async(uint32_t dst, const void* src,
+                                         bool valid) {
+  const int n = valid ? kBytes : 0;
+  if constexpr (kBytes == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+                 "l"(src), "r"(n)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst),
+                 "l"(src), "n"(kBytes), "r"(n)
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Four 8x8 bf16 matrices, transposed: the B fragments of two n8 tiles.
+__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t& r0,
+                                          uint32_t& r1, uint32_t& r2,
+                                          uint32_t& r3) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+      : "r"(addr));
+}
+
+// d += A B for one 16 x 8 x 16 step, bf16 in, f32 sums.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Four int8 values -> bf16 pairs (bytes 0, 1) and (bytes 2, 3); exact.
+__device__ __forceinline__ void s8x4_to_bf16(uint32_t w, uint32_t& lo,
+                                             uint32_t& hi) {
+  lo = pack_bf16((float)(int8_t)(w & 0xff), (float)(int8_t)((w >> 8) & 0xff));
+  hi = pack_bf16((float)(int8_t)((w >> 16) & 0xff), (float)(int8_t)(w >> 24));
+}
+
+// The staged row of SV row p within its 16 (int8 U's k permutation): byte
+// 4a + 2h + e of a U row's 16 carries k = 8h + 2a + e of the fragments.
+__device__ __forceinline__ int permuted_row(int p) {
+  return (p & ~15) | (8 * ((p >> 1) & 1) + 2 * ((p >> 2) & 3) + (p & 1));
+}
+
+template <bool kQuant, int kUVec>
+__global__ void __launch_bounds__(kThreads, kQuant ? 4 : 2)
+    refresh_kernel(RefreshArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int kESize = kQuant ? 1 : 2;
   const int bk = blockIdx.y;
   const int b = bk / a.kv_heads;
-  const int n = a.miss_cnt[bk];
   const int cs = a.chunk_size;
-  const int chunks_per_block = kRows / cs;
-  const int j0 = blockIdx.x * chunks_per_block;
-  if (j0 >= n) return;  // all-hit (or short-list) cells end here
-
-  int* s_src = reinterpret_cast<int*>(smem);        // source row in U / V
-  int* s_dst = s_src + kRows;                      // destination buffer row
-  float* s_pos = reinterpret_cast<float*>(s_dst + kRows);
-  float* s_usc = s_pos + kRows;
-  float* s_vsc = s_usc + kRows;
-  __nv_bfloat16* s_sv = reinterpret_cast<__nv_bfloat16*>(s_vsc + kRows);
-  float* s_u = reinterpret_cast<float*>(s_sv + (size_t)a.rank * kDh);
-  float* s_out = s_u;  // reused after the product: [kRows][kDh] f32
-
+  const int n_miss_rows = a.miss_cnt[bk] * cs;
+  const int r0 = blockIdx.x * kRows;
+  if (r0 >= n_miss_rows) return;  // all-hit (or short-list) heads end here
+  const int* chunk = a.miss_chunk + (size_t)bk * a.select_sets;
+  const int* slot = a.miss_slot + (size_t)bk * a.select_sets;
   const int tid = threadIdx.x;
-  if (tid < kRows) {
-    const int j = j0 + tid / cs;
-    const int i = tid % cs;
-    if (j < n) {
-      const int cid = a.miss_chunk[bk * a.select_sets + j];
-      const int slot = a.miss_slot[bk * a.select_sets + j];
-      const int src = cid * cs + i;
-      s_src[tid] = src;
-      s_dst[tid] = a.sparse_start + slot * cs + i;
-      s_pos[tid] = (float)cid * (float)cs + (float)i;
-      if (kQuant) {
-        s_usc[tid] = __bfloat162float(a.u_scale[(size_t)b * a.n_rows + src]);
-        s_vsc[tid] = __bfloat162float(a.v_scale[(size_t)bk * a.n_rows + src]);
-      } else {
-        s_usc[tid] = 1.f;
-        s_vsc[tid] = 1.f;
-      }
-    } else {
-      s_src[tid] = -1;
-      s_dst[tid] = -1;
+  const int lane = tid % 32;
+  const int warp = tid / 32;
+
+  // 1. V rows -> registers, before anything else: vector it * kThreads + tid
+  // of the block's rows, 16 bytes each.
+  constexpr int kVVecs = kDh * kESize / 16;          // vectors per V row
+  constexpr int kVIters = kRows * kVVecs / kThreads;  // vectors per thread
+  uint4 v_raw[kVIters];
+  float v_sc[kVIters];
+  int v_dst[kVIters];
+#pragma unroll
+  for (int it = 0; it < kVIters; ++it) {
+    const int idx = it * kThreads + tid;
+    const int hr = r0 + idx / kVVecs;
+    v_dst[it] = -1;
+    if (hr < n_miss_rows) {
+      const int j = hr / cs;
+      const int i = hr - j * cs;
+      const int src = chunk[j] * cs + i;
+      v_dst[it] = a.sparse_start + slot[j] * cs + i;
+      const size_t row = (size_t)bk * a.n_rows + src;
+      v_raw[it] = *reinterpret_cast<const uint4*>(
+          static_cast<const unsigned char*>(a.v) + row * kDh * kESize +
+          (idx % kVVecs) * 16);
+      if (kQuant) v_sc[it] = __bfloat162float(a.v_scale[row]);
     }
   }
 
-  // SV[b, k] -> shared memory as 16-byte vectors.
+  // 2. SV[b, k] -> shared memory; rows past rank are zeros.
+  unsigned char* s_sv = smem;
   {
-    const uint4* src = reinterpret_cast<const uint4*>(
-        a.sv + (size_t)bk * a.rank * kDh);
-    uint4* dst = reinterpret_cast<uint4*>(s_sv);
-    const int n_vec = a.rank * kDh / 8;
-    for (int idx = tid; idx < n_vec; idx += kThreads) dst[idx] = src[idx];
-  }
-  __syncthreads();
-
-  // V rows -> registers: segment it*kThreads + tid of the block's rows, 16
-  // elements each (one 16-byte vector of int8, two of bf16).
-  constexpr int kVLoads = kQuant ? 1 : 2;
-  uint4 v_raw[kVIters][kVLoads];
-#pragma unroll
-  for (int it = 0; it < kVIters; ++it) {
-    const int idx = tid + it * kThreads;
-    const int row = idx / kVSegs;
-    const int src = s_src[row];
-    if (src < 0) continue;
-    const size_t off = ((size_t)bk * a.n_rows + src) * kDh + (idx % kVSegs) * 16;
-    const uint4* in = kQuant
-        ? reinterpret_cast<const uint4*>(reinterpret_cast<const int8_t*>(a.v) + off)
-        : reinterpret_cast<const uint4*>(
-              reinterpret_cast<const __nv_bfloat16*>(a.v) + off);
-#pragma unroll
-    for (int e = 0; e < kVLoads; ++e) v_raw[it][e] = in[e];
+    const unsigned char* sv =
+        reinterpret_cast<const unsigned char*>(a.sv + (size_t)bk * a.rank * kDh);
+    for (int idx = tid; idx < a.rank_pad * 16; idx += kThreads) {
+      const int p = idx / 16;
+      const int c = idx % 16;
+      const int srow = kQuant ? permuted_row(p) : p;
+      const bool ok = p < a.rank;
+      cp_async<16>(smem_u32(s_sv + srow * kRowStride + c * 16),
+                   ok ? sv + (size_t)p * kDh * 2 + c * 16 : sv, ok);
+    }
   }
 
-  // U rows -> shared memory, transposed to [rank][row] f32 (zeros for rows
-  // past the miss count).
-  for (int idx = tid; idx < kRows * a.rank; idx += kThreads) {
-    const int i = idx / a.rank;
-    const int r = idx - i * a.rank;
-    const int src = s_src[i];
-    float val = 0.f;
-    if (src >= 0) {
-      const size_t off = ((size_t)b * a.n_rows + src) * a.rank + r;
-      if (kQuant) {
-        val = (float)reinterpret_cast<const int8_t*>(a.u)[off];
-      } else {
-        val = __bfloat162float(
-            reinterpret_cast<const __nv_bfloat16*>(a.u)[off]);
+  // 3. This warp's 16 U rows -> its region. Lane r < 16 holds row r's
+  // source row, destination row and u_scale.
+  unsigned char* s_w = smem + (size_t)a.rank_pad * kRowStride +
+                       (size_t)warp * a.region;
+  const int g0 = r0 + warp * kGroup;
+  const bool live = g0 < n_miss_rows;  // the same for the whole warp
+  int my_src = 0;
+  int my_dst = -1;
+  float my_usc = 1.f;
+  if (lane < kGroup && g0 + lane < n_miss_rows) {
+    const int j = (g0 + lane) / cs;
+    const int i = g0 + lane - j * cs;
+    my_src = chunk[j] * cs + i;
+    my_dst = a.sparse_start + slot[j] * cs + i;
+    if (kQuant) {
+      my_usc = __bfloat162float(a.u_scale[(size_t)b * a.n_rows + my_src]);
+    }
+  }
+  const int row_bytes = a.rank * kESize;
+  if (live) {
+    const unsigned char* u = static_cast<const unsigned char*>(a.u) +
+                             (size_t)b * a.n_rows * row_bytes;
+    const int vecs = row_bytes / kUVec;
+    for (int base = 0; base < kGroup * vecs; base += 32) {
+      const int idx = base + lane;
+      const int row = idx / vecs;
+      const int src = __shfl_sync(0xffffffffu, my_src, row % kGroup);
+      const int dst = __shfl_sync(0xffffffffu, my_dst, row % kGroup);
+      if (idx < kGroup * vecs) {
+        const int c = idx - row * vecs;
+        const bool ok = dst >= 0;
+        cp_async<kUVec>(smem_u32(s_w + row * a.u_stride + c * kUVec),
+                        ok ? u + (size_t)src * row_bytes + c * kUVec : u, ok);
       }
     }
-    s_u[r * kUStride + i] = val;
-  }
-  __syncthreads();
-
-  // [kRows x rank] @ [rank x kDh]: thread (ty, tx) owns rows ty*4..ty*4+3 and
-  // columns tx + 16*jj.
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  float acc[4][8];
-#pragma unroll
-  for (int ii = 0; ii < 4; ++ii)
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj) acc[ii][jj] = 0.f;
-  for (int r = 0; r < a.rank; ++r) {
-    const float4 av = *reinterpret_cast<const float4*>(&s_u[r * kUStride + ty * 4]);
-    float bv[8];
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj) bv[jj] = __bfloat162float(s_sv[r * kDh + tx + 16 * jj]);
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj) {
-      acc[0][jj] = fmaf(av.x, bv[jj], acc[0][jj]);
-      acc[1][jj] = fmaf(av.y, bv[jj], acc[1][jj]);
-      acc[2][jj] = fmaf(av.z, bv[jj], acc[2][jj]);
-      acc[3][jj] = fmaf(av.w, bv[jj], acc[3][jj]);
+    const int pad_words = (a.rank_pad * kESize - row_bytes) / 4;
+    for (int idx = lane; idx < kGroup * pad_words; idx += 32) {
+      const int row = idx / pad_words;
+      *reinterpret_cast<uint32_t*>(s_w + row * a.u_stride + row_bytes +
+                                   4 * (idx - row * pad_words)) = 0u;
     }
   }
-  __syncthreads();  // every thread is done reading s_u before s_out reuses it
-#pragma unroll
-  for (int ii = 0; ii < 4; ++ii) {
-    const int row = ty * 4 + ii;
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj) {
-      s_out[row * kDh + tx + 16 * jj] = acc[ii][jj] * s_usc[row];
-    }
-  }
+  cp_async_wait_all();
   __syncthreads();
 
-  // RoPE epilogue and K store (row-contiguous, coalesced).
-  const int half = a.rope_dim / 2;
-  for (int idx = tid; idx < kRows * kDh; idx += kThreads) {
-    const int row = idx / kDh;
-    const int c = idx - row * kDh;
-    const int dst = s_dst[row];
-    if (dst < 0) continue;
-    const float x = s_out[idx];
-    float out = x;
-    if (c < a.rope_dim) {
-      int pc;
-      float sign;
-      if (a.glm) {
-        pc = c ^ 1;
-        sign = (c & 1) ? 1.f : -1.f;
+  if (live) {
+    // 4. [16 x rank_pad] @ [rank_pad x 128] on the tensor cores: n8 tile j
+    // of this warp's rows in acc[j]; rows g and g + 8, columns 8j + 2q + e.
+    const int g = lane / 4;
+    const int q = lane % 4;
+    float acc[16][4];
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+    const unsigned char* u0 = s_w + g * a.u_stride;
+    const unsigned char* u8 = u0 + 8 * a.u_stride;
+    // ldmatrix: lane l addresses row (l / 8 & 1) * 8 + l % 8 of the k-step
+    // and n8 tile 2jp + l / 16.
+    const int m = lane / 8;
+    const uint32_t b_base = smem_u32(s_sv) +
+                            ((m & 1) * 8 + lane % 8) * kRowStride + (m >> 1) * 16;
+    for (int kk = 0; kk < a.rank_pad / 16; ++kk) {
+      uint32_t af[4];
+      if constexpr (kQuant) {
+        s8x4_to_bf16(*reinterpret_cast<const uint32_t*>(u0 + 16 * kk + 4 * q),
+                     af[0], af[2]);
+        s8x4_to_bf16(*reinterpret_cast<const uint32_t*>(u8 + 16 * kk + 4 * q),
+                     af[1], af[3]);
       } else {
-        pc = c < half ? c + half : c - half;
-        sign = c < half ? -1.f : 1.f;
+        af[0] = *reinterpret_cast<const uint32_t*>(u0 + 32 * kk + 4 * q);
+        af[1] = *reinterpret_cast<const uint32_t*>(u8 + 32 * kk + 4 * q);
+        af[2] = *reinterpret_cast<const uint32_t*>(u0 + 32 * kk + 16 + 4 * q);
+        af[3] = *reinterpret_cast<const uint32_t*>(u8 + 32 * kk + 16 + 4 * q);
       }
-      const float p = s_out[row * kDh + pc];
-      const float ang = s_pos[row] * a.inv_freq[c];
-      float sn, cn;
-      sincosf(ang, &sn, &cn);  // precise: angles reach ~1e5 rad at 128K
-      out = x * cn + (p * sign) * sn;
+      const uint32_t b_k = b_base + kk * 16 * kRowStride;
+#pragma unroll
+      for (int jp = 0; jp < 8; ++jp) {
+        uint32_t b0, b1, b2, b3;
+        ldsm_x4_t(b_k + jp * 32, b0, b1, b2, b3);
+        mma_bf16(acc[2 * jp], af, b0, b1);
+        mma_bf16(acc[2 * jp + 1], af, b2, b3);
+      }
     }
-    a.k_buf[((size_t)bk * a.cap + dst) * kDh + c] = __float2bfloat16(out);
+
+    // 5. Epilogue: u_scale, RoPE with one sincosf per pair, bf16.
+    float usc[2], pos[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      usc[r] = __shfl_sync(0xffffffffu, my_usc, g + 8 * r);
+      pos[r] = (float)__shfl_sync(0xffffffffu, my_src, g + 8 * r);
+    }
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] *= usc[e / 2];
+    if (!a.glm) {  // neox over all 128 lanes: (c, c + 64) = tiles j, j + 8
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float f = __ldg(a.inv_freq + 8 * j + 2 * q + e);
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            float sn, cn;
+            sincosf(pos[r] * f, &sn, &cn);
+            const float x = acc[j][2 * r + e];
+            const float y = acc[j + 8][2 * r + e];
+            acc[j][2 * r + e] = x * cn + (-y) * sn;
+            acc[j + 8][2 * r + e] = y * cn + x * sn;
+          }
+        }
+      }
+    } else {  // glm: (c, c + 1) over the first rope_dim lanes
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int c = 8 * j + 2 * q;
+        if (c < a.rope_dim) {
+          const float f = __ldg(a.inv_freq + c);
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            float sn, cn;
+            sincosf(pos[r] * f, &sn, &cn);
+            const float x = acc[j][2 * r];
+            const float y = acc[j][2 * r + 1];
+            acc[j][2 * r] = x * cn + (-y) * sn;
+            acc[j][2 * r + 1] = y * cn + x * sn;
+          }
+        }
+      }
+    }
+
+    // 6. K rows through the warp's region (its U rows are read), one half
+    // of the columns at a time (64 bf16 = 128 B a row), then out as 16-byte
+    // vectors, eight to a half row.
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      __syncwarp();
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          *reinterpret_cast<uint32_t*>(s_w + (g + 8 * r) * kHalfStride +
+                                       (8 * j + 2 * q) * 2) =
+              pack_bf16(acc[8 * h + j][2 * r], acc[8 * h + j][2 * r + 1]);
+        }
+      __syncwarp();
+#pragma unroll
+      for (int t = 0; t < kGroup / 4; ++t) {
+        const int row = 4 * t + lane / 8;
+        const int dst = __shfl_sync(0xffffffffu, my_dst, row);
+        if (dst >= 0) {
+          const int c = lane % 8;
+          reinterpret_cast<uint4*>(a.k_buf + ((size_t)bk * a.cap + dst) * kDh +
+                                   64 * h)[c] =
+              *reinterpret_cast<const uint4*>(s_w + row * kHalfStride + c * 16);
+        }
+      }
+    }
   }
 
-  // V rows from registers: dequantize int8 segments, store 16-byte vectors.
+  // 7. V rows from registers: dequantize int8 vectors, store 16 bytes.
 #pragma unroll
   for (int it = 0; it < kVIters; ++it) {
-    const int idx = tid + it * kThreads;
-    const int row = idx / kVSegs;
-    const int dst = s_dst[row];
-    if (dst < 0) continue;
-    const size_t dst_off = ((size_t)bk * a.cap + dst) * kDh + (idx % kVSegs) * 16;
-    uint4* out = reinterpret_cast<uint4*>(a.v_buf + dst_off);
+    if (v_dst[it] < 0) continue;
+    const int seg = (it * kThreads + tid) % kVVecs;
+    __nv_bfloat16* out = a.v_buf + ((size_t)bk * a.cap + v_dst[it]) * kDh;
     if constexpr (kQuant) {
-      const int8_t* q = reinterpret_cast<const int8_t*>(&v_raw[it][0]);
-      const float sc = s_vsc[row];
+      const int8_t* qv = reinterpret_cast<const int8_t*>(&v_raw[it]);
       __align__(16) __nv_bfloat16 vals[16];
 #pragma unroll
       for (int e = 0; e < 16; ++e) {
         // int8 * bf16 is exact in f32; one rounding to bf16 equals the TPU
         // kernel's bf16 multiply.
-        vals[e] = __float2bfloat16((float)q[e] * sc);
+        vals[e] = __float2bfloat16((float)qv[e] * v_sc[it]);
       }
-      out[0] = reinterpret_cast<const uint4*>(vals)[0];
-      out[1] = reinterpret_cast<const uint4*>(vals)[1];
+      reinterpret_cast<uint4*>(out + seg * 16)[0] =
+          reinterpret_cast<const uint4*>(vals)[0];
+      reinterpret_cast<uint4*>(out + seg * 16)[1] =
+          reinterpret_cast<const uint4*>(vals)[1];
     } else {
-      out[0] = v_raw[it][0];
-      out[1] = v_raw[it][1];
+      reinterpret_cast<uint4*>(out + seg * 8)[0] = v_raw[it];
     }
   }
+}
+
+template <bool kQuant, int kUVec>
+cudaError_t launch(const RefreshArgs& a, dim3 grid, size_t smem,
+                   cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(
+      refresh_kernel<kQuant, kUVec>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  refresh_kernel<kQuant, kUVec><<<grid, kThreads, smem, s>>>(a);
+  return cudaGetLastError();
+}
+
+template <bool kQuant>
+cudaError_t launch_vec(const RefreshArgs& a, int vec, dim3 grid, size_t smem,
+                       cudaStream_t s) {
+  if (vec == 16) return launch<kQuant, 16>(a, grid, smem, s);
+  if (vec == 8) return launch<kQuant, 8>(a, grid, smem, s);
+  return launch<kQuant, 4>(a, grid, smem, s);
 }
 
 }  // namespace
@@ -269,12 +451,21 @@ extern "C" int shadowkv_sparse_refresh(
     int batch, int kv_heads, int n_rows, int rank, int head_dim,
     int select_sets, int cap, int chunk_size, int sparse_start, int rope_dim,
     int glm, int quant, void* stream) {
-  if (head_dim != kDh || kRows % chunk_size != 0 || rank <= 0) {
+  if (head_dim != kDh || rank <= 0 || chunk_size <= 0) {
     return (int)cudaErrorInvalidValue;
   }
+  // The widest cp.async vector that divides a U row and its alignment.
+  const int row_bytes = rank * (quant ? 1 : 2);
+  int vec = 16;
+  while (vec >= 4 &&
+         (row_bytes % vec || reinterpret_cast<uintptr_t>(u) % vec)) {
+    vec /= 2;
+  }
+  if (vec < 4) return (int)cudaErrorInvalidValue;
   const void* v_dev = nullptr;  // v may be pinned host memory
   const int rc = shadowkv_kernel_pointer(v, &v_dev);
   if (rc) return rc;
+  const Geometry geo = geometry(rank, quant != 0);
   RefreshArgs a;
   a.u = u;
   a.u_scale = static_cast<const __nv_bfloat16*>(u_scale);
@@ -296,29 +487,19 @@ extern "C" int shadowkv_sparse_refresh(
   a.sparse_start = sparse_start;
   a.rope_dim = rope_dim;
   a.glm = glm;
+  a.rank_pad = geo.rank_pad;
+  a.u_stride = geo.u_stride;
+  a.region = geo.region;
 
-  const size_t smem = smem_bytes(rank);
-  const int chunks_per_block = kRows / chunk_size;
-  dim3 grid((select_sets + chunks_per_block - 1) / chunks_per_block,
-            batch * kv_heads);
+  const long long rows = (long long)select_sets * chunk_size;
+  dim3 grid((unsigned)((rows + kRows - 1) / kRows), batch * kv_heads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (quant) {
-    err = cudaFuncSetAttribute(refresh_kernel<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    refresh_kernel<true><<<grid, kThreads, smem, s>>>(a);
-  } else {
-    err = cudaFuncSetAttribute(refresh_kernel<false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    refresh_kernel<false><<<grid, kThreads, smem, s>>>(a);
-  }
-  return (int)cudaGetLastError();
+  const cudaError_t err =
+      quant ? launch_vec<true>(a, vec, grid, geo.smem, s)
+            : launch_vec<false>(a, vec, grid, geo.smem, s);
+  return (int)err;
 }
 
-extern "C" long long shadowkv_sparse_refresh_smem_bytes(int rank) {
-  return (long long)smem_bytes(rank);
+extern "C" long long shadowkv_sparse_refresh_smem_bytes(int rank, int quant) {
+  return (long long)geometry(rank, quant != 0).smem;
 }

@@ -43,7 +43,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "shadowkv_sparse_refresh": ([_P] * 11 + [_I] * 12 + [_P], _I),
-    "shadowkv_sparse_refresh_smem_bytes": ([_I], ctypes.c_longlong),
+    "shadowkv_sparse_refresh_smem_bytes": ([_I, _I], ctypes.c_longlong),
     "shadowkv_prefill_attention": (
         [_P] * 4 + [_I] * 5 + [ctypes.c_float, _P], _I
     ),
@@ -154,22 +154,53 @@ def check_v_store(v_full, device, what: str) -> None:
                          "cannot read pageable memory")
 
 
-def check_rows(q, k, v, what: str) -> None:
-    """q [BH, S_pad, 128] and k/v [BKV, S_pad, 128] as the sparse prefill
-    kernels read them through TMA: contiguous bf16 on the card, starting
-    on a 16-byte boundary."""
+HEAD_DIM = 128  # the head_dim the attention kernels (B, C, F, G) compute in
+
+
+def pad_head_dim(tensors, what: str):
+    """``tensors`` zero-padded on the last axis from their head_dim to
+    HEAD_DIM (unchanged at HEAD_DIM). Zero lanes leave Q K^T unchanged and
+    give zero output lanes, so the kernel computes the same function on the
+    padded rows when it is given the softmax scale of the true head_dim,
+    and the caller slices the output back. A head_dim above HEAD_DIM
+    raises."""
+    dh = tensors[0].shape[-1]
+    if any(t.shape[-1] != dh for t in tensors):
+        raise ValueError(f"{what}: q/k/v head_dims differ")
+    if dh > HEAD_DIM:
+        raise ValueError(f"{what}: the kernel serves head_dim <= {HEAD_DIM} "
+                         f"(smaller ones are zero-padded to {HEAD_DIM}), "
+                         f"got {dh}")
+    if dh == HEAD_DIM:
+        return tuple(tensors)
+    return tuple(torch.nn.functional.pad(t, (0, HEAD_DIM - dh))
+                 for t in tensors)
+
+
+def unpad_head_dim(out, dh: int):
+    """A kernel's output sliced back from HEAD_DIM to the caller's head_dim
+    ``dh`` (contiguous)."""
+    return out if dh == HEAD_DIM else out[..., :dh].contiguous()
+
+
+def check_rows(q, k, v, what: str):
+    """q [BH, S_pad, Dh] and k/v [BKV, S_pad, Dh] as the sparse prefill
+    kernels read them through TMA: contiguous bf16 on the card, Dh <=
+    HEAD_DIM, starting on a 16-byte boundary. Returns them padded to
+    HEAD_DIM (``pad_head_dim``)."""
     for t in (q, k, v):
         if not t.is_cuda or t.dtype != torch.bfloat16 or not t.is_contiguous():
             raise ValueError(f"{what}: q/k/v must be contiguous bf16 CUDA "
                              "tensors")
-    if q.dim() != 3 or q.shape[2] != 128 or k.shape[1:] != q.shape[1:] \
-            or v.shape != k.shape:
-        raise ValueError(f"{what}: kernel serves q [BH, S, 128], k/v "
-                         f"[BKV, S, 128]; got {tuple(q.shape)}, "
+    if q.dim() != 3 or k.shape[1:] != q.shape[1:] or v.shape != k.shape:
+        raise ValueError(f"{what}: kernel serves q [BH, S, Dh], k/v "
+                         f"[BKV, S, Dh]; got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
+    q, k, v = pad_head_dim((q, k, v), what)
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError(f"{what}: q/k/v must start on a 16-byte boundary "
                          "(TMA)")
+    return q, k, v
 
 
 def check(rc: int, what: str) -> None:

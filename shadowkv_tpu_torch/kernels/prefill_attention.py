@@ -12,6 +12,10 @@ every key tile outside both. It reads KV head ``h // G`` for query head
 tensors, are ``core/attention.py::causal_prefill_attention`` and
 ``sparse_prefill_attention``; each wrapper counts its own launches.
 
+The kernel computes in head_dim 128. A smaller head_dim (Phi-3's 96) is
+zero-padded to 128 on the card and the output sliced back
+(``build.pad_head_dim``); the softmax scale stays that of the true head_dim.
+
 ``prefill_tile_plan`` states in Python which key tiles the kernel visits
 for each query block and which of them need a per-pair mask; the CUDA
 kernel transcribes it (``TilePlan``) and the CPU tests hold it against the
@@ -32,6 +36,8 @@ from shadowkv_tpu_torch.kernels import build
 
 
 def _check(q, k, v):
+    """q/k/v as the kernel reads them through TMA; returns them zero-padded
+    from head_dim Dh <= 128 to 128 (``build.pad_head_dim``)."""
     b, s, h, dh = q.shape
     kh = k.shape[2]
     for t in (q, k, v):
@@ -40,12 +46,13 @@ def _check(q, k, v):
                              "contiguous bf16 CUDA tensors")
     if k.shape != (b, s, kh, dh) or v.shape != k.shape:
         raise ValueError(f"k/v must be [B, S, K, Dh] matching q {tuple(q.shape)}")
-    if dh != 128 or h % kh != 0:
-        raise ValueError(f"kernel serves head_dim 128 and H % K == 0 "
-                         f"(got Dh {dh}, H {h}, K {kh})")
+    if h % kh != 0:
+        raise ValueError(f"kernel serves H % K == 0 (got H {h}, K {kh})")
+    q, k, v = build.pad_head_dim((q, k, v), "prefill attention kernel")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("prefill attention kernel: q/k/v must start on a "
                          "16-byte boundary (TMA)")
+    return q, k, v
 
 
 TILE = 128  # query rows of a block and keys of a tile (B, C, F and G)
@@ -110,17 +117,17 @@ def causal_prefill_splash(
     scale = scale if scale is not None else dh**-0.5
     if not q.is_cuda:
         return causal_prefill_attention(q, k, v, scale=scale)
-    _check(q, k, v)
+    q, k, v = _check(q, k, v)
     out = torch.empty_like(q)
     lib = build.library()
     causal_prefill_splash.launches += 1
     rc = lib.shadowkv_prefill_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, s, h, k.shape[2], dh, float(scale),
+        b, s, h, k.shape[2], build.HEAD_DIM, float(scale),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     build.check(rc, "prefill attention")
-    return out
+    return build.unpad_head_dim(out, dh)
 
 
 def sparse_prefill_splash(
@@ -138,19 +145,19 @@ def sparse_prefill_splash(
     scale = scale if scale is not None else dh**-0.5
     if not q.is_cuda:
         return sparse_prefill_attention(q, k, v, window, sink, scale=scale)
-    _check(q, k, v)
+    q, k, v = _check(q, k, v)
     out = torch.empty_like(q)
     lib = build.library()
     sparse_prefill_splash.launches += 1
     # Beyond the sequence a larger window or sink changes nothing.
     rc = lib.shadowkv_sparse_prefill_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, s, h, k.shape[2], dh, float(scale),
+        b, s, h, k.shape[2], build.HEAD_DIM, float(scale),
         max(0, min(int(window), s)), max(0, min(int(sink), s)),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     build.check(rc, "sparse prefill attention")
-    return out
+    return build.unpad_head_dim(out, dh)
 
 
 sparse_prefill_splash.launches = 0  # kernel launches (CUDA path only)

@@ -130,8 +130,9 @@ def _check_cuda_args(miss_chunk, miss_slot, miss_cnt, u, sv, v_full,
     build.check_v_store(v_full, miss_chunk.device, "sparse_refresh")
     if dh != 128:
         raise ValueError(f"sparse_refresh kernel serves head_dim 128, got {dh}")
-    if 64 % chunk_size != 0:
-        raise ValueError(f"chunk_size {chunk_size} must divide 64")
+    if rank * u.element_size() % 4:
+        raise ValueError(f"sparse_refresh kernel: a U row of rank {rank} "
+                         "must be a multiple of 4 bytes")
     if sv.dtype != torch.bfloat16 or k_buf.dtype != torch.bfloat16 \
             or v_buf.dtype != torch.bfloat16:
         raise ValueError("sparse_refresh kernel needs bf16 sv/k_buf/v_buf")
@@ -188,6 +189,13 @@ def sparse_refresh(
 
     CPU miss lists take the plain version; CUDA ones launch the kernel
     (``csrc/refresh.cu``) on the current stream or raise.
+
+    Precondition of the kernel: the two lanes of a rotated pair share one
+    frequency (``inv_freq_full[c] == inv_freq_full[c + rope_dim // 2]`` for
+    neox, ``inv_freq_full[c] == inv_freq_full[c ^ 1]`` for glm), as
+    ``core/rope.py::inv_freq_full_neox`` builds it: the kernel computes one
+    angle per pair. The kernel serves head_dim 128 and U rows of a multiple
+    of 4 bytes: an even rank for bf16 stores, a multiple of 4 for int8.
     """
     kw = dict(chunk_size=chunk_size, sparse_start=sparse_start,
               rope_dim=rope_dim, rope_style=rope_style,
@@ -208,11 +216,11 @@ def sparse_refresh(
     select_sets = miss_chunk.shape[-1]
     if sparse_start + select_sets * chunk_size > cap:
         raise ValueError("sparse region exceeds the buffer capacity")
+    quant = u.dtype == torch.int8
     lib = build.library()
-    smem = lib.shadowkv_sparse_refresh_smem_bytes(rank)
+    smem = lib.shadowkv_sparse_refresh_smem_bytes(rank, int(quant))
     if smem > 232448:
         raise ValueError(f"rank {rank} needs {smem} B of shared memory")
-    quant = u.dtype == torch.int8
     sparse_refresh.launches += 1
     if not v_full.is_cuda:
         sparse_refresh.host_launches += 1

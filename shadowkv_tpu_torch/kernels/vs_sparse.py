@@ -12,6 +12,8 @@ CUDA kernel is ``csrc/vs_sparse.cu``; ``vs_walk_plan`` states which
 128-key tiles it visits. Its plain version, taken for CPU tensors, is
 ``core/minference.py::vs_attention_reference``. One launch covers every
 ``B*H`` row (the TPU's per-batch launch loop was an SMEM limit).
+A head_dim below 128 is zero-padded to 128 on the card and the output
+sliced back (``build.pad_head_dim``).
 """
 
 from __future__ import annotations
@@ -95,7 +97,7 @@ def vs_sparse_attention(
     if not q.is_cuda:
         return vs_attention_reference(q, k, v, meta, kv_map, block,
                                       scale=scale, seq_len=seq_len)
-    build.check_rows(q, k, v, "vs_sparse_attention")
+    q, k, v = build.check_rows(q, k, v, "vs_sparse_attention")
     if block % 64 or s_pad % block or not 0 < seq_len <= s_pad:
         raise ValueError(f"block {block} must be a multiple of 64 dividing "
                          f"S_pad {s_pad}, and 0 < seq_len <= S_pad")
@@ -118,7 +120,7 @@ def vs_sparse_attention(
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     build.check(rc, "vs_sparse_attention")
-    return out
+    return build.unpad_head_dim(out, dh)
 
 
 vs_sparse_attention.launches = 0  # kernel launches (CUDA path only)

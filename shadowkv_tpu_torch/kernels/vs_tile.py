@@ -15,6 +15,8 @@ row. The CUDA kernel (``csrc/vs_tile.cu``) walks 128-key tiles and reads
 the block-granular band flags itself, so the TPU's 512-wide diagonal
 groups have no counterpart; ``vs_tile_plan`` states which tiles it visits.
 Its plain version, taken for CPU tensors, is ``vs_tok_attention_reference``.
+A head_dim below 128 is zero-padded to 128 on the card and the output
+sliced back (``build.pad_head_dim``).
 """
 
 from __future__ import annotations
@@ -195,7 +197,7 @@ def vs_tile_attention(
         return vs_tok_attention_reference(q, k, v, v_idx, diag_flag, kv_map,
                                           block=block, scale=scale,
                                           seq_len=seq_len)
-    build.check_rows(q, k, v, "vs_tile_attention")
+    q, k, v = build.check_rows(q, k, v, "vs_tile_attention")
     if s_pad % 64 or not 0 < seq_len <= s_pad:
         raise ValueError(f"S_pad {s_pad} must be a multiple of 64 and "
                          "0 < seq_len <= S_pad")
@@ -218,7 +220,7 @@ def vs_tile_attention(
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     build.check(rc, "vs_tile_attention")
-    return out
+    return build.unpad_head_dim(out, dh)
 
 
 vs_tile_attention.launches = 0  # kernel launches (CUDA path only)

@@ -3,12 +3,14 @@ small shapes. These need an NVIDIA GPU and skip without one; on the GPU
 machine run ``python -m pytest tests/test_torch_cuda.py -q``.
 
 Tolerances: K rows within 2 bf16 ulps of the largest value (f32 sums in
-another order, one bf16 rounding); int8 V rows exact; gathered chunks
+another order, one bf16 rounding; a skipped chunk is shown to fail it);
+int8 V rows exact; gathered chunks
 bit-equal (the gather moves bytes only); attention outputs within 2^-6 of
 each row's largest value, per (b, s, h) row, since the output's scale falls
 with the row index (bf16 probabilities and one bf16 rounding give a few
 2^-9); the sparse prefill kernels (C, F, G) are held to the same per-row
-bound on the rows below ``seq_len``. The attention kernels (B, C, F, G)
+bound on the rows below ``seq_len``, also at head_dim 96 and 64 (zero-padded
+to 128 by the wrappers). The attention kernels (B, C, F, G)
 give one batch row alone the same bits as that row inside a batch. The
 refresh and the gather run with the V store on the card and pinned in host
 memory."""
@@ -62,17 +64,41 @@ def _row_rel_err(out, ref):
     return float((err / ref.float().abs().amax(dim=-1).clamp_min(1e-6)).max())
 
 
-@pytest.mark.parametrize("quant, style, cs, host_v", [
-    (True, "neox", 16, False), (False, "neox", 16, False),
-    (True, "glm", 16, False), (True, "neox", 8, False),
-    (True, "neox", 16, True), (False, "neox", 16, True),
-])
-def test_refresh_kernel_matches_plain(gen, quant, style, cs, host_v):
-    l, b, kh, c, rank, dh, s = 2, 2, 4, 64, 96, 128, 16
+def _miss_lists(gen, b, kh, c, s):
+    """Miss lists of one layer: per (b, kv head) in turn all hits, all
+    misses scattered, all misses in one contiguous run of chunk ids, and
+    half the slots kept."""
+    dev = "cuda"
+    prev = torch.stack([torch.randperm(c, device=dev, generator=gen)[:s]
+                        for _ in range(b * kh)]).reshape(b, kh, s).int()
+    new = prev.clone()
+    for bk in range(b * kh):
+        b_, k_ = divmod(bk, kh)
+        others = torch.randperm(c, device=dev, generator=gen)
+        others = others[~torch.isin(others, prev[b_, k_].long())].int()
+        kind = bk % 4
+        if kind == 1:
+            new[b_, k_] = others[:s]
+        elif kind == 2:
+            run = torch.arange(5, 5 + s, device=dev, dtype=torch.int32)
+            prev[b_, k_] = run + s
+            new[b_, k_] = run
+        elif kind == 3:
+            new[b_, k_] = torch.cat([prev[b_, k_][:s // 2],
+                                     others[:s - s // 2]])
+    asg = assign_slots_stable(prev, new)
+    return compact_misses(asg.slot_ids, asg.stay_mask)
+
+
+def _refresh_case(gen, quant, style, cs, rank):
+    """Stores, buffers and miss lists of a two-layer refresh (layer 1 is
+    refreshed), with the kwargs of sparse_refresh."""
+    l, b, kh, c, dh, s = 2, 2, 4, 64, 128, 16
     dev = "cuda"
     u = torch.randn(l, b, c * cs, rank, device=dev, generator=gen).bfloat16()
     v = torch.randn(l, b, kh, c * cs, dh, device=dev, generator=gen).bfloat16()
-    sv = (0.05 * torch.randn(l, b, kh, rank, dh, device=dev, generator=gen)).bfloat16()
+    sv = (0.05 * torch.randn(l, b, kh, rank, dh, device=dev,
+                             generator=gen)).bfloat16()
     u_sc = v_sc = None
     if quant:
         u, u_sc = quantize_store(u)
@@ -80,13 +106,7 @@ def test_refresh_kernel_matches_plain(gen, quant, style, cs, host_v):
     cap = 32 + s * cs + 16
     k_buf = torch.randn(l, b, kh, cap, dh, device=dev, generator=gen).bfloat16()
     v_buf = torch.randn(l, b, kh, cap, dh, device=dev, generator=gen).bfloat16()
-    prev = torch.stack([torch.randperm(c, device=dev, generator=gen)[:s]
-                        for _ in range(b * kh)]).reshape(b, kh, s).int()
-    new = torch.stack([torch.randperm(c, device=dev, generator=gen)[:s]
-                       for _ in range(b * kh)]).reshape(b, kh, s).int()
-    new[0, 0] = prev[0, 0]  # one all-hit head
-    asg = assign_slots_stable(prev, new)
-    mc, ms, cnt = compact_misses(asg.slot_ids, asg.stay_mask)
+    mc, ms, cnt = _miss_lists(gen, b, kh, c, s)
     rope_dim = 64 if style == "glm" else dh
     inv = torch.zeros(dh, device=dev)
     invf = 1.0 / 10000.0 ** (torch.arange(0, rope_dim, 2, device=dev) / rope_dim)
@@ -96,16 +116,64 @@ def test_refresh_kernel_matches_plain(gen, quant, style, cs, host_v):
         inv = torch.cat([invf, invf])
     kw = dict(chunk_size=cs, sparse_start=32, rope_dim=rope_dim,
               rope_style=style, u_scale=u_sc, v_scale=v_sc)
+    return (mc, ms, cnt, u, sv, v, inv), k_buf, v_buf, kw
+
+
+def _refresh_agrees(k_buf, v_buf, k_ref, v_ref):
+    """A's check: K within 2 bf16 ulps of the largest K value, V bit-equal."""
+    k_ok = float((k_buf.float() - k_ref.float()).abs().max()) \
+        <= _bf16_tol(k_ref)
+    return k_ok, torch.equal(v_buf, v_ref)
+
+
+# (int8 stores, rope style, chunk size, rank, V pinned on the host): ranks
+# 72, 100 and 8 exercise the padding of rank to a multiple of 16 and the
+# 8- and 4-byte U row copies; chunk sizes 8-64 the rows of a block that
+# span several chunks or part of one.
+REFRESH_CASES = [
+    (True, "neox", 16, 160, False), (False, "neox", 16, 160, False),
+    (True, "neox", 16, 72, False), (False, "neox", 16, 72, False),
+    (True, "neox", 16, 100, False), (False, "neox", 16, 100, False),
+    (True, "neox", 16, 8, False), (False, "neox", 16, 8, False),
+    (True, "neox", 8, 160, False), (False, "neox", 8, 96, False),
+    (True, "neox", 32, 160, False), (True, "neox", 64, 160, False),
+    (True, "glm", 16, 160, False), (False, "glm", 16, 160, False),
+    (True, "glm", 32, 72, False), (True, "glm", 8, 96, False),
+    (True, "neox", 16, 160, True), (False, "neox", 16, 160, True),
+    (True, "neox", 32, 100, True), (True, "glm", 16, 160, True),
+    (True, "neox", 8, 96, True), (False, "neox", 64, 72, True),
+]
+
+
+@pytest.mark.parametrize("quant, style, cs, rank, host_v", REFRESH_CASES)
+def test_refresh_kernel_matches_plain(gen, quant, style, cs, rank, host_v):
+    args, k_buf, v_buf, kw = _refresh_case(gen, quant, style, cs, rank)
     k_ref, v_ref = k_buf.clone(), v_buf.clone()
-    sparse_refresh_plain(1, mc, ms, cnt, u, sv, v, inv, k_ref, v_ref, **kw)
+    sparse_refresh_plain(1, *args, k_ref, v_ref, **kw)
+    mc, ms, cnt, u, sv, v, inv = args
     v_in = v.cpu().pin_memory() if host_v else v
     before = (sparse_refresh.launches, sparse_refresh.host_launches)
     sparse_refresh(1, mc, ms, cnt, u, sv, v_in, inv, k_buf, v_buf, **kw)
     torch.cuda.synchronize()
     assert (sparse_refresh.launches, sparse_refresh.host_launches) == (
         before[0] + 1, before[1] + int(host_v))
-    assert float((k_buf.float() - k_ref.float()).abs().max()) <= _bf16_tol(k_ref)
-    assert torch.equal(v_buf, v_ref)
+    assert _refresh_agrees(k_buf, v_buf, k_ref, v_ref) == (True, True)
+
+
+@pytest.mark.parametrize("host_v", [False, True])
+def test_refresh_check_rejects_a_skipped_chunk(gen, host_v):
+    """A kernel told to skip each head's last missed chunk (its count one
+    short) fails both halves of the check against the plain version of
+    the whole list: the tolerance catches a missing chunk."""
+    args, k_buf, v_buf, kw = _refresh_case(gen, True, "neox", 16, 160)
+    k_ref, v_ref = k_buf.clone(), v_buf.clone()
+    sparse_refresh_plain(1, *args, k_ref, v_ref, **kw)
+    mc, ms, cnt, u, sv, v, inv = args
+    short = (cnt - (cnt > 0).int()).contiguous()
+    v_in = v.cpu().pin_memory() if host_v else v
+    sparse_refresh(1, mc, ms, short, u, sv, v_in, inv, k_buf, v_buf, **kw)
+    torch.cuda.synchronize()
+    assert _refresh_agrees(k_buf, v_buf, k_ref, v_ref) == (False, False)
 
 
 @pytest.mark.parametrize("g", [1, 2, 4, 8])
@@ -142,6 +210,29 @@ def test_sparse_prefill_kernel_matches_plain(gen, s, g, window, sink):
     assert _row_rel_err(out, ref) <= 2.0**-6
 
 
+@pytest.mark.parametrize("dh", [96, 64])
+@pytest.mark.parametrize("s, window, sink", [(1000, None, None),
+                                             (200, None, None),
+                                             (1000, 300, 129)])
+def test_prefill_kernels_take_head_dim_below_128(gen, s, window, sink, dh):
+    """B and C at head_dim 96 (Phi-3) and 64: the wrapper zero-pads q, k
+    and v to 128, keeps the softmax scale of the true head_dim and slices
+    the output back; held to the plain versions per row."""
+    kh, g = 2, 4
+    q = torch.randn(2, s, kh * g, dh, device="cuda", generator=gen).bfloat16()
+    k = torch.randn(2, s, kh, dh, device="cuda", generator=gen).bfloat16()
+    v = torch.randn(2, s, kh, dh, device="cuda", generator=gen).bfloat16()
+    if window is None:
+        ref = causal_prefill_attention(q, k, v)
+        out = causal_prefill_splash(q, k, v)
+    else:
+        ref = sparse_prefill_attention(q, k, v, window, sink)
+        out = sparse_prefill_splash(q, k, v, window, sink)
+    torch.cuda.synchronize()
+    assert out.shape == q.shape and out.is_contiguous()
+    assert _row_rel_err(out, ref) <= 2.0**-6
+
+
 @pytest.mark.parametrize("window, sink", [(None, None), (300, 129)])
 def test_prefill_attention_batch_rows_are_independent(gen, window, sink):
     """B 2 at a ragged S with different data per batch row (row 1's V 10^4
@@ -169,10 +260,10 @@ def test_prefill_attention_batch_rows_are_independent(gen, window, sink):
     assert _row_rel_err(out, ref) <= 2.0**-6
 
 
-def _vs_inputs(gen, b=2, h=4, kh=2, s_pad=512):
-    q = torch.randn(b * h, s_pad, 128, device="cuda", generator=gen).bfloat16()
-    k = torch.randn(b * kh, s_pad, 128, device="cuda", generator=gen).bfloat16()
-    v = torch.randn(b * kh, s_pad, 128, device="cuda", generator=gen).bfloat16()
+def _vs_inputs(gen, b=2, h=4, kh=2, s_pad=512, dh=128):
+    q = torch.randn(b * h, s_pad, dh, device="cuda", generator=gen).bfloat16()
+    k = torch.randn(b * kh, s_pad, dh, device="cuda", generator=gen).bfloat16()
+    v = torch.randn(b * kh, s_pad, dh, device="cuda", generator=gen).bfloat16()
     kv_map = ((torch.arange(b)[:, None] * kh
                + torch.arange(h)[None, :] // (h // kh)).reshape(-1)
               .int().cuda())
@@ -186,8 +277,8 @@ VS_CASES = [(block, 512, seq_len) for block in (64, 128, 256)
             for seq_len in (512, 459, 333)] + [(64, 448, 391), (192, 576, 500)]
 
 
-def _vs_tile_args(gen, block, s_pad, seq_len, b=2):
-    q, k, v, kv_map = _vs_inputs(gen, b=b, s_pad=s_pad)
+def _vs_tile_args(gen, block, s_pad, seq_len, b=2, dh=128):
+    q, k, v, kv_map = _vs_inputs(gen, b=b, s_pad=s_pad, dh=dh)
     bh = q.shape[0]
     dflag = (torch.rand(bh, -(-s_pad // block), device="cuda",
                         generator=gen) < 0.3).int()
@@ -200,8 +291,8 @@ def _vs_tile_args(gen, block, s_pad, seq_len, b=2):
     return q, k, v, v_idx, dflag, kv_map
 
 
-def _vs_sparse_args(gen, block, s_pad, seq_len, b=2):
-    q, k, v, kv_map = _vs_inputs(gen, b=b, s_pad=s_pad)
+def _vs_sparse_args(gen, block, s_pad, seq_len, b=2, dh=128):
+    q, k, v, kv_map = _vs_inputs(gen, b=b, s_pad=s_pad, dh=dh)
     bh = q.shape[0]
     nk = s_pad // block
     col = (torch.rand(bh, nk, device="cuda", generator=gen) < 0.3).int()
@@ -234,6 +325,30 @@ def test_vs_sparse_kernel_matches_plain(gen, block, s_pad, seq_len):
     out = vs_sparse_attention(*args, **kw)
     torch.cuda.synchronize()
     assert vs_sparse_attention.launches == before + 1
+    assert _row_rel_err(out[:, :seq_len], ref[:, :seq_len]) <= 2.0**-6
+
+
+@pytest.mark.parametrize("dh", [96, 64])
+@pytest.mark.parametrize("kernel", ["F", "G"])
+@pytest.mark.parametrize("block, s_pad, seq_len", [(64, 448, 391),
+                                                   (128, 512, 512)])
+def test_vs_kernels_take_head_dim_below_128(gen, kernel, block, s_pad,
+                                            seq_len, dh):
+    """F and G at head_dim 96 and 64 (zero-padded to 128 by the wrapper,
+    softmax scale of the true head_dim) against their plain versions."""
+    kw = dict(block=block, scale=dh**-0.5, seq_len=seq_len)
+    if kernel == "F":
+        q, k, v, v_idx, dflag, kv_map = _vs_tile_args(gen, block, s_pad,
+                                                      seq_len, dh=dh)
+        ref = vs_tok_attention_reference(q, k, v, v_idx, dflag, kv_map, **kw)
+        out = vs_tile_attention(q, k, v, v_idx, dflag, kv_map, **kw)
+    else:
+        args, meta = _vs_sparse_args(gen, block, s_pad, seq_len, dh=dh)
+        q, k, v, kv_map = args[0], args[1], args[2], args[-1]
+        ref = vs_attention_reference(q, k, v, meta, kv_map, **kw)
+        out = vs_sparse_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert out.shape == q.shape and out.is_contiguous()
     assert _row_rel_err(out[:, :seq_len], ref[:, :seq_len]) <= 2.0**-6
 
 
@@ -323,10 +438,16 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     with pytest.raises(ValueError):
         causal_prefill_splash(q, q[:, :, :2], q[:, :, :2])
     qb = q.bfloat16()
-    with pytest.raises(ValueError):  # head_dim 64
-        causal_prefill_splash(qb[..., :64].contiguous(),
-                              qb[:, :, :2, :64].contiguous(),
-                              qb[:, :, :2, :64].contiguous())
+    # head_dim 64 is zero-padded to 128 and matches the plain version
+    q64, kv64 = qb[..., :64].contiguous(), qb[:, :, :2, :64].contiguous()
+    out = causal_prefill_splash(q64, kv64, kv64)
+    torch.cuda.synchronize()
+    assert _row_rel_err(out, causal_prefill_attention(q64, kv64, kv64)) \
+        <= 2.0**-6
+    q160 = torch.randn(1, 64, 4, 160, device="cuda", generator=gen).bfloat16()
+    with pytest.raises(ValueError, match="head_dim <= 128"):
+        causal_prefill_splash(q160, q160[:, :, :2].contiguous(),
+                              q160[:, :, :2].contiguous())
     # contiguous, but 2 bytes past a 16-byte boundary: TMA cannot map it
     flat = torch.zeros(1 + 64 * 2 * 128, device="cuda", dtype=torch.bfloat16)
     kv = flat[1:].view(1, 64, 2, 128)
@@ -336,8 +457,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
 
 @pytest.mark.parametrize("kernel", ["F", "G"])
 def test_vs_wrappers_refuse_what_the_kernels_do_not_take(gen, kernel):
-    """F and G: f32 q/k/v, head_dim 64 and a q/k/v two bytes past a 16-byte
-    boundary (TMA cannot map it) raise; the well-formed call runs."""
+    """F and G: f32 q/k/v, head_dim 160 (above the kernels' 128) and a
+    q/k/v two bytes past a 16-byte boundary (TMA cannot map it) raise; the
+    well-formed call runs."""
     block, s_pad, seq_len = 128, 256, 256
     if kernel == "F":
         q, k, v, v_idx, dflag, kv_map = _vs_tile_args(gen, block, s_pad,
@@ -355,9 +477,8 @@ def test_vs_wrappers_refuse_what_the_kernels_do_not_take(gen, kernel):
                                        scale=0.1, seq_len=seq_len)
     with pytest.raises(ValueError):
         run(q.float(), k.float(), v.float())
-    with pytest.raises(ValueError):
-        run(q[..., :64].contiguous(), k[..., :64].contiguous(),
-            v[..., :64].contiguous())
+    with pytest.raises(ValueError, match="head_dim <= 128"):
+        run(*(torch.cat([t, t[..., :32]], dim=-1) for t in (q, k, v)))
     flat = torch.zeros(1 + k.numel(), device="cuda", dtype=torch.bfloat16)
     k_off = flat[1:].view(k.shape)
     with pytest.raises(ValueError, match="16-byte"):

@@ -299,3 +299,16 @@ def test_patterns_to_arrays_matches_jax():
         tmi.patterns_to_arrays(PER_LAYER[:1], 4, 2, 1000, 6144)
     with pytest.raises(ValueError, match="kind"):
         tmi.resolve_patterns(["diagonal"] * 4, 4, 10, 10)
+
+
+@pytest.mark.parametrize("b", [1, 2])
+def test_flat_heads_rows_are_contiguous(b):
+    """flat_heads gives the kernels' [B*N, S_pad, Dh] rows contiguous, also
+    at B 1 (where the reshape alone returns a strided view), zero past S."""
+    q = _t(_qkv(0, b, 40, 4, 2, dh=24)[0])
+    rows = tmi.flat_heads(q, 64)
+    assert rows.shape == (b * 4, 64, 24) and rows.is_contiguous()
+    np.testing.assert_array_equal(
+        rows.reshape(b, 4, 64, 24)[:, :, :40].numpy(),
+        q.transpose(1, 2).numpy())
+    assert not rows.reshape(b, 4, 64, 24)[:, :, 40:].any()
