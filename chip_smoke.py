@@ -57,9 +57,11 @@ to the CPU):
    XLA-gather, and both over an offloaded V store), the full baseline and
    the sparse prefills on the full cache (stream with a window below the
    prompt, vs tile, vs walk, a per-layer vs table): the logits of the
-   prefill and of eight decode steps fed the CPU's greedy tokens, the
-   greedy tokens wherever the CPU's choice is not a near-tie, and the
-   final cached chunk ids.
+   prefill and of eight decode steps fed the CPU's greedy tokens (on the
+   card through the compiled step: one eager step, its CUDA graph's
+   capture, then replays; eager steps on the CPU), the greedy tokens
+   wherever the CPU's choice is not a near-tie, and the final cached chunk
+   ids.
 10. head_dim 96 (Phi-3): B, C, F and G against their plain versions at S
    4096 through the wrappers that zero-pad to the kernels' 128 lanes, per
    row as above; then a toy bf16 engine with head_dim 96 on the card
@@ -73,11 +75,27 @@ to the CPU):
    reading V from pinned host memory), the full-attention baseline, and
    shadow with the fused refresh after each sparse prefill: stream (kernel
    C), vs tile (F) and vs walk (G), at the JAX default settings.
-   Kernel launch counts are reset just before each run and asserted just
-   after (C, F or G once per layer and prefill sub-batch, B none in those
-   runs); each offload run's tokens and final cached ids equal its HBM
-   twin's, its device cache is at least 1.9 GiB smaller and its host store
-   is the int8 V store's 1.99 GiB.
+   Every decode step after each run's first replays the captured step
+   (one CUDA graph per path). Kernel launch counts are reset just before
+   each run and asserted just after, counted through the replays (A or D
+   once per layer and decode step; C, F or G once per layer and prefill
+   sub-batch, B none in those runs); each offload run's tokens and final
+   cached ids equal its HBM twin's, its device cache is at least 1.9 GiB
+   smaller and its host store is the int8 V store's 1.99 GiB. After each
+   run, from the state it left: eight eager steps (``_decode``, the loop
+   before the compiled step) on a copy of the cache give the eager tok/s
+   beside the graph's, and eight steps through the graph on the cache
+   (``decode_chunk``) must give the same tokens and cached ids and count
+   one kernel launch per layer and step; on the shadow run eight steps
+   at temperature 0.6 through the graph must not repeat one token.
+12. The crossover of the two shadow decode branches at full width, chunk
+   sizes 16 and 8: ms per step of the fused refresh and of the XLA-gather
+   branch at forced slot hit rates 0, 0.25, 0.5, 0.75 and 0.9
+   (``debug_hit_rate``, one prefill per chunk size, a new graph per rate),
+   and the hit rate from which the fused refresh is faster (the default
+   of ``pallas_hit_threshold``, ``config.H100_HIT_THRESHOLD``).
+13. ``use_pallas="auto"`` on the shadow path at full width: both paths
+   captured in the warmup; its switches and the steps on each path.
 
 The line before the card line is a JSON object with every kernel's
 numbers; the last line is ``{"ok": true, "device": {...}}``.
@@ -1201,14 +1219,20 @@ TOY_STEPS = 8
 def _greedy_logits(torch, eng, ids, forced=None):
     """Last-position logits [B, 1 + TOY_STEPS, V] (f32, on the CPU) of the
     prefill and of TOY_STEPS decode steps, and the tokens fed [B,
-    TOY_STEPS]: the greedy token of the previous logits, or ``forced``."""
+    TOY_STEPS]: the greedy token of the previous logits (eager steps,
+    ``_decode``), or ``forced`` (steps through the compiled step,
+    ``decode_step``: on the card one eager step, its capture, then
+    replays of the graph)."""
     logits, cache = eng.prefill(ids)
     out, fed = [logits[:, -1].float().cpu()], []
     for i in range(TOY_STEPS):
         tok = out[-1].argmax(-1) if forced is None else forced[:, i]
         fed.append(tok)
-        logits = eng._decode(cache, tok.to(eng.device)[:, None])
-        out.append(logits[:, -1].float().cpu())
+        if forced is None:
+            logits = eng._decode(cache, tok.to(eng.device)[:, None])[:, -1]
+        else:
+            _, logits = eng.decode_step(cache, tok.to(eng.device))
+        out.append(logits.float().cpu())
     return torch.stack(out, 1), torch.stack(fed, 1)
 
 
@@ -1249,6 +1273,10 @@ def check_toy_engine(torch, head_dim: int = 128, settings=TOY_SETTINGS,
                    for dev in ("cpu", DEVICE)}
         l_ref, fed = _greedy_logits(torch, engines["cpu"], ids)
         l_dev, _ = _greedy_logits(torch, engines[DEVICE], ids, forced=fed)
+        n_graphs = len(engines[DEVICE]._steps._graphs)
+        if n_graphs != 1:
+            raise AssertionError(f"toy engine {label}: {n_graphs} captured "
+                                 "decode graphs, expected 1")
         err = (l_dev - l_ref).abs().amax(dim=(0, 2))  # [1 + TOY_STEPS]
         # Prefill: two layers of bf16 activations rounded in another order
         # on each side (bf16 keeps 8 bits) plus the kernels' bf16 attention
@@ -1340,11 +1368,49 @@ def _counters():
     }
 
 
+EAGER_STEPS = 8  # the eager window and the graph window after the run
+
+
+def _mutable_copy(cache):
+    """A copy of the state a decode step writes (the stores it only reads
+    are shared)."""
+    import dataclasses
+
+    if hasattr(cache, "k_buf"):
+        return dataclasses.replace(
+            cache, k_buf=cache.k_buf.clone(), v_buf=cache.v_buf.clone(),
+            cached_ids=cache.cached_ids.clone(), gen_len=cache.gen_len.clone())
+    return dataclasses.replace(cache, k=cache.k.clone(), v=cache.v.clone(),
+                               length=cache.length.clone())
+
+
+def _eager_window(torch, eng, cache, tok):
+    """EAGER_STEPS greedy steps through ``_decode`` (one Python-issued op
+    at a time, as before the compiled step); returns (tokens [n, B], ms per
+    step)."""
+    from shadowkv_tpu_torch.core.sampling import sample_token
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = []
+    for _ in range(EAGER_STEPS):
+        tok = sample_token(eng._decode(cache, tok[:, None])[:, -1])
+        out.append(tok)
+    torch.cuda.synchronize()
+    return torch.stack(out).cpu(), (time.perf_counter() - t0) / EAGER_STEPS * 1e3
+
+
 def run_slice(torch, cfg, params, label: str, mode: str, rt_kw: dict,
               prompt_len: int) -> dict:
-    """One Engine run at full width through batch_generate; returns its
-    numbers, the kernel launch counts of the run, its tokens and its final
-    cached chunk ids."""
+    """One Engine run at full width through batch_generate (every decode
+    step after the first replays the captured step); returns its numbers,
+    the kernel launch counts of the run (counted through the replays), its
+    tokens and its final cached chunk ids. Then, from the state the run
+    left: EAGER_STEPS eager steps on a copy of the cache (the eager tok/s)
+    and as many steps through the same graph on the cache itself
+    (``decode_chunk``), which must give the eager steps' tokens and cached
+    ids and launch the decode kernel once per layer and step; the full
+    cache runs its eager window on the cache itself."""
     import numpy as np
 
     from shadowkv_tpu_torch.config import CacheConfig, RuntimeConfig
@@ -1376,11 +1442,17 @@ def run_slice(torch, cfg, params, label: str, mode: str, rt_kw: dict,
     prefill_kernel = PREFILL_KERNEL.get(
         rt.vs_impl if pattern == "vs" else pattern, "prefill_attention")
     want[prefill_kernel] = cfg.num_layers * sub_batches
+    kernel = None
     if mode != "full":
         kernel = "sparse_refresh" if rt_kw.get("use_pallas") else "gather_chunks"
         want[kernel] = steps
         if mode == "shadow_offload":
             want[kernel + "_host_v"] = steps
+    if launches != want:
+        raise AssertionError(f"slice {label}: kernel launches {launches}, "
+                             f"expected {want}")
+    cache = eng._cache
+    tok = eng._steps.tok.clone()
     res = dict(
         run=label, mode=mode, settings=rt_kw, prompt_len=prompt_len,
         batch=BATCH, gen_len=GEN_LEN,
@@ -1392,20 +1464,167 @@ def run_slice(torch, cfg, params, label: str, mode: str, rt_kw: dict,
         hit_samples=kv.get("hit_samples"),
         cache_gib=kv["device_bytes"] / 2**30,
         host_gib=kv["host_bytes"] / 2**30,
+        graphs=len(eng._steps._graphs),
     )
-    log(f"[slice {label}] {json.dumps(res)}")
-    if launches != want:
-        raise AssertionError(f"slice {label}: kernel launches {launches}, "
-                             f"expected {want}")
+    res["tokens"] = toks
+    res["cached_ids"] = cache.cached_ids.cpu() if mode != "full" else None
+    if mode == "full":
+        _, eager_ms = _eager_window(torch, eng, cache, tok)
+    else:
+        copy = _mutable_copy(cache)
+        eager_toks, eager_ms = _eager_window(torch, eng, copy, tok)
+        fn, attr = counters[kernel]
+        before = getattr(fn, attr)
+        zeros = torch.zeros(EAGER_STEPS, BATCH, dtype=torch.int32,
+                            device=DEVICE)
+        _, graph_toks = eng.decode_chunk(cache, tok, zeros, zeros.bool())
+        replayed = getattr(fn, attr) - before
+        same_toks = torch.equal(graph_toks, eager_toks)
+        same_ids = torch.equal(cache.cached_ids, copy.cached_ids)
+        res.update(graph_eq_eager_tokens=same_toks,
+                   graph_eq_eager_cached_ids=same_ids,
+                   graph_window_launches=replayed)
+        del copy
+        if not (same_toks and same_ids):
+            raise AssertionError(f"slice {label}: {EAGER_STEPS} graph steps "
+                                 "and eager steps from one state differ")
+        if replayed != cfg.num_layers * EAGER_STEPS:
+            raise AssertionError(f"slice {label}: {replayed} {kernel} "
+                                 "launches counted through the replays of "
+                                 f"{EAGER_STEPS} steps")
+    res.update(eager_ms_per_step=eager_ms,
+               eager_tok_s=BATCH / eager_ms * 1e3)
+    log(f"[slice {label}] " + json.dumps(
+        {k: v for k, v in res.items() if k not in ("tokens", "cached_ids")}))
     if toks.shape != (BATCH, GEN_LEN) or toks.min() < 0 \
             or toks.max() >= cfg.vocab_size:
         raise AssertionError(f"slice {label}: bad tokens {toks.shape}")
-    res["tokens"] = toks
-    res["cached_ids"] = (eng._cache.cached_ids.cpu()
-                         if mode != "full" else None)
-    del eng
+    if label == "shadow":
+        check_sampling(torch, eng, cache, tok)
+    del eng, cache
     torch.cuda.empty_cache()
     return res
+
+
+def check_sampling(torch, eng, cache, tok) -> None:
+    """Temperature sampling through the graph: EAGER_STEPS steps at
+    temperature 0.6 (one eager step, its capture, then replays, each of
+    which must advance the generator): some step's tokens differ from the
+    previous step's, all within the vocabulary."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    zeros = torch.zeros(EAGER_STEPS, BATCH, dtype=torch.int32, device=DEVICE)
+    _, toks = eng.decode_chunk(cache, tok, zeros, zeros.bool(), generator=gen,
+                               temperature=0.6)
+    changed = int((toks[2:] != toks[1:-1]).any(dim=1).sum())
+    log(f"[sampling] temperature 0.6 through the graph: tokens "
+        f"{toks.T.tolist()}; {changed} of {EAGER_STEPS - 2} replayed steps "
+        "differ from the step before")
+    if changed == 0 or toks.min() < 0 or toks.max() >= eng.model.vocab_size:
+        raise AssertionError("sampled tokens are frozen across replays or "
+                             "out of range")
+
+
+SWEEP_RATES = (0.0, 0.25, 0.5, 0.75, 0.9)
+SWEEP_STEPS = 16  # timed replays per (rate, branch)
+SWEEP_CHUNKS = (16, 8)
+
+
+def _shadow_engine(torch, cfg, params, chunk_size: int, **rt_kw):
+    from shadowkv_tpu_torch.config import CacheConfig, RuntimeConfig
+    from shadowkv_tpu_torch.models.engine import Engine
+
+    cc = CacheConfig(mode="shadow", max_length=PROMPT_LEN + 256,
+                     sparse_budget=2048, rank=160, chunk_size=chunk_size,
+                     kv_quant="int8", gen_capacity=256)
+    rt = RuntimeConfig(prefill_pattern="dense-splash", **rt_kw)
+    return Engine(cfg, cc, rt, params, device=DEVICE)
+
+
+def _crossover(rows) -> float:
+    """The lowest forced hit rate from which the fused refresh is faster at
+    every swept rate above (linear between the two rates around the last
+    sign change); 0.0 when it wins at every rate, 1.0 when it never wins
+    at the highest."""
+    wins = [r["fused"] < r["xla-gather"] for r in rows]
+    if all(wins):
+        return 0.0
+    if not wins[-1]:
+        return 1.0
+    i = max(j for j, w in enumerate(wins) if not w) + 1
+    a, b = rows[i - 1], rows[i]
+    da = a["fused"] - a["xla-gather"]
+    db = b["fused"] - b["xla-gather"]
+    return a["rate"] + (b["rate"] - a["rate"]) * da / (da - db)
+
+
+def crossover_sweep(torch, cfg, params, chunk_size: int) -> float:
+    """The fused refresh (kernel A) against the XLA-gather branch (tensor
+    indexing, no ring) at forced slot hit rates (``debug_hit_rate``,
+    scatter layout) on one prefill at full width: for each rate and branch
+    two warm steps (one eager step and the capture of the new rate's
+    graph, one replay), then SWEEP_STEPS timed replays (one host sync).
+    Prints ms per step for each (rate, branch); returns the crossover."""
+    import numpy as np
+
+    eng = _shadow_engine(torch, cfg, params, chunk_size, use_pallas=True)
+    ids = np.random.RandomState(SEED).randint(1, cfg.vocab_size,
+                                              (BATCH, PROMPT_LEN))
+    logits, cache = eng.prefill(ids)
+    tok = logits[:, -1].argmax(-1).int()
+    warm = torch.zeros(2, BATCH, dtype=torch.int32, device=DEVICE)
+    timed = torch.zeros(SWEEP_STEPS, BATCH, dtype=torch.int32, device=DEVICE)
+    rows = []
+    for rate in SWEEP_RATES:
+        eng.set_debug_hit_rate(rate)
+        row = {"rate": rate}
+        for branch in ("xla-gather", "fused"):
+            eng._kernel_now = branch == "fused"  # the live path
+            tok, _ = eng.decode_chunk(cache, tok, warm, warm.bool())
+            t0 = time.perf_counter()
+            tok, _ = eng.decode_chunk(cache, tok, timed, timed.bool())
+            row[branch] = (time.perf_counter() - t0) / SWEEP_STEPS * 1e3
+        rows.append(row)
+    cross = _crossover(rows)
+    log(f"[crossover chunk {chunk_size}] ms/step by forced hit rate (graph "
+        f"replay, {PROMPT_LEN} x {BATCH}): {json.dumps(rows)}; the fused "
+        f"refresh is faster from hit rate {cross:.3f}")
+    del eng, cache
+    torch.cuda.empty_cache()
+    return cross
+
+
+def run_auto(torch, cfg, params) -> None:
+    """``use_pallas="auto"`` on the shadow path at full width with the
+    default threshold: batch_generate (the warmup captures both paths),
+    then the switch count and the split of the step's decode kernel
+    launches (kernel A on the fused path; the XLA-gather branch without
+    ring launches none of the port's kernels)."""
+    import numpy as np
+
+    from shadowkv_tpu_torch.kernels.reconstruct import sparse_refresh
+
+    eng = _shadow_engine(torch, cfg, params, 16, use_pallas="auto")
+    ids = np.random.RandomState(SEED).randint(1, cfg.vocab_size,
+                                              (BATCH, PROMPT_LEN))
+    sparse_refresh.launches = 0
+    toks, stats = eng.batch_generate(ids, gen_len=GEN_LEN, temperature=0.0,
+                                     warmup_steps=WARMUP_STEPS)
+    kv = eng.kv_stats()
+    fused_steps = sparse_refresh.launches / cfg.num_layers
+    res = dict(threshold=eng._hit_threshold,
+               auto_switches=kv["auto_switches"],
+               auto_kernel_now=kv["auto_kernel_now"],
+               auto_hit_ema=kv["auto_hit_ema"], graphs=len(eng._steps._graphs),
+               fused_steps=fused_steps,
+               xla_gather_steps=GEN_LEN + WARMUP_STEPS - fused_steps,
+               decode_tok_s=stats.decode_tokens_per_second)
+    log(f"[auto] {json.dumps(res)}")
+    if res["graphs"] != 2 or fused_steps != int(fused_steps) \
+            or not 1 <= fused_steps <= GEN_LEN + WARMUP_STEPS \
+            or toks.shape != (BATCH, GEN_LEN):
+        raise AssertionError(f"auto run: {res}")
+    del eng
+    torch.cuda.empty_cache()
 
 
 def check_offload_twins(torch, runs: dict) -> None:
@@ -1444,7 +1663,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from shadowkv_tpu_torch.cache.shadow import ShadowLayout
-    from shadowkv_tpu_torch.config import CacheConfig
+    from shadowkv_tpu_torch.config import H100_HIT_THRESHOLD, CacheConfig
     from shadowkv_tpu_torch.kernels import build
     from shadowkv_tpu_torch.models.params import init_synthetic_params
     from shadowkv_tpu_torch.models.registry import llama31_8b
@@ -1490,6 +1709,9 @@ def main() -> int:
                              PROMPT_LEN)
             for label, mode, rt_kw in SLICE_RUNS}
     check_offload_twins(torch, runs)
+    cross = {cs: crossover_sweep(torch, cfg, params, cs)
+             for cs in SWEEP_CHUNKS}
+    run_auto(torch, cfg, params)
     # Each kernel's launches come from the run of the path that uses it.
     home = {"sparse_refresh": "shadow", "prefill_attention": "shadow",
             "sparse_refresh_host_v": "offload-fused",
@@ -1502,9 +1724,11 @@ def main() -> int:
     log("[summary] prefill_s " + ", ".join(
         f"{k} {r['prefill_s']:.3f}" for k, r in runs.items())
         + f" (dense shadow {runs['shadow']['prefill_s']:.3f})")
-    log("[summary] decode tok/s " + ", ".join(
-        f"{k} {r['decode_tok_s']:.1f}" for k, r in runs.items())
-        + f" at {PROMPT_LEN} x {BATCH}; total "
+    log("[summary] decode tok/s, graph (eager) " + ", ".join(
+        f"{k} {r['decode_tok_s']:.1f} ({r['eager_tok_s']:.1f})"
+        for k, r in runs.items())
+        + f" at {PROMPT_LEN} x {BATCH}; crossover hit rate by chunk size "
+        f"{cross} (config: {H100_HIT_THRESHOLD}); total "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(entries.values())}))
     print(facts["smi"])

@@ -3,8 +3,9 @@
 
 Dense K/V per layer in the head-major layout [L, B, K, T, Dh] the JAX
 package uses. Prefill and decode write into it in place (JAX returns a new
-buffer via ``dynamic_update_slice`` on a donated one); ``length`` is a
-Python int advanced once per forward step.
+buffer via ``dynamic_update_slice`` on a donated one); ``length`` is an
+int32 scalar tensor on the cache's device, advanced in place once per
+forward step, so a CUDA graph of the decode step reads the live value.
 """
 
 from __future__ import annotations
@@ -20,7 +21,12 @@ from shadowkv_tpu_torch.config import CacheConfig, ModelConfig
 class FullCache:
     k: torch.Tensor  # [L, B, K, T, Dh]
     v: torch.Tensor  # [L, B, K, T, Dh]
-    length: int = 0  # valid tokens
+    length: torch.Tensor | int = 0  # valid tokens (int32, 0-d)
+
+    def __post_init__(self):
+        if not isinstance(self.length, torch.Tensor):
+            self.length = torch.tensor(self.length, dtype=torch.int32,
+                                       device=self.k.device)
 
     @classmethod
     def init(

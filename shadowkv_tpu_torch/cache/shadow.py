@@ -18,7 +18,10 @@ Compact buffer per (layer, batch, kv head), as in the JAX package:
 
 State lives in stacked [L, B, ...] tensors that prefill and decode update
 IN PLACE (JAX threads new buffers through ``dynamic_update_slice`` and
-donation). Store layout is the port's own (the TPU package pads the rank to
+donation). ``gen_len`` is an int32 scalar tensor on the cache's device, as
+JAX's is, advanced in place: a decode step reads it only on the device (the
+RoPE rows, the gen row it writes, the forced ids), so a CUDA graph of the
+step stays valid from one token to the next. Store layout is the port's own (the TPU package pads the rank to
 128 lanes, embeds int8 scales in U's tail lanes and tiles int8 chunks for
 Mosaic's DMA rules):
 
@@ -120,7 +123,7 @@ class ShadowCache:
     v_full: torch.Tensor
     cached_ids: torch.Tensor  # [L, B, K, S] int32 chunk ids in sparse slots
     layout: ShadowLayout
-    gen_len: int = 0  # tokens in the gen region
+    gen_len: torch.Tensor | int = 0  # tokens in the gen region (int32, 0-d)
     lm_scale: Optional[torch.Tensor] = None  # [L, B, K, C] f32 (int8)
     u_scale: Optional[torch.Tensor] = None  # [L, B, C*cs] bf16 (int8)
     v_scale: Optional[torch.Tensor] = None  # [L, B, K, C*cs] bf16 (int8)
@@ -129,9 +132,14 @@ class ShadowCache:
     FIELDS = ("u", "sv", "landmarks", "landmark_mask", "k_buf", "v_buf",
               "v_full", "cached_ids", "lm_scale", "u_scale", "v_scale")
 
+    def __post_init__(self):
+        if not isinstance(self.gen_len, torch.Tensor):
+            self.gen_len = torch.tensor(self.gen_len, dtype=torch.int32,
+                                        device=self.k_buf.device)
+
     @property
-    def kv_len(self) -> int:
-        """Logical KV length (prefill + generated)."""
+    def kv_len(self) -> torch.Tensor:
+        """Logical KV length (prefill + generated), a 0-d device tensor."""
         return self.layout.prefill_len + self.gen_len
 
     @classmethod
@@ -247,13 +255,15 @@ def _rows(x_h: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
 
 
 def forced_ids(
-    layout: ShadowLayout, gen_len: int, hit_rate: float, kind: str, device
+    layout: ShadowLayout, gen_len: torch.Tensor, hit_rate: float, kind: str,
+    device,
 ) -> torch.Tensor:
     """BENCHMARK-ONLY forced selection (JAX ``debug_hit_rate``): a window of
     select_sets chunk ids sliding by m = S * (1 - hit_rate) per decode step,
     so consecutive steps share exactly S - m ids. 'scatter' maps the window
     through the bijection c -> c * mult mod C, mult the first integer from
-    4097 up coprime with C; 'contig' keeps the raw window. [S] int32."""
+    4097 up coprime with C; 'contig' keeps the raw window. ``gen_len`` is
+    the cache's 0-d tensor, read on the device. [S] int32."""
     ssets, c_total = layout.select_sets, layout.chunks
     m = max(1, int(round(ssets * (1.0 - hit_rate))))
     ids = (gen_len * m + torch.arange(ssets, device=device)) % c_total
@@ -281,12 +291,12 @@ def shadow_decode_layer(
     sin_table: torch.Tensor | None = None,
     debug_hit_rate: float | None = None,
     debug_hit_layout: str = "scatter",
-) -> tuple[torch.Tensor, torch.Tensor, int]:
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One layer's cache update at decode: landmark selection (or the
     forced ``debug_hit_rate`` ids) -> slot-stable assignment -> the sparse
     region's refresh -> the new tokens appended to the gen region. Updates
     ``cache`` in place and returns (k_view, v_view, valid_len) with views
-    [B, K, cap, Dh].
+    [B, K, cap, Dh] and ``valid_len`` a 0-d device tensor.
 
     The refresh is one of the JAX package's two strategies:
 
@@ -334,9 +344,11 @@ def shadow_decode_layer(
             region = buf[layer, :, :, lo.sparse_start:lo.sparse_end].view(
                 b, kh, lo.select_sets, lo.chunk_size, dh)
             region.copy_(torch.where(stay, region, new))
+    # The new tokens' rows, from the device counter (no host read).
     row = lo.sparse_end + cache.gen_len
-    cache.k_buf[layer, :, :, row:row + qn] = k_new.transpose(1, 2)
-    cache.v_buf[layer, :, :, row:row + qn] = v_new.transpose(1, 2)
+    rows = row.long() + torch.arange(qn, device=row.device)
+    cache.k_buf[layer].index_copy_(2, rows, k_new.transpose(1, 2))
+    cache.v_buf[layer].index_copy_(2, rows, v_new.transpose(1, 2))
     cache.cached_ids[layer] = asg.slot_ids
     return cache.k_buf[layer], cache.v_buf[layer], row + qn
 

@@ -8,7 +8,9 @@ fields the JAX package has for the paths this port serves:
   the decode kernels);
 - shadow decode: ``use_pallas=True`` (fused refresh, kernel A),
   ``use_pallas`` None/False (the XLA-gather branch), with
-  ``ring_gather=True`` (the chunk-gather kernel D);
+  ``ring_gather=True`` (the chunk-gather kernel D), and
+  ``use_pallas="auto"`` (a switch between the first two on the measured
+  slot hit rate, ``pallas_hit_threshold`` / ``pallas_auto_deadband``);
 - ``debug_hit_rate`` / ``debug_hit_layout`` (benchmark-only forced
   selection);
 - prefill attention: ``prefill_pattern`` ``"dense"``/``"dense-splash"``
@@ -21,14 +23,15 @@ Fields of paths the port does not serve yet (parallelism, int8 weights,
 approximate top-k) are left out, so passing one is a ``TypeError``. Where a
 field takes a value of an unported path, ``check_served`` raises
 ``NotImplementedError`` naming the ROADMAP.md item that ports it:
-``vs_sim`` (§1 'MInference pattern simulation'), ``use_pallas="auto"``
-(§1 'use_pallas="auto"'), ``decode_segmented=True`` (§1 'Segmented
-decode attention'), ``offload_prefill_segments > 1`` (§1 'Host offload,
-rest'), and
+``vs_sim`` (§1 'MInference pattern simulation'), ``decode_segmented=True``
+(§1 'Segmented decode attention'), ``offload_prefill_segments > 1`` (§1
+'Host offload, rest'), and
 ``shadow_offload`` with a bf16 store and neither decode kernel (the JAX
 ``HostVStore`` io_callback path, §1 'Host offload, rest'). The JAX rules
 that assert are ``ValueError`` here: ``use_pallas`` and ``ring_gather``
-exclude each other, and an int8 offloaded store needs one of them.
+exclude each other, an int8 offloaded store needs one of them, and
+``use_pallas="auto"`` serves the ``"shadow"`` mode without ``ring_gather``
+only.
 """
 
 from __future__ import annotations
@@ -37,6 +40,18 @@ import dataclasses
 from typing import Any, Optional
 
 import torch
+
+# The slot hit rate above which the fused refresh (kernel A) decodes faster
+# than the XLA-gather branch, by chunk size: the default of
+# ``pallas_hit_threshold``. Measured by chip_smoke.py's crossover sweep
+# (forced hit rates 0-0.9, scatter layout, Llama-3.1-8B shape at 32K x 2,
+# both branches replayed as CUDA graphs) on an NVIDIA H100 80GB HBM3 at a
+# 700 W power limit: the fused refresh was faster at every rate at chunk
+# 16 and at chunk 8 (the ms per step are in PERF.md §6), so the crossover
+# is 0.0 and 'auto' takes the kernel once the hit-rate EMA clears the
+# dead-band. The JAX package's defaults are a TPU v5e crossover and do not
+# apply here.
+H100_HIT_THRESHOLD = {16: 0.0, 8: 0.0}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,9 +182,16 @@ class RuntimeConfig:
     # Shadow decode path: True = the fused sparse-refresh kernel (hit
     # reuse, misses only); None/False = the XLA-gather branch (every
     # selected chunk gathered, hits kept by a select); 'auto' = switch
-    # between them on the measured hit rate (not ported).
+    # between them on the slot hit rate sampled every
+    # pallas_auto_interval steps ('shadow' mode, no ring_gather).
     use_pallas: Optional[object] = None
+    # 'auto' switches to the fused refresh when the hit-rate EMA is
+    # above this; None = H100_HIT_THRESHOLD for the cache's chunk size.
+    pallas_hit_threshold: Optional[float] = None
     pallas_auto_interval: int = 16
+    # Dead-band around the threshold: 'auto' turns the kernel on above
+    # threshold + band and off below threshold - band (JAX's rule).
+    pallas_auto_deadband: float = 0.05
     # The XLA-gather branch's gather through the chunk-gather kernel
     # (kernels/gather.py) instead of tensor indexing. Excludes use_pallas.
     ring_gather: Optional[bool] = None
@@ -222,13 +244,19 @@ class RuntimeConfig:
                 "prefill) is not ported yet (ROADMAP.md §1 'Host offload, "
                 "rest')"
             )
+        if self.use_pallas == "auto":
+            if cache.mode != "shadow":
+                raise ValueError(
+                    "use_pallas='auto' supports the 'shadow' mode only"
+                )
+            if self.ring_gather:
+                raise ValueError(
+                    "use_pallas='auto' switches between the XLA-gather "
+                    "branch and the fused kernel; it does not compose with "
+                    "ring_gather"
+                )
         if not cache.is_shadow:
             return
-        if self.use_pallas == "auto":
-            raise NotImplementedError(
-                "use_pallas='auto' is not ported yet "
-                "(ROADMAP.md §1 'use_pallas=\"auto\"')"
-            )
         if self.use_pallas and self.ring_gather:
             raise ValueError(
                 "use_pallas and ring_gather are mutually exclusive decode "
@@ -248,3 +276,11 @@ class RuntimeConfig:
                 "the JAX HostVStore io_callback path, not ported yet "
                 "(ROADMAP.md §1 'Host offload, rest')"
             )
+
+    def hit_threshold(self, cache: CacheConfig) -> float:
+        """The 'auto' switch point: ``pallas_hit_threshold``, or the H100
+        crossover measured at chunk size 16 for chunks of 16 and more, at
+        chunk size 8 below (the JAX engine's split of its own defaults)."""
+        if self.pallas_hit_threshold is not None:
+            return self.pallas_hit_threshold
+        return H100_HIT_THRESHOLD[16 if cache.chunk_size >= 16 else 8]

@@ -91,13 +91,15 @@ def decode_attention_hm(
     q: torch.Tensor,
     k_hm: torch.Tensor,
     v_hm: torch.Tensor,
-    kv_len: int,
+    kv_len: int | torch.Tensor,
     scale: float | None = None,
 ) -> torch.Tensor:
     """Decode attention over a HEAD-MAJOR cache [B, K, T_cap, Dh].
 
     ``kv_len`` counts the valid rows including the S_new new tokens, which
     sit at rows [kv_len - S_new, kv_len) and are causal among themselves.
+    It may be a 0-d device tensor: the mask spans the whole ``T_cap``, so
+    the shapes do not depend on it.
     """
     b, s_new, h, dh = q.shape
     kheads, t = k_hm.shape[1], k_hm.shape[2]

@@ -1,7 +1,13 @@
 """Token sampling: greedy, or temperature with top-k / top-p
 (counterpart of ``shadowkv_tpu/core/sampling.py``). Temperature sampling
 draws from an explicit ``torch.Generator`` (JAX draws from a PRNG key, so
-the two packages sample different tokens from the same seed)."""
+the two packages sample different tokens from the same seed).
+
+The draw is ``torch.multinomial``'s own one-sample method written out:
+argmax of ``probs / q`` with ``q ~ Exp(1)``. It takes the same numbers from
+the generator and gives the same token, without the host reads that
+``multinomial`` makes to check its input, so the step can be captured in a
+CUDA graph (the graph then advances the generator on every replay)."""
 
 from __future__ import annotations
 
@@ -45,4 +51,5 @@ def sample_token(
         return torch.argmax(logits, dim=-1).to(torch.int32)
     logits = top_k_top_p_filter(logits / temperature, top_k=top_k, top_p=top_p)
     probs = torch.softmax(logits, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0].to(torch.int32)
+    q = torch.empty_like(probs).exponential_(1.0, generator=generator)
+    return torch.argmax(probs / q, dim=-1).to(torch.int32)

@@ -4,8 +4,19 @@
 The engine runs on ``device="cuda"`` unless the caller passes another
 device; asking for CUDA on a machine without one raises, it never falls
 back to the CPU. Prefill runs in sub-batches into one preallocated cache.
-Decode runs one eager step per token (JAX jits each step; a CUDA graph of
-the step is later work).
+
+Decode goes through the compiled step (``models/graphs.py``), the
+counterpart of the JAX engine's jitted step programs: on the card each
+decode path's step (``_decode`` and the sampling) is captured once as a
+CUDA graph after one eager step and then replayed, one launch per token;
+on a CPU engine the same step function runs eagerly on the same buffers.
+``generate`` and ``batch_generate`` read their tokens back once, at the end
+of the loop (``generate`` each step only to stop a batch of one early).
+``decode_chunk`` runs k steps with teacher-forced rows and one host read
+(JAX ``decode_chunk_jit``). A new prefill drops the graphs; so does
+``set_debug_hit_rate``. ``use_pallas="auto"`` switches between the graphs
+of the fused refresh and of the XLA-gather branch on the sampled slot hit
+rate (JAX ``_auto_observe``).
 
 ``mode="shadow_offload"`` keeps the V store in host memory: one tensor,
 pinned when the engine runs on the card (a plain CPU tensor on a CPU
@@ -35,6 +46,7 @@ from shadowkv_tpu_torch.core import rope as rope_lib
 from shadowkv_tpu_torch.core.layers import ModelParams
 from shadowkv_tpu_torch.core.sampling import sample_token
 from shadowkv_tpu_torch.models import forward
+from shadowkv_tpu_torch.models.graphs import StepGraphs
 
 
 @dataclasses.dataclass
@@ -99,13 +111,23 @@ class Engine:
         )
         # Decode strategy (JAX engine._build_jits): the fused refresh kernel
         # with use_pallas=True, else the XLA-gather branch, through the
-        # chunk-gather kernel with ring_gather=True.
-        self.use_kernel = bool(rt.use_pallas)
+        # chunk-gather kernel with ring_gather=True; 'auto' starts on the
+        # XLA-gather branch and switches on the sampled hit rate.
+        self.pallas_auto = rt.use_pallas == "auto"
+        self.use_kernel = rt.use_pallas is True
         self.ring_gather = bool(rt.ring_gather)
         self.v_on_host = cache_cfg.mode == "shadow_offload"
+        self._kernel_now = self.use_kernel  # the live path
+        self._hit_threshold = (rt.hit_threshold(cache_cfg)
+                               if self.pallas_auto else None)
+        self._auto_switches = 0
+        self._debug_hit_rate = rt.debug_hit_rate
         self._cache = None
-        self._hit_samples: list[torch.Tensor] = []
-        self._hit_ema: torch.Tensor | None = None
+        self._steps: StepGraphs | None = None
+        self._gen: torch.Generator | None = None
+        # Hit-rate samples: device scalars, or host floats under 'auto'.
+        self._hit_samples: list = []
+        self._hit_ema = None
         self._hit_prev_ids = None
         self._hit_counter = 0
 
@@ -128,7 +150,10 @@ class Engine:
                 f"{self.cache_cfg.max_length}"
             )
         t = max(1, min(self.rt.prefill_sub_batch, b))
+        # The old cache's graphs bake in its addresses: drop them, and the
+        # cache, before the new one is allocated.
         self._cache = None
+        self._steps = None
         parts = []
         if self.is_shadow:
             layout = ShadowLayout.build(self.cache_cfg, s)
@@ -152,30 +177,82 @@ class Engine:
     # -- decode -------------------------------------------------------------
 
     def _decode(self, cache, tokens: torch.Tensor) -> torch.Tensor:
-        """One decode step; returns logits [B, 1, V]."""
+        """One eager decode step on the live path; returns logits
+        [B, 1, V]. The compiled step runs it for its first step and its
+        capture."""
         if self.is_shadow:
-            logits = forward.decode_shadow(
+            return forward.decode_shadow(
                 self.model, self.params, cache, tokens, self.cos_table,
                 self.sin_table, self.inv_freq_full,
                 hysteresis=self.rt.selection_hysteresis,
-                use_kernel=self.use_kernel, ring=self.ring_gather,
-                debug_hit_rate=self.rt.debug_hit_rate,
+                use_kernel=self._kernel_now, ring=self.ring_gather,
+                debug_hit_rate=self._debug_hit_rate,
                 debug_hit_layout=self.rt.debug_hit_layout,
             )
-            if self.rt.track_hit_rate:
-                self._observe_hits(cache)
-            return logits
         return forward.decode_full(
             self.model, self.params, cache, tokens, self.cos_table,
             self.sin_table,
         )
 
+    def _steps_for(self, cache) -> StepGraphs:
+        """The token buffers and graphs of ``cache`` (new ones for a cache
+        the engine has not decoded yet)."""
+        if self._steps is None or self._steps.cache is not cache:
+            if self.is_shadow:
+                b = cache.k_buf.shape[1]
+                cap = cache.layout.gen_capacity - int(cache.gen_len)
+            else:
+                b = cache.k.shape[1]
+                cap = cache.k.shape[3] - int(cache.length)
+            self._steps = StepGraphs(cache, b, cap, self.device)
+        return self._steps
+
+    def _step(self, steps: StepGraphs, sample_args: tuple,
+              gen: torch.Generator, observe: bool = True) -> torch.Tensor:
+        """One compiled decode step on the live path: the token in
+        ``steps.tok`` in, the next one out (forced where ``steps`` says);
+        returns the step's logits [B, V]. ``observe`` samples the slot hit
+        rate afterwards, on the device."""
+        sampled = sample_args[0] != 0.0
+        key = (self._kernel_now, sample_args, gen if sampled else None)
+
+        def body():
+            logits = self._decode(steps.cache, steps.tok[:, None])[:, -1]
+            steps.record(sample_token(logits, gen, *sample_args))
+            return logits
+
+        logits = steps.step(key, body, gen if sampled else None)
+        if observe and self.is_shadow and (self.rt.track_hit_rate
+                                           or self.pallas_auto):
+            self._observe_hits(steps.cache)
+        return logits
+
+    def _generator(self, seed: int | None = None) -> torch.Generator:
+        """The engine's sampling generator, reseeded when ``seed`` is given:
+        one object, so the captured steps of one cache keep drawing from
+        it."""
+        if self._gen is None:
+            self._gen = torch.Generator(device=self.device)
+        return self._gen if seed is None else self._gen.manual_seed(seed)
+
+    def set_debug_hit_rate(self, rate: float | None) -> None:
+        """BENCHMARK-ONLY: change the forced selection rate
+        (``RuntimeConfig.debug_hit_rate``) of a live engine; the captured
+        steps bake the old rate in and are dropped (the JAX benchmarks'
+        ``_decode_shadow_jit.clear_cache()``)."""
+        self._debug_hit_rate = rate
+        if self._steps is not None:
+            self._steps.drop_graphs()
+
     def _observe_hits(self, cache: ShadowCache) -> None:
         """Sample the slot hit rate on one consecutive step pair per
-        ``pallas_auto_interval`` steps. Slot-stable assignment makes "slot
-        id unchanged" the same as "hit", so the rate is the mean of
-        ``ids[t] == ids[t+1]``. Samples stay on the device until
-        ``kv_stats`` reads them, so the decode loop never syncs here."""
+        ``pallas_auto_interval`` steps (JAX ``_auto_observe``). Slot-stable
+        assignment makes "slot id unchanged" the same as "hit", so the rate
+        is the mean of ``ids[t] == ids[t+1]``. With ``track_hit_rate`` the
+        samples stay on the device until ``kv_stats`` reads them; under
+        ``use_pallas="auto"`` each sample is read to the host (one scalar
+        read per interval, as JAX's ``float(...)``) and the EMA picks the
+        path with JAX's dead-band rule."""
         phase = self._hit_counter % max(2, self.rt.pallas_auto_interval)
         self._hit_counter += 1
         if phase == 0:
@@ -183,9 +260,28 @@ class Engine:
         elif phase == 1 and self._hit_prev_ids is not None:
             frac = (self._hit_prev_ids == cache.cached_ids).float().mean()
             self._hit_prev_ids = None
+            if self.pallas_auto:
+                frac = float(frac)
             ema = self._hit_ema
             self._hit_ema = frac if ema is None else 0.5 * ema + 0.5 * frac
             self._hit_samples.append(frac)
+            if not self.pallas_auto:
+                return
+            band = self.rt.pallas_auto_deadband
+            if self._kernel_now:
+                want = self._hit_ema >= self._hit_threshold - band
+            else:
+                want = self._hit_ema >= self._hit_threshold + band
+            if want != self._kernel_now:
+                self._kernel_now = want
+                self._auto_switches += 1
+
+    def _auto_reset(self) -> None:
+        """After ``batch_generate``'s warmup (JAX ``_auto_reset``)."""
+        self._hit_prev_ids = None
+        self._hit_counter = 0
+        if self.pallas_auto:
+            self._kernel_now = False
 
     def _check_capacity(self, prompt_len: int, steps: int) -> None:
         if self.is_shadow:
@@ -216,11 +312,12 @@ class Engine:
     ) -> tuple[np.ndarray, GenerationStats]:
         """Generate for a batch of equal-length prompts; returns
         ([B, <=gen_len] ids, stats). Stop tokens truncate per sequence
-        afterwards (the batch decodes to the end, as the reference does)."""
+        afterwards (the batch decodes to the end, as the reference does;
+        a batch of one stops at its stop token)."""
         stats = GenerationStats()
         b, s = np.asarray(input_ids).shape
         self._check_capacity(s, gen_len)
-        gen = torch.Generator(device=self.device).manual_seed(seed)
+        gen = self._generator(seed)
         sample_args = (temperature, top_k, top_p)
         t0 = time.perf_counter()
         logits, cache = self.prefill(input_ids)
@@ -229,18 +326,20 @@ class Engine:
         stats.prefill_seconds = time.perf_counter() - t0
         stats.prefill_tokens = b * s
 
-        out = [tokens.cpu().numpy()]
+        steps = self._steps_for(cache)
+        steps.begin(tokens)
+        n = gen_len - 1
         t0 = time.perf_counter()
-        for _ in range(gen_len - 1):
-            logits = self._decode(cache, tokens[:, None])
-            tokens = sample_token(logits[:, -1], gen, *sample_args)
-            out.append(tokens.cpu().numpy())
-            if stop_ids and b == 1 and out[-1][0] in stop_ids:
+        for i in range(gen_len - 1):
+            self._step(steps, sample_args, gen)
+            if stop_ids and b == 1 and int(steps.tok[0]) in stop_ids:
+                n = i + 1
                 break
         self._sync()
         stats.decode_seconds = time.perf_counter() - t0
-        stats.decode_tokens = b * (len(out) - 1)
-        result = np.stack(out, axis=1)
+        stats.decode_tokens = b * n
+        result = torch.cat([tokens[:, None], steps.hist[:n].T], dim=1)
+        result = result.cpu().numpy()
         if stop_ids:
             result = _truncate_at_stop(result, stop_ids)
         return result, stats
@@ -256,14 +355,17 @@ class Engine:
         warmup_steps: int = 2,
     ) -> tuple[np.ndarray, GenerationStats]:
         """Throughput-oriented generation: ``warmup_steps`` untimed decode
-        steps, then ``gen_len`` timed steps with no host sync inside the
-        loop. Returns ([B, gen_len] ids of the timed steps, stats)."""
+        steps (on the card the first one runs eagerly and captures the
+        step), then ``gen_len`` timed steps with no host sync inside the
+        loop. Under ``use_pallas="auto"`` the warmup alternates the two
+        paths, so both are captured before the timed loop (as JAX's warmup
+        compiles both). Returns ([B, gen_len] ids of the timed steps,
+        stats)."""
         b, s = np.asarray(input_ids).shape
         self._check_capacity(s, gen_len + warmup_steps)
         stats = GenerationStats()
-        gen = torch.Generator(device=self.device).manual_seed(seed)
+        gen = self._generator(seed)
         sample_args = (temperature, top_k, top_p)
-        self._cache = None  # never hold two caches at the prefill peak
         t0 = time.perf_counter()
         logits, cache = self.prefill(input_ids)
         tokens = sample_token(logits[:, -1], gen, *sample_args)
@@ -271,20 +373,68 @@ class Engine:
         stats.prefill_seconds = time.perf_counter() - t0
         stats.prefill_tokens = b * s
 
-        for _ in range(warmup_steps):
-            logits = self._decode(cache, tokens[:, None])
-            tokens = sample_token(logits[:, -1], gen, *sample_args)
+        steps = self._steps_for(cache)
+        steps.begin(tokens)
+        for i in range(warmup_steps):
+            if self.pallas_auto and warmup_steps >= 2:
+                self._kernel_now = i % 2 == 1
+            self._step(steps, sample_args, gen)
+        if self.pallas_auto:
+            self._auto_reset()
         self._sync()
-        out = []
         t0 = time.perf_counter()
         for _ in range(gen_len):
-            logits = self._decode(cache, tokens[:, None])
-            tokens = sample_token(logits[:, -1], gen, *sample_args)
-            out.append(tokens)
+            self._step(steps, sample_args, gen)
         self._sync()
         stats.decode_seconds = time.perf_counter() - t0
         stats.decode_tokens = b * gen_len
-        return torch.stack(out, dim=1).cpu().numpy(), stats
+        out = steps.hist[warmup_steps:warmup_steps + gen_len].T
+        return out.cpu().numpy(), stats
+
+    def decode_step(
+        self,
+        cache,
+        tokens: torch.Tensor,
+        generator: torch.Generator | None = None,
+        temperature: float = 0.0,
+        top_k: int = 50,
+        top_p: float = 0.9,
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """One compiled decode step on ``cache`` fed ``tokens`` [B]; returns
+        (next tokens [B], logits [B, V]), both buffers that the next step
+        overwrites. No host sync."""
+        steps = self._steps_for(cache)
+        steps.begin(tokens)
+        gen = self._generator() if generator is None else generator
+        logits = self._step(steps, (temperature, top_k, top_p), gen,
+                            observe=False)
+        return steps.tok, logits
+
+    def decode_chunk(
+        self,
+        cache,
+        tokens: torch.Tensor,
+        forced_val,
+        forced_on,
+        generator: torch.Generator | None = None,
+        temperature: float = 0.0,
+        top_k: int = 50,
+        top_p: float = 0.9,
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """k decode steps in one run (JAX ``decode_chunk_jit``): step t feeds
+        ``where(forced_on[t], forced_val[t], sampled)`` ([k, B] each; on the
+        engine's device they cost no host sync). Returns (the last tokens
+        [B] on the device, every step's tokens [k, B] on the host); the
+        host read of the latter is the chunk's one sync. Like JAX's chunk it
+        samples no hit rate, so ``"auto"`` holds its path through it."""
+        k = forced_val.shape[0]
+        steps = self._steps_for(cache)
+        steps.begin(tokens, forced_val, forced_on)
+        gen = self._generator() if generator is None else generator
+        sample_args = (temperature, top_k, top_p)
+        for _ in range(k):
+            self._step(steps, sample_args, gen, observe=False)
+        return steps.tok.clone(), steps.hist[:k].cpu()
 
     # -- observability ------------------------------------------------------
 
@@ -314,15 +464,22 @@ class Engine:
         out["device_bytes"] = sum(bytes_by_field.values())
         out["host_bytes"] = host_bytes
         if self.is_shadow:
-            out["cached"] = cache.kv_len
+            out["cached"] = int(cache.kv_len)
             if self._hit_samples:
                 out.update(
-                    hit_rate_mean=float(torch.stack(self._hit_samples).mean()),
+                    hit_rate_mean=float(np.mean(
+                        [float(x) for x in self._hit_samples])),
                     hit_rate_ema=float(self._hit_ema),
                     hit_samples=len(self._hit_samples),
                 )
+            if self.pallas_auto:
+                out.update(
+                    auto_hit_ema=self._hit_ema,
+                    auto_kernel_now=self._kernel_now,
+                    auto_switches=self._auto_switches,
+                )
         else:
-            out["cached"] = cache.length
+            out["cached"] = int(cache.length)
         return out
 
 

@@ -1,7 +1,12 @@
 """The transformer forward pass (counterpart of ``shadowkv_tpu/models/forward.py``).
 
 JAX runs each forward as one ``lax.scan`` over the stacked layer params;
-here it is a Python loop over layers. Caches are updated in place.
+here it is a Python loop over layers. Caches are updated in place. A
+decode step reads the cache's position only as a device tensor
+(``FullCache.length``, ``ShadowCache.gen_len``): the RoPE rows and the rows
+it writes are index ops on it, and it advances by ``add_``, so the step
+has the same shapes at every position and can be replayed as one CUDA
+graph (``models/engine.py``).
 
 - ``prefill_full`` / ``decode_full``: the full-attention baseline;
 - ``prefill_shadow_into`` / ``decode_shadow``: the ShadowKV path (dense
@@ -75,8 +80,16 @@ def _finalize(model: ModelConfig, params: ModelParams, x) -> torch.Tensor:
     return torch.matmul(x, params.lm_head).float()
 
 
-def _tables(cos_table, sin_table, start: int, n: int):
-    return cos_table[start:start + n], sin_table[start:start + n]
+def _tables(cos_table, sin_table, n: int):
+    """The RoPE rows of a prefill's positions [0, n)."""
+    return cos_table[:n], sin_table[:n]
+
+
+def _decode_tables(cos_table, sin_table, start: torch.Tensor, n: int):
+    """The RoPE rows of positions [start, start + n), ``start`` a 0-d
+    device tensor."""
+    pos = start.long() + torch.arange(n, device=start.device)
+    return cos_table.index_select(0, pos), sin_table.index_select(0, pos)
 
 
 def check_layer_patterns(rt: RuntimeConfig, model: ModelConfig) -> None:
@@ -129,7 +142,7 @@ def prefill_full(
     [batch_start, batch_start + Bsub); returns last-token logits."""
     b, s = input_ids.shape
     x = params.embed[input_ids]
-    cos, sin = _tables(cos_table, sin_table, 0, s)
+    cos, sin = _tables(cos_table, sin_table, s)
     bs = slice(batch_start, batch_start + b)
     for layer in range(model.num_layers):
         lp = params.layer(layer)
@@ -138,7 +151,7 @@ def prefill_full(
         cache.v[layer, bs, :, :s] = v.transpose(1, 2)
         ctx = prefill_attention(rt, layer, q, k_r.contiguous(), v.contiguous())
         x = _layer_tail(lp, model, x, ctx)
-    cache.length = s
+    cache.length.fill_(s)
     return _finalize(model, params, x)
 
 
@@ -153,21 +166,20 @@ def decode_full(
     b, qn = tokens.shape
     x = params.embed[tokens]
     start = cache.length
-    cos, sin = _tables(cos_table, sin_table, start, qn)
+    cos, sin = _decode_tables(cos_table, sin_table, start, qn)
+    rows = start.long() + torch.arange(qn, device=start.device)
     new_len = start + qn
     for layer in range(model.num_layers):
         lp = params.layer(layer)
         q, k_r, _, v = _layer_qkv(model, lp, x, cos, sin)
-        cache.k[layer, :, :, start:new_len] = k_r.transpose(1, 2)
-        cache.v[layer, :, :, start:new_len] = v.transpose(1, 2)
-        # Rows past new_len are masked to exactly zero weight; slicing them
-        # off computes the same attention.
-        ctx = decode_attention_hm(
-            q, cache.k[layer, :, :, :new_len], cache.v[layer, :, :, :new_len],
-            new_len,
-        )
+        cache.k[layer].index_copy_(2, rows, k_r.transpose(1, 2))
+        cache.v[layer].index_copy_(2, rows, v.transpose(1, 2))
+        # Attention over the whole max_length buffer, rows past new_len
+        # masked to exactly zero weight, as the JAX full decode does: the
+        # shapes stay those of every other step.
+        ctx = decode_attention_hm(q, cache.k[layer], cache.v[layer], new_len)
         x = _layer_tail(lp, model, x, ctx)
-    cache.length = new_len
+    cache.length.add_(qn)
     return _finalize(model, params, x)
 
 
@@ -221,7 +233,7 @@ def prefill_shadow_into(
     if s != cache.layout.prefill_len:
         raise ValueError("prompt length does not match the cache layout")
     x = params.embed[input_ids]
-    cos, sin = _tables(cos_table, sin_table, 0, s)
+    cos, sin = _tables(cos_table, sin_table, s)
     for layer in range(model.num_layers):
         x = shadow_prefill_body(
             model, cache, layer, params.layer(layer), x, cos, sin,
@@ -244,12 +256,13 @@ def decode_shadow(
     debug_hit_rate: float | None = None,
     debug_hit_layout: str = "scatter",
 ) -> torch.Tensor:
-    """One sparse decode step over all layers; advances ``cache.gen_len``.
+    """One sparse decode step over all layers; advances ``cache.gen_len``
+    in place.
     ``use_kernel`` picks the fused refresh, else the XLA-gather branch
     (through the chunk-gather kernel with ``ring``)."""
     b, qn = tokens.shape
     x = params.embed[tokens]
-    cos, sin = _tables(cos_table, sin_table, cache.kv_len, qn)
+    cos, sin = _decode_tables(cos_table, sin_table, cache.kv_len, qn)
     for layer in range(model.num_layers):
         lp = params.layer(layer)
         q, k_r, _, v = _layer_qkv(model, lp, x, cos, sin)
@@ -261,5 +274,5 @@ def decode_shadow(
         )
         ctx = decode_attention_hm(q, k_view, v_view, valid_len)
         x = _layer_tail(lp, model, x, ctx)
-    cache.gen_len += qn
+    cache.gen_len.add_(qn)
     return _finalize(model, params, x)

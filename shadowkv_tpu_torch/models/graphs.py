@@ -1,0 +1,146 @@
+"""The compiled decode step: the port's counterpart of the JAX engine's
+jitted decode programs (``decode_shadow_jit``, ``decode_full_fn`` and the
+k-step ``decode_chunk_jit`` of ``shadowkv_tpu/models/engine.py``).
+
+JAX traces a step once and dispatches the compiled program at every token.
+Here a step is captured once as a ``torch.cuda.CUDAGraph`` and replayed:
+one launch for the ~2,000 kernels of a 32-layer step, where the eager loop
+issues each of them from Python. A graph freezes the addresses and the
+Python values it saw at capture, so everything a step reads or writes
+lives in buffers that outlast it:
+
+- the cache, whose position (``ShadowCache.gen_len``, ``FullCache.length``)
+  is a device tensor the step advances in place;
+- ``StepGraphs``' token buffers: the input token ``tok`` [B], which the step
+  overwrites with the next one, the step counter ``pos``, the history
+  ``hist`` [cap, B] that the step writes at row ``pos``, and the
+  teacher-forced rows ``forced_val`` / ``forced_on`` [cap, B] that it reads
+  at row ``pos`` (JAX's ``decode_chunk_jit`` takes them as ``[k, B]``
+  inputs of its scan). A run of steps therefore needs no host work between
+  replays and no host read until its end.
+
+Each decode path (fused refresh or XLA-gather branch, sampling settings,
+generator) is its own graph; all graphs of one cache share the token
+buffers, so ``use_pallas="auto"`` switches path between two replays. The
+first step of a path runs eagerly, as a real step that moves the cache (a
+capture records the work and runs none of it); the path is captured right
+after it, and every later step replays the graph. On a CPU engine nothing
+is captured: the same step function runs eagerly on the same buffers.
+A capture or replay that fails raises; nothing falls back to eager steps.
+
+The kernel wrappers count their launches in Python, which a replay does
+not run: each graph keeps the counts its capture added, the capture's own
+increments are taken back, and every replay adds them again.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from shadowkv_tpu_torch.kernels.gather import gather_chunks
+from shadowkv_tpu_torch.kernels.reconstruct import sparse_refresh
+
+# (wrapper, counter attribute) of the kernels a decode step launches
+COUNTERS = (
+    (sparse_refresh, "launches"), (sparse_refresh, "host_launches"),
+    (gather_chunks, "launches"), (gather_chunks, "host_launches"),
+)
+
+
+def _counts() -> list[int]:
+    return [getattr(fn, attr) for fn, attr in COUNTERS]
+
+
+def _add_counts(delta: list[int], sign: int = 1) -> None:
+    for (fn, attr), d in zip(COUNTERS, delta):
+        setattr(fn, attr, getattr(fn, attr) + sign * d)
+
+
+class StepGraphs:
+    """The token buffers of one cache's decode steps and the captured graph
+    of each decode path over them. ``capacity`` is the number of steps the
+    cache can still take (its gen region or its max_length): a step past it
+    raises here rather than writing out of bounds on the device."""
+
+    def __init__(self, cache, batch: int, capacity: int, device):
+        self.cache = cache
+        self.capacity = capacity
+        self.taken = 0
+        self.device = torch.device(device)
+        self.tok = torch.zeros(batch, dtype=torch.int32, device=device)
+        self.pos = torch.zeros(1, dtype=torch.long, device=device)
+        self.hist = torch.zeros(capacity, batch, dtype=torch.int32,
+                                device=device)
+        self.forced_val = torch.zeros_like(self.hist)
+        self.forced_on = torch.zeros(capacity, batch, dtype=torch.bool,
+                                     device=device)
+        self._graphs: dict = {}
+
+    def begin(self, tokens: torch.Tensor, forced_val=None,
+              forced_on=None) -> None:
+        """Start a run at ``tokens`` [B]: the step counter to 0, and the
+        teacher-forced rows ``forced_val``/``forced_on`` [k, B] (none by
+        default). Device inputs cost no host sync."""
+        self.tok.copy_(tokens)
+        self.pos.zero_()
+        self.forced_on.zero_()
+        if forced_val is not None:
+            k = forced_val.shape[0]
+            if k > self.capacity:
+                raise ValueError(f"{k} steps exceed the run capacity "
+                                 f"{self.capacity}")
+            self.forced_val[:k].copy_(torch.as_tensor(forced_val))
+            self.forced_on[:k].copy_(torch.as_tensor(forced_on))
+
+    def record(self, sampled: torch.Tensor) -> None:
+        """The end of a step: the forced token where this step's row asks
+        for one (JAX ``decode_chunk_jit``: ``where(fm, fv, t2)``), written
+        to the history and fed to the next step."""
+        fv = self.forced_val.index_select(0, self.pos)[0]
+        fm = self.forced_on.index_select(0, self.pos)[0]
+        nxt = torch.where(fm, fv, sampled)
+        self.hist.index_copy_(0, self.pos, nxt[None])
+        self.tok.copy_(nxt)
+        self.pos.add_(1)
+
+    def drop_graphs(self) -> None:
+        """Forget the captured graphs (and free their memory pools)."""
+        self._graphs.clear()
+
+    def step(self, key, body: Callable[[], torch.Tensor],
+             generator: torch.Generator | None = None) -> torch.Tensor:
+        """One step of the decode path ``key``; ``body`` runs the step on
+        these buffers and returns its logits [B, V]. On the card the first
+        step of a path runs ``body`` eagerly and then captures it (with
+        ``generator``'s state registered, so that every replay draws new
+        numbers); later steps replay. The returned logits are the graph's
+        static output: the next replay overwrites them."""
+        if self.taken >= self.capacity:
+            raise ValueError(f"the cache's {self.capacity} decode steps are "
+                             "used up")
+        self.taken += 1
+        if self.device.type != "cuda":
+            return body()
+        entry = self._graphs.get(key)
+        if entry is None:
+            logits = body()
+            self._graphs[key] = self._capture(body, generator)
+            return logits
+        graph, logits, delta = entry
+        graph.replay()
+        _add_counts(delta)
+        return logits
+
+    @staticmethod
+    def _capture(body, generator):
+        graph = torch.cuda.CUDAGraph()
+        if generator is not None:
+            graph.register_generator_state(generator)
+        before = _counts()
+        with torch.cuda.graph(graph):
+            logits = body()
+        delta = [a - b for a, b in zip(_counts(), before)]
+        _add_counts(delta, -1)  # the capture launched nothing
+        return graph, logits, delta

@@ -16,13 +16,19 @@ stores, or the full-attention baseline) with one of its decode paths:
 then traces with ``torch.profiler`` (CPU + CUDA activities):
 
 - the whole prefill;
-- ``--steps`` greedy decode steps after two untimed ones.
+- ``--steps`` eager greedy decode steps (``Engine._decode``, every op
+  issued from Python) after two untimed ones;
+- ``--steps`` greedy decode steps through the compiled step
+  (``Engine.decode_chunk``: replays of the captured CUDA graph, one host
+  sync at the end) after two untimed ones (one eager step and the
+  capture, one replay).
 
 For each window it prints one JSON line: wall seconds (host clock around
 work that ends in a synchronize), device-busy seconds (the union of the
-CUDA kernels' intervals), the idle share, and the kernels and operators
-that take the most device time, with the device time of the port's own
-kernels (A, B, C, D, F, G) summed apart. The full tables go to
+CUDA kernels' intervals), the idle share, per decode step the wall and
+device-busy milliseconds, and the kernels and operators that take the
+most device time, with the device time of the port's own kernels (A, B,
+C, D, F, G) summed apart. The full tables go to
 ``<out-dir>/profile_<mode>_<window>.txt``.
 
     python -m shadowkv_tpu_torch.tools.profile_slice --mode offload-fused
@@ -108,8 +114,12 @@ def _kernel_ms(prof) -> dict:
     return {k: {"device_ms": ms, "calls": n} for k, (ms, n) in out.items()}
 
 
-def _report(prof, wall: float, label: str, extra: dict, out_dir: Path) -> None:
+def _report(prof, wall: float, label: str, extra: dict, out_dir: Path,
+            steps: int | None = None) -> None:
     busy = _busy_seconds(prof)
+    if steps:
+        extra = dict(extra, steps=steps, ms_per_step=wall / steps * 1e3,
+                     device_busy_ms_per_step=busy / steps * 1e3)
     out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / f"profile_{label}.txt").write_text(
         prof.key_averages().table(sort_by="self_device_time_total",
@@ -169,9 +179,22 @@ def main() -> None:
             tokens = sample_token(eng._decode(cache, tokens[:, None])[:, -1])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    _report(prof, wall, f"{args.mode}_decode",
-            dict(meta, steps=args.steps, ms_per_step=wall / args.steps * 1e3),
-            args.out_dir)
+    _report(prof, wall, f"{args.mode}_decode", meta, args.out_dir, args.steps)
+
+    def unforced(k):
+        z = torch.zeros(k, args.batch, dtype=torch.int32, device="cuda")
+        return z, z.bool()
+
+    tokens, _ = eng.decode_chunk(cache, tokens, *unforced(2))  # capture
+    forced = unforced(args.steps)
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        tokens, _ = eng.decode_chunk(cache, tokens, *forced)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    _report(prof, wall, f"{args.mode}_decode_graph", meta, args.out_dir,
+            args.steps)
 
 
 if __name__ == "__main__":

@@ -13,7 +13,11 @@ bound on the rows below ``seq_len``, also at head_dim 96 and 64 (zero-padded
 to 128 by the wrappers). The attention kernels (B, C, F, G)
 give one batch row alone the same bits as that row inside a batch. The
 refresh and the gather run with the V store on the card and pinned in host
-memory."""
+memory. The compiled decode step (CUDA graphs) on a toy bf16 engine: for
+each decode path, steps through the graph give the eager steps' tokens and
+bit-equal cache state; kernel launches are counted through replays;
+sampling inside the graph draws new numbers at every replay; 'auto'
+captures both paths."""
 
 from __future__ import annotations
 
@@ -485,3 +489,138 @@ def test_vs_wrappers_refuse_what_the_kernels_do_not_take(gen, kernel):
         run(q, k_off, v)
     run(q, k, v)
     torch.cuda.synchronize()
+
+
+# -- the compiled decode step (CUDA graphs) on a toy bf16 engine ------------
+
+# path -> (cache mode, runtime settings, the decode kernel's counters)
+GRAPH_PATHS = {
+    "fused": ("shadow", dict(use_pallas=True), ("launches",)),
+    "xla-gather": ("shadow", dict(use_pallas=None), ()),
+    "ring": ("shadow", dict(ring_gather=True), ("launches",)),
+    "offload-fused": ("shadow_offload", dict(use_pallas=True),
+                      ("launches", "host_launches")),
+    "offload-ring": ("shadow_offload", dict(ring_gather=True),
+                     ("launches", "host_launches")),
+    "full": ("full", dict(), ()),
+}
+GRAPH_STEPS = 6
+
+
+def _toy_engine(mode, **rt_kw):
+    import numpy as np
+
+    from shadowkv_tpu_torch.config import CacheConfig, RuntimeConfig
+    from shadowkv_tpu_torch.models.engine import Engine
+    from shadowkv_tpu_torch.models.params import init_synthetic_params
+    from shadowkv_tpu_torch.models.registry import toy_config
+
+    cfg = toy_config(dtype=torch.bfloat16, head_dim=128, hidden_size=512,
+                     num_heads=4, num_kv_heads=2, intermediate_size=1024)
+    params = init_synthetic_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), scale=0.2,
+        device="cuda")
+    cc = CacheConfig(mode=mode, max_length=544, sparse_budget=128, rank=64,
+                     chunk_size=16, kv_quant="int8", outlier_chunks=4,
+                     gen_capacity=32)
+    eng = Engine(cfg, cc, RuntimeConfig(**rt_kw), params, device="cuda")
+    ids = np.random.RandomState(0).randint(1, cfg.vocab_size, (2, 512))
+    return eng, ids
+
+
+def _decode_kernel(path):
+    return sparse_refresh if GRAPH_PATHS[path][1].get("use_pallas") \
+        else gather_chunks
+
+
+@pytest.mark.parametrize("path", sorted(GRAPH_PATHS))
+def test_graph_steps_equal_eager_steps(gen, path):
+    """From one prefill, GRAPH_STEPS greedy steps through the compiled step
+    (one eager step, the capture, replays) and as many eager ``_decode``
+    steps on a copy of the cache's mutable state: the same kernels on the
+    same inputs, so the same tokens and bit-equal cache state."""
+    import dataclasses
+
+    mode, rt_kw, _ = GRAPH_PATHS[path]
+    eng, ids = _toy_engine(mode, **rt_kw)
+    logits, cache = eng.prefill(ids)
+    tok = logits[:, -1].argmax(-1).int()
+    names = ("k_buf", "v_buf", "cached_ids", "gen_len") if mode != "full" \
+        else ("k", "v", "length")
+    copy = dataclasses.replace(
+        cache, **{n: getattr(cache, n).clone() for n in names})
+    eager, t = [], tok
+    for _ in range(GRAPH_STEPS):
+        t = eng._decode(copy, t[:, None])[:, -1].argmax(-1).int()
+        eager.append(t)
+    zeros = torch.zeros(GRAPH_STEPS, 2, dtype=torch.int32, device="cuda")
+    _, toks = eng.decode_chunk(cache, tok, zeros, zeros.bool())
+    assert torch.equal(toks, torch.stack(eager).cpu())
+    for n in names:
+        assert torch.equal(getattr(cache, n), getattr(copy, n)), n
+    assert len(eng._steps._graphs) == 1
+
+
+@pytest.mark.parametrize("path", sorted(p for p, v in GRAPH_PATHS.items()
+                                        if v[2]))
+def test_launch_counts_through_replays(gen, path):
+    """batch_generate's decode kernel launches counted through the graph's
+    replays: once per layer and step, host-V launches likewise."""
+    mode, rt_kw, attrs = GRAPH_PATHS[path]
+    eng, ids = _toy_engine(mode, **rt_kw)
+    fn = _decode_kernel(path)
+    saved = {a: getattr(fn, a) for a in attrs}
+    for a in attrs:
+        setattr(fn, a, 0)
+    try:
+        eng.batch_generate(ids, gen_len=GRAPH_STEPS, temperature=0.0,
+                           warmup_steps=2)
+        counts = {a: getattr(fn, a) for a in attrs}
+    finally:
+        for a, v in saved.items():
+            setattr(fn, a, getattr(fn, a) + v)
+    want = eng.model.num_layers * (GRAPH_STEPS + 2)
+    assert counts == dict.fromkeys(attrs, want)
+    assert len(eng._steps._graphs) == 1
+
+
+def test_graph_sampling_draws_new_numbers(gen):
+    """Temperature sampling inside the graph advances the generator at
+    every replay: the replayed steps do not all repeat one token, and a
+    second generator seeded alike gives the same tokens from the same
+    state (the draws come from the generator, not from the capture)."""
+    import dataclasses
+
+    eng, ids = _toy_engine("shadow", use_pallas=True)
+    logits, cache = eng.prefill(ids)
+    tok = logits[:, -1].argmax(-1).int()
+    names = ("k_buf", "v_buf", "cached_ids", "gen_len")
+    start = {n: getattr(cache, n).clone() for n in names}
+    zeros = torch.zeros(GRAPH_STEPS, 2, dtype=torch.int32, device="cuda")
+    runs = []
+    for _ in range(2):
+        for n in names:
+            getattr(cache, n).copy_(start[n])
+        g = torch.Generator(device="cuda").manual_seed(3)
+        runs.append(eng.decode_chunk(cache, tok, zeros, zeros.bool(),
+                                     generator=g, temperature=0.6)[1])
+    assert (runs[0][2:] != runs[0][1:-1]).any()
+    assert torch.equal(runs[0][1:], runs[1][1:])
+    assert len(eng._steps._graphs) == 2  # one per generator
+
+
+def test_auto_captures_both_paths(gen):
+    """use_pallas='auto' at threshold 0.0: the warmup captures the
+    XLA-gather and the fused graph, the EMA moves the engine onto the
+    kernel, and the kernel's launches count only its replays' steps."""
+    eng, ids = _toy_engine("shadow", use_pallas="auto",
+                           pallas_hit_threshold=0.0, pallas_auto_interval=2)
+    before = sparse_refresh.launches
+    toks, _ = eng.batch_generate(ids, gen_len=GRAPH_STEPS, temperature=0.0,
+                                 warmup_steps=2)
+    launched = sparse_refresh.launches - before
+    assert toks.shape == (2, GRAPH_STEPS)
+    assert len(eng._steps._graphs) == 2
+    assert eng._kernel_now and eng._auto_switches >= 1
+    layers = eng.model.num_layers
+    assert launched % layers == 0 and layers <= launched < layers * 8

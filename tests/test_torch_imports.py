@@ -80,7 +80,7 @@ def test_engine_cuda_without_gpu_raises():
     [
         # the JAX HostVStore io_callback path (bf16 offload, no kernel)
         (dict(mode="shadow_offload"), dict()),
-        (dict(mode="shadow"), dict(use_pallas="auto")),
+        (dict(mode="shadow"), dict(sp=2)),
         (dict(mode="shadow_offload"),
          dict(use_pallas=True, offload_prefill_segments=2)),
         (dict(mode="full"), dict(tp=2)),

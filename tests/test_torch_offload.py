@@ -87,13 +87,14 @@ def test_offload_store_is_host_memory(models, strategy):
         (dict(kv_quant="int8"),
          dict(ring_gather=True, offload_prefill_segments=2),
          NotImplementedError),
-        (dict(kv_quant="int8"), dict(use_pallas="auto"), NotImplementedError),
+        (dict(kv_quant="int8"), dict(use_pallas="auto"), ValueError),
     ],
 )
 def test_offload_config_errors(cache_kw, rt_kw, exc):
     """JAX's asserts raise ValueError (an int8 offloaded store needs a
-    decode kernel; use_pallas and ring_gather exclude each other); the
-    unported paths raise NotImplementedError naming their ROADMAP item."""
+    decode kernel; use_pallas and ring_gather exclude each other; 'auto'
+    serves the 'shadow' mode only); the unported paths raise
+    NotImplementedError naming their ROADMAP item."""
     cc = CacheConfig(mode="shadow_offload", max_length=64, **cache_kw)
     with pytest.raises(exc) as err:
         RuntimeConfig(**rt_kw).check_served(cc)
