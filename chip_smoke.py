@@ -96,6 +96,24 @@ to the CPU):
    of ``pallas_hit_threshold``, ``config.H100_HIT_THRESHOLD``).
 13. ``use_pallas="auto"`` on the shadow path at full width: both paths
    captured in the warmup; its switches and the steps on each path.
+14. Continuous batching (``serving.py``) on the CPU tests' toy shape (head
+   dim 128, 2 layers, bf16 for kernels A and B): a 5-request stream at
+   decode chunk 3 and a shared-prefix stream, each request's greedy tokens
+   equal to its oracle run on the card.
+15. Continuous batching at full width, 2 slots, 4 requests of 32768 tokens
+   (fused refresh, dense prefill one sequence at a time): serve-plain (gen
+   lengths 32, 42, 53, 64, as ``bench.py`` ``run_serve`` staggers them),
+   serve-ctx (one shared context plus a 16-token suffix each, gen 32, the
+   snapshot path) and serve-offload (serve-plain with V pinned on the
+   host). Each: the static baseline (fixed batches of 2 through
+   ``batch_generate``), the serve run with every kernel count set to 0
+   just before it and read just after (B once per layer and
+   one-sequence prefill, A, and A with host V, once per layer and decode
+   step through the replays; every ``ServeStats`` counter; one captured
+   decode graph across all admissions), and oracle runs with the serve
+   run's shapes (requests 0 and 2 of serve-plain, 2 of serve-ctx) whose
+   greedy tokens must equal the served ones. Served, decode-only and
+   static tok/s and their ratio are printed.
 
 The line before the card line is a JSON object with every kernel's
 numbers; the last line is ``{"ok": true, "device": {...}}``.
@@ -1627,6 +1645,230 @@ def run_auto(torch, cfg, params) -> None:
     torch.cuda.empty_cache()
 
 
+# --- continuous batching (serving.py) ------------------------------------
+
+SERVE_STEPS = 64  # run_serve's steps: gen lengths staggered up to it
+                 # (profile_slice.serve_requests)
+SERVE_SUFFIX = 16  # serve-ctx: random suffix after the shared context
+SERVE_CTX_GEN = 32
+SERVE_DISPATCH = 16  # max_dispatch: the fixed decode chunk
+SERVE_RUNS = (  # (label, cache mode, shared context)
+    ("serve-plain", "shadow", False),
+    ("serve-ctx", "shadow", True),
+    ("serve-offload", "shadow_offload", False),
+)
+# (label, request uid) held to an oracle run with the serve run's shapes
+SERVE_ORACLES = {"serve-plain": (0, 2), "serve-ctx": (2,)}
+
+
+def _serve_engine(cfg, params, mode: str, prompt_len: int, **cache_kw):
+    from shadowkv_tpu_torch.config import CacheConfig, RuntimeConfig
+    from shadowkv_tpu_torch.models.engine import Engine
+
+    kw = dict(mode=mode, max_length=prompt_len + 128, sparse_budget=2048,
+              rank=160, chunk_size=16, kv_quant="int8", gen_capacity=256)
+    cc = CacheConfig(**{**kw, **cache_kw})
+    rt = RuntimeConfig(use_pallas=True, prefill_pattern="dense-splash",
+                       prefill_sub_batch=1)
+    return Engine(cfg, cc, rt, params, device=DEVICE)
+
+
+def serve_oracle(eng, r, cont_chunk: int = 1):
+    """Request ``r`` on its own with the serve run's shapes: the request
+    duplicated over the engine's two slots (one-sequence prefills), slot
+    0's greedy tokens; a context request as its prefix through
+    ``generate`` and its suffix through ``generate(cont=True)``."""
+    import numpy as np
+
+    if r.context_id is None:
+        toks, _ = eng.generate(np.stack([r.input_ids] * 2), gen_len=r.gen_len)
+        return toks[0]
+    p, suf = r.input_ids[:r.context_len], r.input_ids[r.context_len:]
+    eng.generate(np.stack([p] * 2), gen_len=1)
+    toks, _ = eng.generate(np.stack([suf] * 2), gen_len=r.gen_len, cont=True,
+                           cont_chunk=cont_chunk)
+    return toks[0]
+
+
+def check_serve_run(torch, eng, reqs, label: str, offload: bool,
+                    layers: int) -> tuple[dict, object]:
+    """One ContinuousBatcher run on 2 slots (greedy, chunk SERVE_DISPATCH)
+    with every kernel count set to 0 just before and read just after:
+    counters, exact launches (B once per layer and one-sequence prefill, A
+    once per layer and decode step, counted through the replays), one
+    captured decode graph across every admission, and the per-slot depth
+    vector still the tensor the graph reads. Returns (numbers, results)."""
+    import dataclasses
+
+    from shadowkv_tpu_torch.serving import ContinuousBatcher
+
+    counters = _counters()
+    cb = ContinuousBatcher(eng, slots=BATCH, steps_per_dispatch="auto",
+                           max_dispatch=SERVE_DISPATCH)
+    torch.cuda.synchronize()
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    results, st = cb.run(reqs)
+    launches = {name: getattr(fn, attr)
+                for name, (fn, attr) in counters.items()}
+    steps = eng._steps
+    shared = reqs[0].context_id is not None
+    prefills = BATCH + st.admissions - st.context_hits
+    want = dict.fromkeys(counters, 0)
+    want["prefill_attention"] = layers * prefills
+    want["sparse_refresh"] = layers * st.decode_steps
+    if offload:
+        want["sparse_refresh_host_v"] = layers * st.decode_steps
+    res = dict(run=label, **dataclasses.asdict(st),
+               served_tok_s=st.tokens_per_second,
+               decode_tok_s=st.decode_tokens_per_second,
+               decode_s=st.decode_seconds,
+               ms_per_admission=st.admission_seconds / max(1, st.admissions)
+               * 1e3,
+               captures=steps.captures, graphs=len(steps._graphs),
+               launches=launches,
+               gen_lens=[r.gen_len for r in reqs])
+    log(f"[{label}] " + json.dumps(res))
+    gen_len = eng._cache.gen_len
+    checks = {
+        "completed_requests": st.completed_requests == len(reqs),
+        "admissions": st.admissions == len(reqs) - BATCH,
+        "completed_tokens": st.completed_tokens == sum(r.gen_len for r in reqs),
+        "launches": launches == want,
+        "one capture": steps.captures == 1 and len(steps._graphs) == 1,
+        "depth vector": gen_len is steps.position
+        and tuple(gen_len.shape) == (BATCH,),
+    }
+    if shared:
+        checks["context_hits"] = st.context_hits == len(reqs) - BATCH
+        checks["forced_tokens"] = st.forced_tokens == sum(
+            len(r.input_ids) - r.context_len for r in reqs)
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"{label}: {bad} failed (launches {launches}, "
+                             f"expected {want})")
+    return res, results
+
+
+def static_baseline(torch, eng, reqs, label: str) -> dict:
+    """``bench.py`` ``run_serve``'s static baseline: the stream in fixed
+    batches of 2 through ``batch_generate`` at each batch's longest gen
+    length (no warmup steps; prefix only for context requests), useful
+    tokens over the wall time of the whole loop, prefills included."""
+    import numpy as np
+
+    useful = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r0 in range(0, len(reqs), BATCH):
+        batch = reqs[r0:r0 + BATCH]
+        ids = np.stack([r.input_ids[:r.context_len or len(r.input_ids)]
+                        for r in batch])
+        eng.batch_generate(ids, gen_len=max(r.gen_len for r in batch),
+                           temperature=0.0, warmup_steps=0)
+        useful += sum(r.gen_len for r in batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    res = dict(run=label, static_wall_s=wall, useful_tokens=useful,
+               static_tok_s=useful / wall)
+    log(f"[{label} static] " + json.dumps(res))
+    return res
+
+
+def run_serving(torch, cfg, params) -> dict:
+    """The three serve runs at full width (32768-token prompts, 2 slots, 4
+    requests): for each the static baseline on a fresh engine, then the
+    serve run on another (its checks in ``check_serve_run``), then the
+    oracle runs of SERVE_ORACLES on a third, whose greedy tokens must
+    equal the served ones. Returns the numbers of each run."""
+    import numpy as np
+
+    from shadowkv_tpu_torch.tools.profile_slice import serve_requests
+
+    out = {}
+    for label, mode, shared in SERVE_RUNS:
+        reqs = serve_requests(
+            cfg.vocab_size, shared, 2 * BATCH, PROMPT_LEN,
+            SERVE_CTX_GEN if shared else SERVE_STEPS, SERVE_SUFFIX, SEED)
+        eng = _serve_engine(cfg, params, mode, PROMPT_LEN)
+        static = static_baseline(torch, eng, reqs, label)
+        del eng
+        torch.cuda.empty_cache()
+        eng = _serve_engine(cfg, params, mode, PROMPT_LEN)
+        res, results = check_serve_run(torch, eng, reqs, label,
+                                       mode == "shadow_offload",
+                                       cfg.num_layers)
+        del eng
+        torch.cuda.empty_cache()
+        res.update(static, served_over_static=res["served_tok_s"]
+                   / static["static_tok_s"])
+        for uid in SERVE_ORACLES.get(label, ()):
+            eng = _serve_engine(cfg, params, mode, PROMPT_LEN)
+            want = serve_oracle(eng, reqs[uid])
+            del eng
+            torch.cuda.empty_cache()
+            same = np.array_equal(results[uid], want)
+            log(f"[{label} oracle] request {uid}: served "
+                f"{results[uid].tolist()}, oracle {want.tolist()}, equal "
+                f"{same}")
+            if not same:
+                raise AssertionError(f"{label}: request {uid}'s served tokens "
+                                     "differ from its oracle run")
+        log(f"[{label}] served {res['served_tok_s']:.2f} tok/s, decode-only "
+            f"{res['decode_tok_s']:.2f} tok/s, static "
+            f"{static['static_tok_s']:.2f} tok/s, served/static "
+            f"{res['served_over_static']:.3f}")
+        out[label] = res
+    return out
+
+
+TOY_SERVE_GEN = [6, 9, 4, 7, 5]  # tests/test_torch_serving.py's stream
+
+
+def check_toy_serving(torch) -> None:
+    """The CPU serving tests' shapes on the card (``tests/torch_toy.py``'s
+    model: head_dim 128, 2 layers; bf16, since kernels A and B serve bf16
+    only): the 5-request stream at chunk 3 and a 4-request shared-prefix
+    stream, each request's greedy tokens equal to its oracle run on the
+    card with the serve run's shapes (``serve_oracle``)."""
+    import numpy as np
+
+    from shadowkv_tpu_torch.models.params import init_synthetic_params
+    from shadowkv_tpu_torch.models.registry import toy_config
+    from shadowkv_tpu_torch.serving import ContinuousBatcher, Request
+
+    cfg = toy_config(dtype=torch.bfloat16, head_dim=128, hidden_size=512,
+                     num_heads=4, num_kv_heads=2, intermediate_size=1024)
+    params = init_synthetic_params(
+        cfg, torch.Generator(device="cpu").manual_seed(SEED), scale=0.2,
+        device="cpu")
+    kw = dict(max_length=544, sparse_budget=128, outlier_chunks=4,
+              gen_capacity=32)
+
+    def engine():
+        return _serve_engine(cfg, params, "shadow", 512, **kw)
+
+    rng = np.random.RandomState(SEED)
+    prompts = rng.randint(1, cfg.vocab_size, (len(TOY_SERVE_GEN), 512))
+    plain = [Request(uid=i, input_ids=prompts[i], gen_len=g)
+             for i, g in enumerate(TOY_SERVE_GEN)]
+    prefix = rng.randint(1, cfg.vocab_size, 512)
+    ctx = [Request(uid=i, input_ids=np.concatenate(
+        [prefix, rng.randint(1, cfg.vocab_size, 3)]), gen_len=6,
+        context_id=0, context_len=512) for i in range(4)]
+    for label, reqs, chunk in (("plain", plain, 3), ("prefix", ctx, "auto")):
+        results, st = ContinuousBatcher(
+            engine(), slots=2, steps_per_dispatch=chunk).run(reqs)
+        same = {r.uid: bool(np.array_equal(results[r.uid],
+                                           serve_oracle(engine(), r, 16)))
+                for r in reqs}
+        log(f"[toy serving, {label}] {st}; tokens equal to the oracle "
+            f"{same}")
+        if not all(same.values()) or st.completed_requests != len(reqs):
+            raise AssertionError(f"toy serving {label}: served tokens differ "
+                                 "from the oracle runs")
+
+
 def check_offload_twins(torch, runs: dict) -> None:
     """Each offload run against its HBM twin: the same V bytes in another
     place, so the same tokens and cached ids; a device cache smaller by
@@ -1712,6 +1954,8 @@ def main() -> int:
     cross = {cs: crossover_sweep(torch, cfg, params, cs)
              for cs in SWEEP_CHUNKS}
     run_auto(torch, cfg, params)
+    check_toy_serving(torch)
+    serve = run_serving(torch, cfg, params)
     # Each kernel's launches come from the run of the path that uses it.
     home = {"sparse_refresh": "shadow", "prefill_attention": "shadow",
             "sparse_refresh_host_v": "offload-fused",
@@ -1728,8 +1972,12 @@ def main() -> int:
         f"{k} {r['decode_tok_s']:.1f} ({r['eager_tok_s']:.1f})"
         for k, r in runs.items())
         + f" at {PROMPT_LEN} x {BATCH}; crossover hit rate by chunk size "
-        f"{cross} (config: {H100_HIT_THRESHOLD}); total "
-        f"{time.perf_counter() - t_start:.1f} s")
+        f"{cross} (config: {H100_HIT_THRESHOLD})")
+    log("[summary] serving, served / decode-only / static tok/s: " + ", ".join(
+        f"{k} {r['served_tok_s']:.2f} / {r['decode_tok_s']:.2f} / "
+        f"{r['static_tok_s']:.2f} ({r['served_over_static']:.3f}x)"
+        for k, r in serve.items())
+        + f"; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(entries.values())}))
     print(facts["smi"])
     print(json.dumps({"ok": True, "device": {

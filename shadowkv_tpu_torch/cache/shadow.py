@@ -18,11 +18,16 @@ Compact buffer per (layer, batch, kv head), as in the JAX package:
 
 State lives in stacked [L, B, ...] tensors that prefill and decode update
 IN PLACE (JAX threads new buffers through ``dynamic_update_slice`` and
-donation). ``gen_len`` is an int32 scalar tensor on the cache's device, as
-JAX's is, advanced in place: a decode step reads it only on the device (the
-RoPE rows, the gen row it writes, the forced ids), so a CUDA graph of the
-step stays valid from one token to the next. Store layout is the port's own (the TPU package pads the rank to
-128 lanes, embeds int8 scales in U's tail lanes and tiles int8 chunks for
+donation). ``gen_len`` is an int32 tensor on the cache's device, as JAX's
+is, advanced in place: a decode step reads it only on the device (the RoPE
+rows, the gen row it writes, the forced ids), so a CUDA graph of the step
+stays valid from one token to the next. It is 0-d, or [B] when every slot
+sits at its own generation depth (continuous batching, ``serving.py``):
+then the RoPE rows gain a batch dimension and each slot's new rows go to
+its own gen row, by one scatter.
+
+Store layout is the port's own (the TPU package pads the rank to 128
+lanes, embeds int8 scales in U's tail lanes and tiles int8 chunks for
 Mosaic's DMA rules):
 
     u        [L, B, C*cs, rank]      int8 | model dtype (shared by heads)
@@ -123,7 +128,7 @@ class ShadowCache:
     v_full: torch.Tensor
     cached_ids: torch.Tensor  # [L, B, K, S] int32 chunk ids in sparse slots
     layout: ShadowLayout
-    gen_len: torch.Tensor | int = 0  # tokens in the gen region (int32, 0-d)
+    gen_len: torch.Tensor | int = 0  # tokens in the gen region (int32, 0-d | [B])
     lm_scale: Optional[torch.Tensor] = None  # [L, B, K, C] f32 (int8)
     u_scale: Optional[torch.Tensor] = None  # [L, B, C*cs] bf16 (int8)
     v_scale: Optional[torch.Tensor] = None  # [L, B, K, C*cs] bf16 (int8)
@@ -139,7 +144,8 @@ class ShadowCache:
 
     @property
     def kv_len(self) -> torch.Tensor:
-        """Logical KV length (prefill + generated), a 0-d device tensor."""
+        """Logical KV length (prefill + generated), a device tensor shaped
+        as ``gen_len``."""
         return self.layout.prefill_len + self.gen_len
 
     @classmethod
@@ -263,10 +269,12 @@ def forced_ids(
     so consecutive steps share exactly S - m ids. 'scatter' maps the window
     through the bijection c -> c * mult mod C, mult the first integer from
     4097 up coprime with C; 'contig' keeps the raw window. ``gen_len`` is
-    the cache's 0-d tensor, read on the device. [S] int32."""
+    the cache's tensor, read on the device; a [B] one keys the window on its
+    largest entry, as JAX does. [S] int32."""
     ssets, c_total = layout.select_sets, layout.chunks
     m = max(1, int(round(ssets * (1.0 - hit_rate))))
-    ids = (gen_len * m + torch.arange(ssets, device=device)) % c_total
+    t = gen_len if gen_len.dim() == 0 else gen_len.max()
+    ids = (t * m + torch.arange(ssets, device=device)) % c_total
     if kind == "scatter":
         mult = 4097
         while math.gcd(mult, c_total) != 1:
@@ -296,7 +304,8 @@ def shadow_decode_layer(
     forced ``debug_hit_rate`` ids) -> slot-stable assignment -> the sparse
     region's refresh -> the new tokens appended to the gen region. Updates
     ``cache`` in place and returns (k_view, v_view, valid_len) with views
-    [B, K, cap, Dh] and ``valid_len`` a 0-d device tensor.
+    [B, K, cap, Dh] and ``valid_len`` a device tensor shaped as
+    ``cache.gen_len``.
 
     The refresh is one of the JAX package's two strategies:
 
@@ -346,11 +355,29 @@ def shadow_decode_layer(
             region.copy_(torch.where(stay, region, new))
     # The new tokens' rows, from the device counter (no host read).
     row = lo.sparse_end + cache.gen_len
-    rows = row.long() + torch.arange(qn, device=row.device)
-    cache.k_buf[layer].index_copy_(2, rows, k_new.transpose(1, 2))
-    cache.v_buf[layer].index_copy_(2, rows, v_new.transpose(1, 2))
+    if row.dim() == 0:
+        rows = row.long() + torch.arange(qn, device=row.device)
+        cache.k_buf[layer].index_copy_(2, rows, k_new.transpose(1, 2))
+        cache.v_buf[layer].index_copy_(2, rows, v_new.transpose(1, 2))
+    else:
+        _append_gen_rows(cache.k_buf[layer], k_new.transpose(1, 2), row)
+        _append_gen_rows(cache.v_buf[layer], v_new.transpose(1, 2), row)
     cache.cached_ids[layer] = asg.slot_ids
     return cache.k_buf[layer], cache.v_buf[layer], row + qn
+
+
+def _append_gen_rows(buf: torch.Tensor, new_t: torch.Tensor,
+                     row0: torch.Tensor) -> None:
+    """Write new-token rows [B, K, Qn, Dh] into ``buf`` [B, K, cap, Dh] at
+    per-slot rows ``row0`` [B] (JAX ``_append_gen_rows``): one scatter on a
+    [B, Qn] row index, no host loop over slots. A row past the buffer is
+    written to its last row, as JAX's clamped ``dynamic_update_slice``
+    does: only a finished slot stepping on to the end of a decode chunk
+    gets there, and its rows are never read."""
+    b, kh, qn, dh = new_t.shape
+    rows = row0.long()[:, None] + torch.arange(qn, device=row0.device)
+    rows = rows.clamp(max=buf.shape[2] - 1)
+    buf.scatter_(2, rows[:, None, :, None].expand(b, kh, qn, dh), new_t)
 
 
 def _gather_rebuild(

@@ -149,8 +149,8 @@ class CacheConfig:
 @dataclasses.dataclass(frozen=True)
 class RuntimeConfig:
     """Execution configuration: prefill batching and the decode path.
-    (Sampling settings are arguments of ``Engine.generate``; the JAX
-    config's serving-only fields come with the serving port.)"""
+    (Sampling settings are arguments of ``Engine.generate``; the slot
+    count of continuous batching is an argument of ``ContinuousBatcher``.)"""
 
     # Prefill runs in sub-batches of this many sequences.
     prefill_sub_batch: int = 4

@@ -98,8 +98,9 @@ def decode_attention_hm(
 
     ``kv_len`` counts the valid rows including the S_new new tokens, which
     sit at rows [kv_len - S_new, kv_len) and are causal among themselves.
-    It may be a 0-d device tensor: the mask spans the whole ``T_cap``, so
-    the shapes do not depend on it.
+    It may be a 0-d device tensor, or a [B] one when every sequence sits at
+    its own depth (continuous batching): the mask spans the whole
+    ``T_cap``, so the shapes do not depend on it.
     """
     b, s_new, h, dh = q.shape
     kheads, t = k_hm.shape[1], k_hm.shape[2]
@@ -108,8 +109,12 @@ def decode_attention_hm(
     qg = q.reshape(b, s_new, kheads, g, dh)
     scores = torch.einsum("bskgd,bktd->bkgst", qg.float(), k_hm.float()) * scale
     pos_k = torch.arange(t, device=q.device)
-    q_abs = kv_len - s_new + torch.arange(s_new, device=q.device)
-    mask = pos_k[None, :] <= q_abs[:, None]  # [S, T]
+    if isinstance(kv_len, torch.Tensor) and kv_len.dim() == 1:
+        q_abs = kv_len[:, None] - s_new + torch.arange(s_new, device=q.device)
+        mask = (pos_k <= q_abs[..., None])[:, None, None]  # [B, 1, 1, S, T]
+    else:
+        q_abs = kv_len - s_new + torch.arange(s_new, device=q.device)
+        mask = pos_k[None, :] <= q_abs[:, None]  # [S, T]
     scores = torch.where(mask, scores, _F32_MIN)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum(

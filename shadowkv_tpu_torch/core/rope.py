@@ -84,7 +84,8 @@ def apply_rope(
     sin: torch.Tensor,
     style: str = "neox",
 ) -> torch.Tensor:
-    """Rotate x [B, seq, H, head_dim] by cos/sin [seq, rope_dim // 2].
+    """Rotate x [B, seq, H, head_dim] by cos/sin [seq, rope_dim // 2], or
+    [B, seq, rope_dim // 2] when each sequence sits at its own position.
 
     bf16 inputs rotate in bf16 (as the JAX package does, to avoid an f32
     copy of the whole prefill); other dtypes rotate in f32.
@@ -92,8 +93,9 @@ def apply_rope(
     orig_dtype = x.dtype
     half = cos.shape[-1]
     xf = x if x.dtype == torch.bfloat16 else x.float()
-    c = cos.reshape(1, cos.shape[0], 1, half).to(xf.dtype)
-    s = sin.reshape(1, sin.shape[0], 1, half).to(xf.dtype)
+    lead = cos.shape[:2] if cos.dim() == 3 else (1, cos.shape[0])
+    c = cos.reshape(*lead, 1, half).to(xf.dtype)
+    s = sin.reshape(*lead, 1, half).to(xf.dtype)
     if style == "neox":
         if 2 * half != x.shape[-1]:
             raise ValueError("neox tables must cover the whole head")

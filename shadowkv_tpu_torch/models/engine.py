@@ -16,7 +16,19 @@ of the loop (``generate`` each step only to stop a batch of one early).
 (JAX ``decode_chunk_jit``). A new prefill drops the graphs; so does
 ``set_debug_hit_rate``. ``use_pallas="auto"`` switches between the graphs
 of the fused refresh and of the XLA-gather branch on the sampled slot hit
-rate (JAX ``_auto_observe``).
+rate (JAX ``_auto_observe``). Decode runs on the live cache, the one of the
+last prefill; the engine keeps each slot's depth on the host
+(``StepGraphs.depth``) and checks every step against it without reading
+the device.
+
+Continuous batching (``serving.py``) drives the slot operations of the
+live cache without dropping its graphs: per-slot generation depths
+(``use_slot_depths``, ``reset_slot_depth``, ``clamp_idle_depths``, each an
+in-place write of ``gen_len``), ``admit_slot`` (a one-sequence prefill into
+one slot, V on the card or in the host store), and the shared-prefix
+snapshots (``_extract_slot``, ``_merge_slots``, ``_merge_slots_v``,
+``host_slot_rows``, ``set_host_slot_rows``). ``generate(cont=True)``
+continues a chat turn from the previous call's cache.
 
 ``mode="shadow_offload"`` keeps the V store in host memory: one tensor,
 pinned when the engine runs on the card (a plain CPU tensor on a CPU
@@ -26,9 +38,11 @@ full-batch V store is never on the card; the JAX engine instead prefills a
 sub-batch's whole V store on the device and evicts it after the sub-batch.
 Decode reads the host store in place through the fused refresh kernel
 (misses only) or the chunk-gather kernel (every selected chunk); no host
-copy enters the decode step. Not ported (ROADMAP.md §1 'Host offload,
-rest'): the ``HostVStore`` io_callback path, the layer-segmented offload
-prefill, per-slot host parts and the TPU's 4096-byte host layout.
+copy enters the decode step. An admission prefills straight into its slot
+of the live store, and a snapshot is one slot of it copied to a pinned
+tensor. Not ported (ROADMAP.md §1 'Host offload, rest'): the
+``HostVStore`` io_callback path, the layer-segmented offload prefill and
+saving or loading an offloaded store.
 """
 
 from __future__ import annotations
@@ -172,14 +186,27 @@ class Engine:
                     self.cos_table, self.sin_table, b0, self.rt,
                 ))
         self._cache = cache
+        if self.is_shadow:
+            depth, limit = 0, self.cache_cfg.gen_capacity
+        else:
+            depth, limit = s, self.cache_cfg.max_length
+        self._steps = StepGraphs(cache, b, depth, limit, self.device)
         return torch.cat(parts, dim=0), cache
 
     # -- decode -------------------------------------------------------------
 
     def _decode(self, cache, tokens: torch.Tensor) -> torch.Tensor:
-        """One eager decode step on the live path; returns logits
-        [B, 1, V]. The compiled step runs it for its first step and its
-        capture."""
+        """One eager decode step of ``tokens`` [B, Qn] on the live path;
+        returns logits [B, 1, V]. On the live cache the step's positions are
+        booked first (``StepGraphs.take``); another cache (a copy) keeps
+        its own count."""
+        if cache is self._cache:
+            self._steps.take(tokens.shape[1])
+        return self._forward_step(cache, tokens)
+
+    def _forward_step(self, cache, tokens: torch.Tensor) -> torch.Tensor:
+        """The decode forward of one step, which the compiled step runs for
+        its first step and its capture."""
         if self.is_shadow:
             return forward.decode_shadow(
                 self.model, self.params, cache, tokens, self.cos_table,
@@ -195,16 +222,10 @@ class Engine:
         )
 
     def _steps_for(self, cache) -> StepGraphs:
-        """The token buffers and graphs of ``cache`` (new ones for a cache
-        the engine has not decoded yet)."""
-        if self._steps is None or self._steps.cache is not cache:
-            if self.is_shadow:
-                b = cache.k_buf.shape[1]
-                cap = cache.layout.gen_capacity - int(cache.gen_len)
-            else:
-                b = cache.k.shape[1]
-                cap = cache.k.shape[3] - int(cache.length)
-            self._steps = StepGraphs(cache, b, cap, self.device)
+        """The token buffers, graphs and slot depths of the live cache."""
+        if cache is None or cache is not self._cache:
+            raise ValueError("decode runs on the engine's live cache (the "
+                             "last prefill's)")
         return self._steps
 
     def _step(self, steps: StepGraphs, sample_args: tuple,
@@ -217,7 +238,7 @@ class Engine:
         key = (self._kernel_now, sample_args, gen if sampled else None)
 
         def body():
-            logits = self._decode(steps.cache, steps.tok[:, None])[:, -1]
+            logits = self._forward_step(steps.cache, steps.tok[:, None])[:, -1]
             steps.record(sample_token(logits, gen, *sample_args))
             return logits
 
@@ -309,25 +330,39 @@ class Engine:
         top_p: float = 0.9,
         seed: int = 0,
         stop_ids: tuple[int, ...] = (),
+        cont: bool = False,
+        cont_chunk: int = 16,
     ) -> tuple[np.ndarray, GenerationStats]:
         """Generate for a batch of equal-length prompts; returns
         ([B, <=gen_len] ids, stats). Stop tokens truncate per sequence
         afterwards (the batch decodes to the end, as the reference does;
-        a batch of one stops at its stop token)."""
+        a batch of one stops at its stop token).
+
+        ``cont=True`` continues from the cache of the previous call (JAX
+        ``generate(cont=True)``: a chat turn over a prefilled context, with
+        no new prefill). The new prompt is teacher-forced through decode
+        steps of ``cont_chunk`` tokens (eager steps: the compiled step is
+        the one-token step), then one-token steps for the remainder, which
+        go through the compiled step as forced rows; the step that takes
+        the prompt's last token gives the first generated one."""
         stats = GenerationStats()
         b, s = np.asarray(input_ids).shape
-        self._check_capacity(s, gen_len)
         gen = self._generator(seed)
         sample_args = (temperature, top_k, top_p)
         t0 = time.perf_counter()
-        logits, cache = self.prefill(input_ids)
-        tokens = sample_token(logits[:, -1], gen, *sample_args)
+        if cont:
+            steps, head, off = self._continue(input_ids, gen_len, cont_chunk,
+                                              gen, sample_args)
+        else:
+            self._check_capacity(s, gen_len)
+            logits, cache = self.prefill(input_ids)
+            head, off = sample_token(logits[:, -1], gen, *sample_args), 0
+            steps = self._steps_for(cache)
+            steps.begin(head)
         self._sync()
         stats.prefill_seconds = time.perf_counter() - t0
         stats.prefill_tokens = b * s
 
-        steps = self._steps_for(cache)
-        steps.begin(tokens)
         n = gen_len - 1
         t0 = time.perf_counter()
         for i in range(gen_len - 1):
@@ -338,11 +373,43 @@ class Engine:
         self._sync()
         stats.decode_seconds = time.perf_counter() - t0
         stats.decode_tokens = b * n
-        result = torch.cat([tokens[:, None], steps.hist[:n].T], dim=1)
+        result = torch.cat([head[:, None], steps.hist[off:off + n].T], dim=1)
         result = result.cpu().numpy()
         if stop_ids:
             result = _truncate_at_stop(result, stop_ids)
         return result, stats
+
+    def _continue(self, input_ids, gen_len: int, chunk: int,
+                  gen: torch.Generator, sample_args: tuple):
+        """Teacher-force a new turn into the live cache (``generate``'s
+        ``cont=True``): returns (the step buffers, the first generated
+        tokens [B], the history row at which the decode steps start)."""
+        cache = self._cache
+        if cache is None:
+            raise ValueError("generate(cont=True) needs a prior generate call")
+        steps = self._steps_for(cache)
+        b, s = np.asarray(input_ids).shape
+        used = int(steps.depth.max()) + s + gen_len
+        if used > steps.limit:
+            region = "gen_capacity" if self.is_shadow else "max_length"
+            raise ValueError(f"continuation overflows the cache: {used} > "
+                             f"{region} {steps.limit}")
+        prompt = torch.as_tensor(np.asarray(input_ids),
+                                 dtype=torch.int32).to(self.device)
+        multi = s - s % chunk if chunk > 1 else 0
+        logits = None
+        for t in range(0, multi, chunk):
+            logits = self._decode(cache, prompt[:, t:t + chunk])
+        rest = prompt[:, multi:]
+        if rest.shape[1] == 0:
+            head = sample_token(logits[:, -1], gen, *sample_args)
+            steps.begin(head)
+            return steps, head, 0
+        forced = rest[:, 1:].T
+        steps.begin(rest[:, 0], forced, torch.ones_like(forced, dtype=torch.bool))
+        for _ in range(rest.shape[1]):
+            self._step(steps, sample_args, gen)
+        return steps, steps.hist[rest.shape[1] - 1], rest.shape[1]
 
     def batch_generate(
         self,
@@ -436,6 +503,101 @@ class Engine:
             self._step(steps, sample_args, gen, observe=False)
         return steps.tok.clone(), steps.hist[:k].cpu()
 
+    # -- slot operations (continuous batching, serving.py) -------------------
+
+    def use_slot_depths(self, cache) -> None:
+        """Give every slot of the live shadow cache its own generation depth
+        (``gen_len`` becomes [B], JAX serving's ``gen_len=zeros((B,))``)
+        before its first decode step is captured."""
+        self._steps_for(cache).slot_depths()
+
+    def reset_slot_depth(self, slot: int, need: int) -> None:
+        """An admission into ``slot``: its depth to 0, in place, and the
+        number of decode steps its request needs (the capacity check's
+        end for that slot)."""
+        self._steps_for(self._cache).reset_slot(slot, need)
+
+    def clamp_idle_depths(self, active, steps: int) -> None:
+        """Pin the depth of each slot that ``active`` [B] marks idle low
+        enough for ``steps`` more steps (JAX serving's idle-slot clamp)."""
+        self._steps_for(self._cache).clamp_idle(active, steps)
+
+    def admit_slot(self, cache, ids_row, slot: int):
+        """Prefill one request into ``slot`` of the live cache (JAX
+        ``admit_slot``); the other slots, the graphs and the step buffers
+        are untouched. Every field is written in place, and with V in host
+        memory each layer's V rows go straight into the slot's rows of the
+        pinned store, so neither mode needs a one-slot cache. Returns
+        (last-token logits [1, 1, V], cache)."""
+        if not self.is_shadow:
+            raise ValueError("slot admission serves the shadow cache modes")
+        self._steps_for(cache)
+        ids = torch.as_tensor(np.asarray(ids_row)[None],
+                              dtype=torch.long).to(self.device)
+        lg = forward.prefill_shadow_into(
+            self.model, self.params, cache, ids, self.cos_table,
+            self.sin_table, slot, self.sketch, self.rt,
+        )
+        return lg, cache
+
+    def _extract_slot(self, cache, b0: int) -> ShadowCache:
+        """A one-slot copy of slot ``b0`` of every field of ``cache``,
+        ``gen_len`` and the int8 scales included (JAX ``extract_slot_fn``):
+        a shared-prefix snapshot. A host V store's rows are not copied
+        here (``host_slot_rows`` does that); the snapshot holds a zero-row
+        placeholder for them, as JAX's does."""
+        def take(t):
+            return None if t is None else t[:, b0:b0 + 1].clone()
+
+        fields = {name: take(getattr(cache, name))
+                  for name in ShadowCache.FIELDS if name != "v_full"}
+        v = cache.v_full
+        fields["v_full"] = (v.new_empty(v.shape[:1] + (1,) + v.shape[2:3]
+                                        + (0,) + v.shape[4:])
+                            if cache.v_on_host else take(v))
+        gen_len = cache.gen_len
+        gen_len = (gen_len[b0:b0 + 1] if gen_len.dim() else gen_len).clone()
+        return ShadowCache(layout=cache.layout, gen_len=gen_len,
+                           v_on_host=cache.v_on_host, **fields)
+
+    def _merge_slots(self, cache, small: ShadowCache, b0: int,
+                     with_v: bool = False):
+        """Copy the one-slot ``small`` into slot ``b0`` of the live tensors
+        of ``cache``, in place (JAX ``merge_slots_fn``): every field but
+        the V store, which stays where it is (a host store takes its rows
+        through ``set_host_slot_rows``); ``gen_len`` is left to the
+        caller."""
+        names = [n for n in ShadowCache.FIELDS if n != "v_full"]
+        for name in names + (["v_full"] if with_v else []):
+            dst = getattr(cache, name)
+            if dst is not None:
+                dst[:, b0:b0 + 1].copy_(getattr(small, name))
+        return cache
+
+    def _merge_slots_v(self, cache, small: ShadowCache, b0: int):
+        """``_merge_slots`` with the V store (a cache whose V is on the
+        card; JAX ``merge_slots_v_fn``)."""
+        return self._merge_slots(cache, small, b0, with_v=True)
+
+    def _host_store(self) -> torch.Tensor:
+        if not self.v_on_host or self._cache is None:
+            raise ValueError("host V rows exist only on a live "
+                             "shadow_offload cache")
+        return self._cache.v_full
+
+    def host_slot_rows(self, slot: int) -> torch.Tensor:
+        """A copy of slot ``slot`` of the host V store [L, 1, K, rows, Dh],
+        pinned when the engine runs on the card (JAX ``host_slot_rows``)."""
+        rows = self._host_store()[:, slot:slot + 1]
+        out = torch.empty(rows.shape, dtype=rows.dtype,
+                          pin_memory=self.device.type == "cuda")
+        return out.copy_(rows)
+
+    def set_host_slot_rows(self, rows: torch.Tensor, slot: int) -> None:
+        """Write a ``host_slot_rows`` copy back into slot ``slot`` of the
+        host V store (JAX ``set_host_slot_rows``)."""
+        self._host_store()[:, slot:slot + 1].copy_(rows)
+
     # -- observability ------------------------------------------------------
 
     def kv_stats(self) -> dict:
@@ -464,7 +626,7 @@ class Engine:
         out["device_bytes"] = sum(bytes_by_field.values())
         out["host_bytes"] = host_bytes
         if self.is_shadow:
-            out["cached"] = int(cache.kv_len)
+            out["cached"] = int(cache.kv_len.max())
             if self._hit_samples:
                 out.update(
                     hit_rate_mean=float(np.mean(

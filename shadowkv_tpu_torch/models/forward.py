@@ -87,9 +87,15 @@ def _tables(cos_table, sin_table, n: int):
 
 def _decode_tables(cos_table, sin_table, start: torch.Tensor, n: int):
     """The RoPE rows of positions [start, start + n), ``start`` a 0-d
-    device tensor."""
-    pos = start.long() + torch.arange(n, device=start.device)
-    return cos_table.index_select(0, pos), sin_table.index_select(0, pos)
+    device tensor ([n, half] rows), or a [B] one of per-sequence starts
+    ([B, n, half] rows; a position past the table reads its last row, as
+    JAX's clamped take does for a finished slot's overshoot)."""
+    steps = torch.arange(n, device=start.device)
+    if start.dim() == 0:
+        pos = start.long() + steps
+        return cos_table.index_select(0, pos), sin_table.index_select(0, pos)
+    pos = (start.long()[:, None] + steps).clamp(max=cos_table.shape[0] - 1)
+    return cos_table[pos], sin_table[pos]
 
 
 def check_layer_patterns(rt: RuntimeConfig, model: ModelConfig) -> None:

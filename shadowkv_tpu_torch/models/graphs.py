@@ -9,8 +9,9 @@ issues each of them from Python. A graph freezes the addresses and the
 Python values it saw at capture, so everything a step reads or writes
 lives in buffers that outlast it:
 
-- the cache, whose position (``ShadowCache.gen_len``, ``FullCache.length``)
-  is a device tensor the step advances in place;
+- the cache, whose position (``ShadowCache.gen_len``, 0-d or one per slot,
+  ``FullCache.length``) is a device tensor the step advances in place and
+  a serving loop rewrites in place (an admission, the idle-slot clamp);
 - ``StepGraphs``' token buffers: the input token ``tok`` [B], which the step
   overwrites with the next one, the step counter ``pos``, the history
   ``hist`` [cap, B] that the step writes at row ``pos``, and the
@@ -37,6 +38,7 @@ from __future__ import annotations
 
 from typing import Callable
 
+import numpy as np
 import torch
 
 from shadowkv_tpu_torch.kernels.gather import gather_chunks
@@ -58,25 +60,98 @@ def _add_counts(delta: list[int], sign: int = 1) -> None:
         setattr(fn, attr, getattr(fn, attr) + sign * d)
 
 
-class StepGraphs:
-    """The token buffers of one cache's decode steps and the captured graph
-    of each decode path over them. ``capacity`` is the number of steps the
-    cache can still take (its gen region or its max_length): a step past it
-    raises here rather than writing out of bounds on the device."""
+def _position(cache) -> torch.Tensor:
+    """The cache's position tensor: ``ShadowCache.gen_len`` or
+    ``FullCache.length``."""
+    return cache.gen_len if hasattr(cache, "gen_len") else cache.length
 
-    def __init__(self, cache, batch: int, capacity: int, device):
+
+class StepGraphs:
+    """The token buffers of one cache's decode steps, the captured graph of
+    each decode path over them, and a host record of every slot's position.
+
+    ``depth`` [B] is that record: the cache's position (``gen_len``, or the
+    full cache's ``length``) per slot, kept on the host from what the
+    engine and its caller do (a prefill, each step, an admission, the
+    idle-slot clamp), so no check reads the device. Each step books its
+    positions first and raises, rather than writing out of bounds on the
+    device, if a slot that still ``need``s positions would pass ``limit``
+    (the gen region, or the full cache's max_length). With one position
+    for the whole batch every slot needs every position; with per-slot
+    depths (``slot_depths``) a slot needs them only up to the end its
+    caller books at admission, and a finished slot that steps on to the
+    end of a decode chunk has its rows clamped on the device
+    (``cache/shadow.py``).
+
+    The position tensor is the one object every captured graph reads: it
+    is written only in place, and a step raises if the cache holds another
+    one (a graph would read a dead buffer)."""
+
+    def __init__(self, cache, batch: int, depth: int, limit: int, device):
         self.cache = cache
-        self.capacity = capacity
-        self.taken = 0
+        self.position = _position(cache)
+        self.depth = np.full(batch, depth, dtype=np.int64)
+        self.need = np.full(batch, np.iinfo(np.int64).max)
+        self.limit = limit
+        self.rows = limit - depth  # the longest run of steps
+        self.run = 0  # steps of the current run
+        self.stepped = False  # a step has run on this cache
+        self.captures = 0
         self.device = torch.device(device)
         self.tok = torch.zeros(batch, dtype=torch.int32, device=device)
         self.pos = torch.zeros(1, dtype=torch.long, device=device)
-        self.hist = torch.zeros(capacity, batch, dtype=torch.int32,
+        self.hist = torch.zeros(self.rows, batch, dtype=torch.int32,
                                 device=device)
         self.forced_val = torch.zeros_like(self.hist)
-        self.forced_on = torch.zeros(capacity, batch, dtype=torch.bool,
+        self.forced_on = torch.zeros(self.rows, batch, dtype=torch.bool,
                                      device=device)
         self._graphs: dict = {}
+
+    def take(self, qn: int = 1) -> None:
+        """Book ``qn`` positions on every slot (one step of ``qn`` tokens);
+        raise first if a slot that needs them would pass the limit."""
+        over = (self.depth < self.need) & (self.depth + qn > self.limit)
+        if over.any():
+            raise ValueError(
+                f"slot depths {self.depth.tolist()} + {qn} exceed the "
+                f"cache's {self.limit} decode positions")
+        self.depth += qn
+        self.stepped = True
+
+    def slot_depths(self) -> None:
+        """Give every slot its own depth: the cache's position becomes a
+        [B] int32 device vector (JAX serving's ``gen_len=zeros((B,))``) at
+        the present depth, which no slot needs until ``reset_slot`` books
+        its end. Only before the first step: a graph bakes in the tensor it
+        reads."""
+        if not hasattr(self.cache, "gen_len"):
+            raise ValueError("per-slot depths serve the shadow cache modes")
+        if self.stepped:
+            raise RuntimeError("per-slot depths must exist before the first "
+                               "decode step")
+        if self.position.dim() == 0:
+            self.position = self.position.expand(len(self.depth)).clone()
+            self.cache.gen_len = self.position
+        self.need[:] = 0
+
+    def reset_slot(self, slot: int, need: int) -> None:
+        """Admission into ``slot``: its depth to 0 on the device (in place)
+        and here, and the depth its request needs."""
+        self.position[slot] = 0
+        self.depth[slot] = 0
+        self.need[slot] = need
+
+    def clamp_idle(self, active, steps: int) -> None:
+        """Pin every inactive slot's depth to at most ``limit - 1 - steps``
+        so that ``steps`` more steps stay inside the region (JAX serving's
+        idle-slot clamp); in place on the device."""
+        active = np.asarray(active, bool)
+        cap = self.limit - 1 - steps
+        self.depth = np.where(active, self.depth,
+                              np.minimum(self.depth, cap))
+        pos = self.position
+        pos.copy_(torch.where(torch.as_tensor(active, device=pos.device),
+                              pos, pos.clamp(max=cap)))
 
     def begin(self, tokens: torch.Tensor, forced_val=None,
               forced_on=None) -> None:
@@ -85,12 +160,13 @@ class StepGraphs:
         default). Device inputs cost no host sync."""
         self.tok.copy_(tokens)
         self.pos.zero_()
+        self.run = 0
         self.forced_on.zero_()
         if forced_val is not None:
             k = forced_val.shape[0]
-            if k > self.capacity:
+            if k > self.rows:
                 raise ValueError(f"{k} steps exceed the run capacity "
-                                 f"{self.capacity}")
+                                 f"{self.rows}")
             self.forced_val[:k].copy_(torch.as_tensor(forced_val))
             self.forced_on[:k].copy_(torch.as_tensor(forced_on))
 
@@ -117,16 +193,20 @@ class StepGraphs:
         ``generator``'s state registered, so that every replay draws new
         numbers); later steps replay. The returned logits are the graph's
         static output: the next replay overwrites them."""
-        if self.taken >= self.capacity:
-            raise ValueError(f"the cache's {self.capacity} decode steps are "
-                             "used up")
-        self.taken += 1
+        if _position(self.cache) is not self.position:
+            raise RuntimeError("the cache's position tensor was rebound; its "
+                               "captured graphs would read a dead buffer")
+        if self.run >= self.rows:
+            raise ValueError(f"a run of more than {self.rows} steps")
+        self.take(1)
+        self.run += 1
         if self.device.type != "cuda":
             return body()
         entry = self._graphs.get(key)
         if entry is None:
             logits = body()
             self._graphs[key] = self._capture(body, generator)
+            self.captures += 1
             return logits
         graph, logits, delta = entry
         graph.replay()

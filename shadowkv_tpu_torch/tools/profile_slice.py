@@ -31,7 +31,17 @@ most device time, with the device time of the port's own kernels (A, B,
 C, D, F, G) summed apart. The full tables go to
 ``<out-dir>/profile_<mode>_<window>.txt``.
 
+``--mode serve`` profiles one serve-plain run of ``chip_smoke.py`` instead
+(``ContinuousBatcher``, 2 slots, 4 requests, gen lengths 32-64, decode
+chunks of 16 replays, fused refresh; ``serve-offload`` the same with V
+pinned on the host) and splits the serve loop's wall time
+into admissions (``ServeStats.admission_seconds``), decode chunks (the
+``decode_chunk`` calls, each ending in its host read) and the host
+bookkeeping between them (the rest), with the device idle share inside
+the decode chunks.
+
     python -m shadowkv_tpu_torch.tools.profile_slice --mode offload-fused
+    python -m shadowkv_tpu_torch.tools.profile_slice --mode serve
 """
 
 from __future__ import annotations
@@ -43,7 +53,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, record_function
 
 from shadowkv_tpu_torch.config import CacheConfig, RuntimeConfig
 from shadowkv_tpu_torch.core.sampling import sample_token
@@ -52,13 +62,19 @@ from shadowkv_tpu_torch.models.params import init_synthetic_params
 from shadowkv_tpu_torch.models.registry import llama31_8b
 
 
-def _busy_seconds(prof) -> float:
-    """Union of the device kernels' [start, end) intervals, in seconds."""
+def _busy_seconds(prof, windows=None) -> float:
+    """Union of the device kernels' [start, end) intervals, in seconds;
+    with ``windows`` ([(start, end)] in the profiler's microseconds), only
+    the parts inside them."""
     spans = sorted(
         (e.time_range.start, e.time_range.end)
         for e in prof.events()
         if e.device_type == torch.autograd.DeviceType.CUDA
+        and not getattr(e, "is_user_annotation", False)
     )
+    if windows is not None:
+        spans = sorted((max(s, a), min(e, b)) for s, e in spans
+                       for a, b in windows if s < b and e > a)
     busy, cur_s, cur_e = 0.0, None, None
     for s, e in spans:
         if cur_e is None or s > cur_e:
@@ -94,7 +110,94 @@ MODES = {
     "vs": ("shadow", dict(use_pallas=True, prefill_pattern="vs")),
     "vs-walk": ("shadow", dict(use_pallas=True, prefill_pattern="vs",
                                vs_impl="walk")),
+    "serve": ("shadow", dict(use_pallas=True, prefill_sub_batch=1)),
+    "serve-offload": ("shadow_offload",
+                      dict(use_pallas=True, prefill_sub_batch=1)),
 }
+SERVE_STEPS = 64  # the serve stream's longest gen length
+SERVE_CHUNK = 16  # decode steps per host sync
+
+
+def serve_requests(vocab: int, shared_ctx: bool, n: int, prompt_len: int,
+                   steps: int, suffix: int, seed: int = 0):
+    """``bench.py`` ``run_serve``'s stream from ``RandomState(seed)``: n
+    random prompts with gen lengths staggered from steps // 2 to steps, or
+    one shared context plus a random suffix per request, gen ``steps``."""
+    from shadowkv_tpu_torch.serving import Request
+
+    rng = np.random.RandomState(seed)
+    if shared_ctx:
+        prefix = rng.randint(1, vocab, prompt_len)
+        ids = [np.concatenate([prefix, rng.randint(1, vocab, suffix)])
+               for _ in range(n)]
+        gen_lens = [steps] * n
+    else:
+        ids = list(rng.randint(1, vocab, (n, prompt_len)))
+        gen_lens = [steps // 2 + i * (steps // 2) // max(1, n - 1)
+                    for i in range(n)]
+    return [Request(uid=i, input_ids=ids[i], gen_len=gen_lens[i],
+                    context_id=0 if shared_ctx else None,
+                    context_len=prompt_len if shared_ctx else None)
+            for i in range(n)]
+
+
+def profile_serve(eng, args, meta: dict) -> None:
+    """One serve-plain run (V on the card or on the host) under the
+    profiler: the serve loop's wall split into admissions, decode chunks
+    and host bookkeeping, and the device time inside each decode chunk."""
+    from shadowkv_tpu_torch.kernels import build
+    from shadowkv_tpu_torch.serving import ContinuousBatcher
+
+    build.library()  # the nvcc build, outside the profiled run
+    reqs = serve_requests(eng.model.vocab_size, False, 2 * args.batch,
+                          args.prompt, SERVE_STEPS, 0, args.seed)
+    chunk_walls = []
+    decode_chunk = eng.decode_chunk
+
+    def timed_chunk(*a, **k):
+        with record_function("serve_decode_chunk"):
+            t0 = time.perf_counter()
+            out = decode_chunk(*a, **k)  # ends in its tokens' host read
+            chunk_walls.append(time.perf_counter() - t0)
+        return out
+
+    eng.decode_chunk = timed_chunk
+    cb = ContinuousBatcher(eng, slots=args.batch, max_dispatch=SERVE_CHUNK)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, st = cb.run(reqs)
+        torch.cuda.synchronize()
+    windows = [(e.time_range.start, e.time_range.end) for e in prof.events()
+               if e.name == "serve_decode_chunk"
+               and e.device_type == torch.autograd.DeviceType.CPU]
+    busy = _busy_seconds(prof, windows)
+    chunks = sum(chunk_walls)
+    span = sum(b - a for a, b in windows) * 1e-6
+    print(json.dumps({
+        "window": args.mode, "wall_s": st.wall_seconds,
+        "initial_prefill_s": st.prefill_seconds - st.admission_seconds,
+        "admissions_s": st.admission_seconds, "decode_chunks_s": chunks,
+        "bookkeeping_s": st.wall_seconds - st.admission_seconds - chunks,
+        "bookkeeping_ms_per_chunk": (st.wall_seconds - st.admission_seconds
+                                     - chunks) / max(1, st.chunks) * 1e3,
+        "chunk_walls_s": chunk_walls,
+        "chunk_busy_s": [_busy_seconds(prof, [w]) for w in windows],
+        "chunk_device_busy_s": busy,
+        "chunk_idle_share": 1.0 - busy / span if span > 0 else None,
+        "decode_steps": st.decode_steps, "chunks": st.chunks,
+        "admissions": st.admissions, "completed_tokens": st.completed_tokens,
+        "served_tok_s": st.tokens_per_second,
+        "decode_tok_s": st.decode_tokens_per_second,
+        "kernels": _kernel_ms(prof), **meta,
+    }), flush=True)
+    out_dir = args.out_dir
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / f"profile_{args.mode}.txt").write_text(
+        prof.key_averages().table(sort_by="self_device_time_total",
+                                  row_limit=60))
+
+
 # the port's kernels, by fragments of their demangled or mangled names
 # (B and C are one kernel: B in the dense prefill, C in the stream one)
 KERNELS = {("RefreshArgs",): "A refresh", ("GatherArgs",): "D gather",
@@ -159,6 +262,9 @@ def main() -> None:
         1, cfg.vocab_size, (args.batch, args.prompt))
     meta = {"mode": args.mode, "prompt": args.prompt, "batch": args.batch,
             "device": torch.cuda.get_device_name(0)}
+    if args.mode.startswith("serve"):
+        profile_serve(eng, args, meta)
+        return
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     torch.cuda.synchronize()

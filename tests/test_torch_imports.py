@@ -47,6 +47,7 @@ def test_port_files_exist():
         "shadowkv_tpu_torch/core/minference.py",
         "shadowkv_tpu_torch/models/calibrate.py",
         "shadowkv_tpu_torch/models/engine.py",
+        "shadowkv_tpu_torch/serving.py",
     ):
         assert must in names
 

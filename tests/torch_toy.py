@@ -55,20 +55,35 @@ def models():
             from_jax_params(np_params, device="cpu"), ids)
 
 
-def engines(models, mode, **rt_kw):
-    """A JAX and a port engine on the same weights, sketch and settings."""
-    jcfg, jparams, tcfg, tparams, _ = models
-    kw = dict(mode=mode, max_length=PROMPT + 32, sparse_budget=128,
-              rank=RANK, chunk_size=16, outlier_chunks=4, gen_capacity=32,
-              kv_quant="int8")
-    je = JEngine(jcfg, JCache(**kw), JRuntime(prefill_block_q=128, **rt_kw),
-                 jparams)
+def _cache_kw(mode, kv_quant="int8"):
+    return dict(mode=mode, max_length=PROMPT + 32, sparse_budget=128,
+                rank=RANK, chunk_size=16, outlier_chunks=4, gen_capacity=32,
+                kv_quant=kv_quant)
+
+
+def _sketch(jcfg):
+    """JAX draws its sketch from PRNGKey(7) inside lowrank_kv_factors; the
+    port is handed the same one."""
     d = jcfg.num_kv_heads * jcfg.head_dim
     omega = jax.random.normal(jax.random.PRNGKey(7), (d, min(d, RANK + 32)),
                               jnp.float32)
-    te = TEngine(tcfg, TCache(**kw), TRuntime(**rt_kw), tparams, device="cpu",
-                 sketch=torch.from_numpy(np.array(omega)))
-    return je, te
+    return torch.from_numpy(np.array(omega))
+
+
+def port_engine(models, mode, kv_quant="int8", **rt_kw):
+    """The port's engine of ``engines`` alone (no JAX engine)."""
+    jcfg, _, tcfg, tparams, _ = models
+    return TEngine(tcfg, TCache(**_cache_kw(mode, kv_quant)),
+                   TRuntime(**rt_kw), tparams, device="cpu",
+                   sketch=_sketch(jcfg))
+
+
+def engines(models, mode, kv_quant="int8", **rt_kw):
+    """A JAX and a port engine on the same weights, sketch and settings."""
+    jcfg, jparams = models[:2]
+    je = JEngine(jcfg, JCache(**_cache_kw(mode, kv_quant)),
+                 JRuntime(prefill_block_q=128, **rt_kw), jparams)
+    return je, port_engine(models, mode, kv_quant, **rt_kw)
 
 
 def compare(models, mode, **rt_kw):
