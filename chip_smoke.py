@@ -114,6 +114,35 @@ to the CPU):
    run's shapes (requests 0 and 2 of serve-plain, 2 of serve-ctx) whose
    greedy tokens must equal the served ones. Served, decode-only and
    static tok/s and their ratio are printed.
+16. The entry points at full width (the slice's params freed first; each
+   ``LLM`` makes its own weights and is freed before the next; no local
+   tokenizer, so token ids in and out):
+   - ``entry/e2e.py::measure`` through ``LLM`` on synthetic weights: the
+     full baseline, then shadow (chunk 8, budget 2048, the XLA-gather
+     branch), batch 2 each, 32768-token seeded rows, 64 tokens at
+     temperature 0.6; B launched once per layer per prefill and nothing
+     else; baseline and shadow tok/s, the speedup and ``prefill_s``; an
+     ``Engine`` built from the same seed's params and the shadow LLM's
+     configs gives the LLM's tokens;
+   - ``LLM(weight_quant="int8")`` with the headline cache (int8 stores,
+     chunk 16, fused refresh): A and B launches exact, decode tok/s and
+     peak GiB beside the bf16-weight shadow slice run, last-token prefill
+     logits of a 4096-token prompt within 30 % relative RMS of the
+     bf16-weight ones (``INT8_LOGIT_RMS_BOUND``);
+   - context checkpoints at 32768 x 2 with that LLM: prefill, one step,
+     ``save_context``, 32 tokens continued (the uninterrupted run); a
+     fresh LLM and a ``shadow_offload`` LLM (V loaded straight into the
+     pinned host store, A reading it) each ``load_context`` and continue
+     to the same tokens, with A's launches exact; file size, save and
+     load seconds beside ``prefill_s``;
+   - HF loading: a 2-layer full-width Llama-3.1 checkpoint written here
+     (``config.json``, two bf16 safetensors shards in HF's [out, in]
+     layout, an index) and loaded by ``LLM(model_dir=...)`` through the
+     port's safetensors reader, bf16 and int8: the config equals the
+     registry's at 2 layers, the params are bit-equal to the written
+     arrays, the prefill logits equal an ``Engine``'s over those arrays,
+     and the int8 load equals ``quantize_params`` of the bf16 one; load
+     seconds and GB/s.
 
 The line before the card line is a JSON object with every kernel's
 numbers; the last line is ``{"ok": true, "device": {...}}``.
@@ -1869,6 +1898,374 @@ def check_toy_serving(torch) -> None:
                                  "from the oracle runs")
 
 
+# --- entry points (models/llm.py, entry/e2e.py, context checkpoints, HF) ---
+
+ENTRY_NAME = "meta-llama/Llama-3.1-8B-Instruct"  # registry: llama31_8b
+ENTRY_CONT = 32  # greedy tokens continued from a loaded context
+LOGITS_LEN = 4096  # the one-sequence prompt of the logit comparisons
+# int8 against bf16 weights: the relative RMS error of the last-token
+# prefill logits. On synthetic N(0, 0.02) weights it grows with the width
+# at a fixed depth: 0.039 / 0.058 / 0.110 at widths 512 / 1024 / 2048 and
+# 32 layers (tools/wquant_error.py on the CPU), 1.5-1.9x a doubling, so
+# ~0.16-0.21 at 4096 (the card, later: 0.049 / 0.061 / 0.118 / 0.262 at
+# 512-4096, vocab 4096). The bound leaves room above that and stays far
+# below the ~1.4 of unrelated logits (a wrong scale axis or layout).
+INT8_LOGIT_RMS_BOUND = 0.30
+HF_LAYERS = 2  # the HF file's depth (full width; 32 layers would be 16 GB)
+
+
+def _entry_dir():
+    """A scratch directory inside the checkout's gitignored build dir."""
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                     "shadowkv_tpu_torch", "build", "entry")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    return d
+
+
+def _reset_counts(counters) -> None:
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+
+
+def _read_counts(counters) -> dict:
+    return {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
+
+
+def _expect(label: str, got: dict, **want) -> None:
+    full = dict.fromkeys(got, 0)
+    full.update(want)
+    if got != full:
+        raise AssertionError(f"{label}: kernel launches {got}, expected {full}")
+
+
+def _release(torch) -> None:
+    """Return the memory of objects the caller has just deleted."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _rel_rms(torch, a, b) -> float:
+    return float(torch.linalg.vector_norm((a - b).float())
+                 / torch.linalg.vector_norm(b.float()))
+
+
+def run_e2e(torch, cfg, counters) -> tuple[dict, object]:
+    """``entry/e2e.py::measure`` through ``LLM`` on synthetic weights (no
+    model_dir): full baseline then shadow (chunk 8, the XLA-gather branch:
+    e2e's defaults, budget 2048), batch 2 each, PROMPT_LEN seeded token
+    rows, GEN_LEN tokens at temperature 0.6. Then an ``Engine`` built
+    directly from the same seed's params and the shadow LLM's configs must
+    give the LLM's tokens. Returns (numbers, that engine's bf16 prefill
+    logits of a LOGITS_LEN prompt)."""
+    import numpy as np
+
+    from shadowkv_tpu_torch.entry import e2e
+    from shadowkv_tpu_torch.models.engine import Engine
+    from shadowkv_tpu_torch.models.llm import SYNTHETIC_SEED
+    from shadowkv_tpu_torch.models.params import init_synthetic_params
+
+    rows = np.random.RandomState(SEED).randint(1, cfg.vocab_size,
+                                               (BATCH, PROMPT_LEN))
+    runs = {}
+    _reset_counts(counters)
+    res = e2e.measure(ENTRY_NAME, rows, rows, sparse_budget=2048,
+                      gen_len=GEN_LEN, temperature=0.6, device=DEVICE,
+                      datalen=f"{PROMPT_LEN // 1024}k", runs=runs)
+    launches = _read_counts(counters)
+    # B once per layer in each of the two prefills; the XLA-gather branch
+    # and the full decode launch none of the port's kernels.
+    _expect("e2e", launches, prefill_attention=2 * cfg.num_layers)
+    sh = runs["shadowkv"]
+    res.update(prefill_s={k: r["stats"].prefill_seconds
+                          for k, r in runs.items()}, launches=launches)
+    gen = torch.Generator(device=DEVICE).manual_seed(SYNTHETIC_SEED)
+    params = init_synthetic_params(cfg, gen, device=DEVICE)
+    eng = Engine(sh["model"], sh["cache"], sh["rt"], params, device=DEVICE)
+    toks, _ = eng.batch_generate(rows, gen_len=GEN_LEN, temperature=0.6)
+    same = np.array_equal(toks, sh["out"])
+    res["llm_eq_engine_tokens"] = same
+    log(f"[entry e2e] {json.dumps(res)}")
+    if not same:
+        raise AssertionError("e2e: the shadow LLM's tokens differ from an "
+                             "Engine's on the same params, configs and seed")
+    logits = eng.prefill(rows[:1, :LOGITS_LEN])[0]
+    del eng, params
+    _release(torch)
+    return res, logits
+
+
+def _headline_llm(mode: str = "shadow"):
+    from shadowkv_tpu_torch.models.llm import LLM
+
+    return LLM(ENTRY_NAME, batch_size=BATCH, max_length=PROMPT_LEN + 256,
+               attn_mode=mode, sparse_budget=2048, rank=160, chunk_size=16,
+               kv_quant="int8", use_pallas=True, weight_quant="int8",
+               device=DEVICE)
+
+
+def run_int8_and_context(torch, cfg, counters, bf16_logits,
+                         shadow_run: dict) -> dict:
+    """The headline cache with int8 weights through ``LLM``: batch_generate
+    (A and B launches exact), decode tok/s and peak GiB beside the slice's
+    bf16-weight shadow run, prefill logits held to the bf16-weight ones.
+    Then context checkpoints at PROMPT_LEN x BATCH: prefill + 1 greedy
+    step, ``save_context``, ENTRY_CONT tokens continued on the same LLM
+    (the uninterrupted run); a fresh LLM loads the file and continues
+    (A), and a ``shadow_offload`` LLM loads it, V going to the pinned host
+    store, and continues (A reading host V): both give the uninterrupted
+    tokens."""
+    import numpy as np
+
+    rows = np.random.RandomState(SEED).randint(1, cfg.vocab_size,
+                                               (BATCH, PROMPT_LEN))
+    llm = _headline_llm()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts(counters)
+    toks, tok_s = llm.batch_generate(rows, gen_len=GEN_LEN, temperature=0.0)
+    launches = _read_counts(counters)
+    _expect("int8 weights", launches, prefill_attention=cfg.num_layers,
+            sparse_refresh=cfg.num_layers * (GEN_LEN + WARMUP_STEPS))
+    res = dict(decode_tok_s=tok_s, peak_gib=torch.cuda.max_memory_allocated()
+               / 2**30, prefill_s=llm.stats.prefill_seconds,
+               launches=launches,
+               bf16_decode_tok_s=shadow_run["decode_tok_s"],
+               bf16_peak_gib=shadow_run["peak_gib"])
+    if toks.shape != (BATCH, GEN_LEN):
+        raise AssertionError(f"int8 weights: tokens {toks.shape}")
+    lq = llm.engine.prefill(rows[:1, :LOGITS_LEN])[0]
+    res["logit_rel_rms"] = _rel_rms(torch, lq, bf16_logits)
+    res["logit_argmax_equal"] = bool(
+        (lq.argmax(-1) == bf16_logits.argmax(-1)).all())
+    log(f"[entry int8 weights] {json.dumps(res)}")
+    if not res["logit_rel_rms"] < INT8_LOGIT_RMS_BOUND:
+        raise AssertionError(f"int8 weights: prefill logits {res['logit_rel_rms']:.4f}"
+                             f" relative RMS from bf16 weights, bound "
+                             f"{INT8_LOGIT_RMS_BOUND}")
+
+    path = os.path.join(_entry_dir(), "ctx.npz")
+    head = llm.generate(rows, gen_len=2)
+    prefill_s = llm.stats.prefill_seconds
+    t0 = time.perf_counter()
+    llm.save_context(path)
+    save_s = time.perf_counter() - t0
+    want = llm.generate(head[:, 1:], gen_len=ENTRY_CONT, cont=True)
+    ctx = dict(file_gib=os.path.getsize(path) / 2**30, save_s=save_s,
+               prefill_s=prefill_s)
+    del llm
+    _release(torch)
+    for label, mode, kernel in (("shadow", "shadow", "sparse_refresh"),
+                                ("offload", "shadow_offload",
+                                 "sparse_refresh_host_v")):
+        llm = _headline_llm(mode)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        llm.load_context(path)
+        torch.cuda.synchronize()
+        ctx[f"load_s_{label}"] = time.perf_counter() - t0
+        _reset_counts(counters)
+        got = llm.generate(head[:, 1:], gen_len=ENTRY_CONT, cont=True)
+        launches = _read_counts(counters)
+        want_counts = {kernel: cfg.num_layers * ENTRY_CONT}
+        if mode == "shadow_offload":
+            want_counts["sparse_refresh"] = cfg.num_layers * ENTRY_CONT
+        _expect(f"context {label}", launches, **want_counts)
+        ctx[f"equal_{label}"] = bool(np.array_equal(got, want))
+        del llm
+        _release(torch)
+        if not ctx[f"equal_{label}"]:
+            raise AssertionError(f"context {label}: the resumed tokens "
+                                 f"{got.tolist()} differ from the "
+                                 f"uninterrupted {want.tolist()}")
+    os.remove(path)
+    log(f"[entry context] {json.dumps(ctx)}")
+    res["context"] = ctx
+    return res
+
+
+def _write_safetensors(torch, path: str, tensors: dict) -> int:
+    """A safetensors file of bf16 CUDA tensors (a JSON header, then the raw
+    little-endian bytes); returns its size."""
+    header, offset, blobs = {}, 0, []
+    for name, t in tensors.items():
+        a = t.contiguous().cpu().view(torch.int16).numpy()
+        header[name] = {"dtype": "BF16", "shape": list(t.shape),
+                        "data_offsets": [offset, offset + a.nbytes]}
+        offset += a.nbytes
+        blobs.append(a)
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(len(head).to_bytes(8, "little"))
+        f.write(head)
+        for a in blobs:
+            f.write(a.data)
+    return 8 + len(head) + offset
+
+
+def run_hf_load(torch, cfg) -> dict:
+    """HF checkpoint loading at full width, depth cut to HF_LAYERS: this
+    script writes ``config.json`` (LlamaForCausalLM, llama3 rope scaling)
+    and two bf16 safetensors shards in HF's [out, in] layout with an index;
+    ``LLM(model_dir=...)`` loads them through the port's reader. Checks: the
+    config equals the registry's at that depth, every param bit-equal to
+    the written arrays (transposed and fused), the prefill logits equal to
+    an ``Engine``'s over params built from the arrays, and the int8 load
+    equal to ``quantize_params`` of the bf16 load."""
+    import dataclasses
+
+    import numpy as np
+
+    from shadowkv_tpu_torch.config import CacheConfig, RuntimeConfig
+    from shadowkv_tpu_torch.core.layers import LayerParams, ModelParams
+    from shadowkv_tpu_torch.core.wquant import QTensor, quantize_params
+    from shadowkv_tpu_torch.models.engine import Engine
+    from shadowkv_tpu_torch.models.llm import LLM, load_tokenizer
+    from shadowkv_tpu_torch.models.registry import llama31_8b
+
+    want_cfg = dataclasses.replace(llama31_8b(ENTRY_NAME),
+                                   num_layers=HF_LAYERS)
+    d, kv, i = cfg.hidden_size, cfg.kv_size, cfg.intermediate_size
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
+
+    def rnd(*shape, mean=0.0):
+        t = torch.empty(shape, dtype=torch.bfloat16, device=DEVICE)
+        return t.normal_(mean, 0.02, generator=gen)
+
+    hf = {"model.embed_tokens.weight": rnd(cfg.vocab_size, d)}
+    for layer in range(HF_LAYERS):
+        p = f"model.layers.{layer}."
+        hf.update({
+            p + "input_layernorm.weight": rnd(d, mean=1.0),
+            p + "self_attn.q_proj.weight": rnd(cfg.q_size, d),
+            p + "self_attn.k_proj.weight": rnd(kv, d),
+            p + "self_attn.v_proj.weight": rnd(kv, d),
+            p + "self_attn.o_proj.weight": rnd(d, cfg.q_size),
+            p + "post_attention_layernorm.weight": rnd(d, mean=1.0),
+            p + "mlp.gate_proj.weight": rnd(i, d),
+            p + "mlp.up_proj.weight": rnd(i, d),
+            p + "mlp.down_proj.weight": rnd(d, i),
+        })
+    hf["model.norm.weight"] = rnd(d, mean=1.0)
+    hf["lm_head.weight"] = rnd(cfg.vocab_size, d)
+    out_dir = _entry_dir()
+    t0 = time.perf_counter()
+    names = list(hf)
+    shards = {"model-00001-of-00002.safetensors": names[:len(names) // 2],
+              "model-00002-of-00002.safetensors": names[len(names) // 2:]}
+    total = 0
+    for shard, keys in shards.items():
+        total += _write_safetensors(torch, os.path.join(out_dir, shard),
+                                    {k: hf[k] for k in keys})
+    with open(os.path.join(out_dir, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": total}, "weight_map": {
+            k: shard for shard, keys in shards.items() for k in keys}}, f)
+    with open(os.path.join(out_dir, "config.json"), "w") as f:
+        json.dump({
+            "architectures": ["LlamaForCausalLM"],
+            "hidden_size": d, "intermediate_size": i,
+            "num_hidden_layers": HF_LAYERS,
+            "num_attention_heads": cfg.num_heads,
+            "num_key_value_heads": cfg.num_kv_heads,
+            "head_dim": cfg.head_dim, "vocab_size": cfg.vocab_size,
+            "rope_theta": cfg.rope_theta, "rms_norm_eps": cfg.rms_norm_eps,
+            "max_position_embeddings": cfg.max_position_embeddings,
+            "rope_scaling": cfg.rope_scaling_dict,
+            "tie_word_embeddings": False, "torch_dtype": "bfloat16"}, f)
+    write_s = time.perf_counter() - t0
+
+    def stack(fn):
+        return torch.stack([fn(f"model.layers.{n}.") for n in
+                            range(HF_LAYERS)])
+
+    want = ModelParams(
+        embed=hf["model.embed_tokens.weight"],
+        layers=LayerParams(
+            attn_norm=stack(lambda p: hf[p + "input_layernorm.weight"]),
+            wqkv=stack(lambda p: torch.cat(
+                [hf[p + f"self_attn.{x}_proj.weight"].T for x in "qkv"], 1)),
+            bqkv=None,
+            wo=stack(lambda p: hf[p + "self_attn.o_proj.weight"].T),
+            mlp_norm=stack(
+                lambda p: hf[p + "post_attention_layernorm.weight"]),
+            w_gate_up=stack(lambda p: torch.cat(
+                [hf[p + "mlp.gate_proj.weight"].T,
+                 hf[p + "mlp.up_proj.weight"].T], 1)),
+            w_down=stack(lambda p: hf[p + "mlp.down_proj.weight"].T)),
+        final_norm=hf["model.norm.weight"],
+        lm_head=hf["lm_head.weight"].T.contiguous(),
+    )
+    del hf
+    res = dict(layers=HF_LAYERS, file_gib=total / 2**30, write_s=write_s)
+    load_tokenizer(out_dir, ENTRY_NAME)  # pay any transformers import here
+    llms = {}
+    for quant in ("none", "int8"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        llms[quant] = LLM(ENTRY_NAME, max_length=LOGITS_LEN + 64,
+                          model_dir=out_dir, weight_quant=quant,
+                          device=DEVICE)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        res[f"load_s_{quant}"] = sec
+        res[f"load_gb_s_{quant}"] = total / sec / 1e9
+    llm = llms["none"]
+    got_cfg = dataclasses.asdict(llm.config)
+    res["config_eq_registry"] = got_cfg == dataclasses.asdict(want_cfg)
+
+    def leaves(p):
+        out = []
+        for x in (p.embed, *p.layers, p.final_norm, p.lm_head):
+            if isinstance(x, QTensor):
+                out += [x.q, x.s]
+            elif x is not None:
+                out.append(x)
+        return out
+
+    got = llm.engine.params
+    res["params_bit_equal"] = all(
+        a.dtype == b.dtype and torch.equal(a, b)
+        for a, b in zip(leaves(got), leaves(want)))
+    res["int8_eq_quantize_params"] = all(
+        torch.equal(a, b) for a, b in zip(
+            leaves(llms["int8"].engine.params), leaves(quantize_params(got))))
+    eng = Engine(want_cfg, llm.cache_cfg, RuntimeConfig(), want,
+                 device=DEVICE)
+    ids = np.random.RandomState(SEED).randint(1, cfg.vocab_size,
+                                              (1, LOGITS_LEN))
+    res["logits_eq_engine"] = bool(torch.equal(
+        llm.engine.prefill(ids)[0], eng.prefill(ids)[0]))
+    log(f"[entry hf] {json.dumps(res)}")
+    del llm, llms, eng, want, got
+    _release(torch)
+    shutil.rmtree(out_dir)
+    bad = [k for k in ("config_eq_registry", "params_bit_equal",
+                       "int8_eq_quantize_params", "logits_eq_engine")
+           if not res[k]]
+    if bad:
+        raise AssertionError(f"HF loading: {bad} failed")
+    return res
+
+
+def run_entry_points(torch, cfg, shadow_run: dict) -> dict:
+    """The entry-points phase at full width; each LLM holds its own
+    weights and is freed before the next."""
+    counters = _counters()
+    t0 = time.perf_counter()
+    e2e_res, bf16_logits = run_e2e(torch, cfg, counters)
+    int8_res = run_int8_and_context(torch, cfg, counters, bf16_logits,
+                                    shadow_run)
+    del bf16_logits
+    hf_res = run_hf_load(torch, cfg)
+    out = dict(e2e=e2e_res, int8=int8_res, hf=hf_res,
+               seconds=time.perf_counter() - t0)
+    log(f"[entry] phase {out['seconds']:.1f} s")
+    return out
+
+
 def check_offload_twins(torch, runs: dict) -> None:
     """Each offload run against its HBM twin: the same V bytes in another
     place, so the same tokens and cached ids; a device cache smaller by
@@ -1899,6 +2296,9 @@ def main() -> int:
     os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR",
                           os.path.join(build_dir, "inductor"))
     os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(build_dir, "triton"))
+    # The LLM looks for a tokenizer; it must never ask the network.
+    os.environ["HF_HUB_OFFLINE"] = "1"
+    os.environ["TRANSFORMERS_OFFLINE"] = "1"
     import torch
 
     if not torch.cuda.is_available():
@@ -1956,6 +2356,9 @@ def main() -> int:
     run_auto(torch, cfg, params)
     check_toy_serving(torch)
     serve = run_serving(torch, cfg, params)
+    del params  # each LLM of the entry-points phase holds its own weights
+    _release(torch)
+    entry_points = run_entry_points(torch, cfg, runs["shadow"])
     # Each kernel's launches come from the run of the path that uses it.
     home = {"sparse_refresh": "shadow", "prefill_attention": "shadow",
             "sparse_refresh_host_v": "offload-fused",
@@ -1978,6 +2381,18 @@ def main() -> int:
         f"{r['static_tok_s']:.2f} ({r['served_over_static']:.3f}x)"
         for k, r in serve.items())
         + f"; total {time.perf_counter() - t_start:.1f} s")
+    e, q = entry_points["e2e"], entry_points["int8"]
+    c, h = q["context"], entry_points["hf"]
+    log(f"[summary] entry points: e2e at {PROMPT_LEN} x {BATCH} baseline "
+        f"{e['baseline_tokens_per_sec']} / shadow "
+        f"{e['shadowkv_tokens_per_sec']} tok/s = {e['speedup']}x (prefill_s "
+        f"{e['prefill_s']}); int8 weights {q['decode_tok_s']:.2f} tok/s, peak "
+        f"{q['peak_gib']:.2f} GiB against bf16 {q['bf16_decode_tok_s']:.2f} "
+        f"tok/s, {q['bf16_peak_gib']:.2f} GiB; context {c['file_gib']:.3f} "
+        f"GiB saved in {c['save_s']:.2f} s, loaded in {c['load_s_shadow']:.2f}"
+        f" s (host V {c['load_s_offload']:.2f} s) against prefill_s "
+        f"{c['prefill_s']:.2f}; HF load {h['load_s_none']:.2f} s "
+        f"({h['load_gb_s_none']:.2f} GB/s); phase {entry_points['seconds']:.1f} s")
     print(json.dumps({"kernels": list(entries.values())}))
     print(facts["smi"])
     print(json.dumps({"ok": True, "device": {

@@ -19,8 +19,11 @@ fields the JAX package has for the paths this port serves:
   ``vs_impl="tile"``, kernel F, or ``"walk"``, kernel G; uniform
   ``minference_patterns`` or per-layer ``minference_layer_patterns``).
 
-Fields of paths the port does not serve yet (parallelism, int8 weights,
-approximate top-k) are left out, so passing one is a ``TypeError``. Where a
+``weight_quant`` (``"none"`` | ``"int8"``) records whether the params are
+int8 ``QTensor`` leaves (``core/wquant.py``); as in JAX it is
+informational, the params decide. Fields of paths the port does not serve
+yet (parallelism, approximate top-k) are left out, so passing one is a
+``TypeError``. Where a
 field takes a value of an unported path, ``check_served`` raises
 ``NotImplementedError`` naming the ROADMAP.md item that ports it:
 ``vs_sim`` (§1 'MInference pattern simulation'), ``decode_segmented=True``
@@ -210,6 +213,10 @@ class RuntimeConfig:
     # them names their ROADMAP item instead of a TypeError.
     decode_segmented: Optional[bool] = None
     offload_prefill_segments: int = 1
+    # Weight-only quantization of the dense path ('none' | 'int8':
+    # per-output-channel QTensor leaves, core/wquant.py). Informational,
+    # as in JAX: the params' leaves decide; LLM and the loaders set both.
+    weight_quant: str = "none"
 
     def check_served(self, cache: CacheConfig) -> None:
         """Raise for settings of paths this port does not serve yet, and
@@ -217,6 +224,8 @@ class RuntimeConfig:
         if self.prefill_pattern not in ("dense", "dense-splash", "stream",
                                         "vs"):
             raise ValueError(f"unknown prefill_pattern {self.prefill_pattern!r}")
+        if self.weight_quant not in ("none", "int8"):
+            raise ValueError(f"unknown weight_quant {self.weight_quant!r}")
         if self.vs_impl not in ("tile", "walk"):
             raise ValueError(f"unknown vs_impl {self.vs_impl!r}")
         if self.vs_sim is not None:

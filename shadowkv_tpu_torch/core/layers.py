@@ -3,8 +3,10 @@
 
 Parameters for all layers are stacked along a leading layer axis, with the
 JAX package's leaf names and [in, out] matmul layout, so weights carry over
-leaf by leaf (``models/params.py::from_jax_params``). Plain products stay
-``torch.matmul``, as the JAX package leaves them to XLA.
+leaf by leaf (``models/params.py::from_jax_params``). A matmul leaf may be
+an int8 ``QTensor`` (``core/wquant.py``); every product goes through
+``wquant.mat`` and stays ``torch.matmul``, as the JAX package leaves it to
+XLA.
 """
 
 from __future__ import annotations
@@ -14,24 +16,26 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from shadowkv_tpu_torch.core.wquant import QTensor, Weight, mat
+
 
 class LayerParams(NamedTuple):
     """Weights of the transformer blocks, stacked [L, ...]."""
 
     attn_norm: torch.Tensor  # [D]
-    wqkv: torch.Tensor  # [D, (H + 2K) * Dh]
+    wqkv: Weight  # [D, (H + 2K) * Dh]
     bqkv: Optional[torch.Tensor]  # [(H + 2K) * Dh] or None
-    wo: torch.Tensor  # [H * Dh, D]
+    wo: Weight  # [H * Dh, D]
     mlp_norm: torch.Tensor  # [D]
-    w_gate_up: torch.Tensor  # [D, 2 * I]
-    w_down: torch.Tensor  # [I, D]
+    w_gate_up: Weight  # [D, 2 * I]
+    w_down: Weight  # [I, D]
 
 
 class ModelParams(NamedTuple):
-    embed: torch.Tensor  # [V, D]
+    embed: Weight  # [V, D] (row-quantized when a QTensor)
     layers: LayerParams  # leaves stacked [L, ...]
     final_norm: torch.Tensor  # [D]
-    lm_head: torch.Tensor  # [D, V]
+    lm_head: Weight  # [D, V]
 
     def to(self, device) -> "ModelParams":
         return ModelParams(
@@ -45,7 +49,10 @@ class ModelParams(NamedTuple):
 
     def layer(self, i: int) -> LayerParams:
         """Layer ``i``'s weights (views of the stacked tensors)."""
-        return LayerParams(*(None if t is None else t[i] for t in self.layers))
+        return LayerParams(*(
+            None if t is None else t.layer(i) if isinstance(t, QTensor)
+            else t[i] for t in self.layers
+        ))
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
@@ -65,7 +72,7 @@ def qkv_proj(
     """Fused QKV projection of normed x [B, S, D] -> q [B, S, H, Dh],
     k/v [B, S, K, Dh]."""
     b, s = x.shape[:2]
-    qkv = torch.matmul(x, layer.wqkv)
+    qkv = mat(x, layer.wqkv)
     if layer.bqkv is not None:
         qkv = qkv + layer.bqkv.to(qkv.dtype)
     q_size = num_heads * head_dim
@@ -81,11 +88,11 @@ def qkv_proj(
 def o_proj(attn_out: torch.Tensor, layer: LayerParams) -> torch.Tensor:
     """[B, S, H, Dh] -> [B, S, D]."""
     b, s = attn_out.shape[:2]
-    return torch.matmul(attn_out.reshape(b, s, -1), layer.wo)
+    return mat(attn_out.reshape(b, s, -1), layer.wo)
 
 
 def swiglu_mlp(x: torch.Tensor, layer: LayerParams) -> torch.Tensor:
     """SwiGLU MLP with the fused gate/up projection (silu in f32)."""
-    gate, up = torch.chunk(torch.matmul(x, layer.w_gate_up), 2, dim=-1)
+    gate, up = torch.chunk(mat(x, layer.w_gate_up), 2, dim=-1)
     hidden = F.silu(gate.float()).to(x.dtype) * up
-    return torch.matmul(hidden, layer.w_down)
+    return mat(hidden, layer.w_down)

@@ -1,0 +1,1 @@
+"""entry of the PyTorch/CUDA port (see the package docstring)."""

@@ -23,6 +23,7 @@ import torch
 
 from shadowkv_tpu_torch.config import ModelConfig
 from shadowkv_tpu_torch.core import rope as rope_lib
+from shadowkv_tpu_torch.core import wquant
 from shadowkv_tpu_torch.core.attention import causal_prefill_attention
 from shadowkv_tpu_torch.core.layers import ModelParams
 from shadowkv_tpu_torch.core.minference import minference_prefill
@@ -51,14 +52,14 @@ def calibrate_patterns(
     matrix, [n_candidates, H] averaged or [L, n_candidates, H]). Runs on
     the device of ``params``; per-layer candidates must avoid
     block_sparse."""
-    dev = params.embed.device
+    dev = params.final_norm.device
     ids = torch.as_tensor(np.asarray(input_ids), dtype=torch.long,
                           device=dev)[None]
     s = ids.shape[1]
     h = model.num_heads
     cos, sin = rope_lib.compute_cos_sin(model, s, dtype=torch.float32,
                                         device=dev)
-    x = params.embed[ids]
+    x = wquant.take_rows(params.embed, ids, model.dtype)
     layer_errs = np.zeros((model.num_layers, len(candidates), h))
     for layer in range(model.num_layers):
         lp = params.layer(layer)

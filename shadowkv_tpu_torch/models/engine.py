@@ -41,8 +41,12 @@ Decode reads the host store in place through the fused refresh kernel
 copy enters the decode step. An admission prefills straight into its slot
 of the live store, and a snapshot is one slot of it copied to a pinned
 tensor. Not ported (ROADMAP.md §1 'Host offload, rest'): the
-``HostVStore`` io_callback path, the layer-segmented offload prefill and
-saving or loading an offloaded store.
+``HostVStore`` io_callback path and the layer-segmented offload prefill.
+
+Context checkpoints (``save_state`` / ``load_state``,
+``utils/checkpoint.py``) write the live shadow cache to one file and load
+it as the engine's live cache, V on the card or in the host store
+whichever way it was saved; ``generate(cont=True)`` then continues it.
 """
 
 from __future__ import annotations
@@ -61,6 +65,7 @@ from shadowkv_tpu_torch.core.layers import ModelParams
 from shadowkv_tpu_torch.core.sampling import sample_token
 from shadowkv_tpu_torch.models import forward
 from shadowkv_tpu_torch.models.graphs import StepGraphs
+from shadowkv_tpu_torch.utils import checkpoint
 
 
 @dataclasses.dataclass
@@ -598,6 +603,63 @@ class Engine:
         host V store (JAX ``set_host_slot_rows``)."""
         self._host_store()[:, slot:slot + 1].copy_(rows)
 
+    # -- context checkpoints (utils/checkpoint.py) ----------------------------
+
+    def save_state(self, path: str) -> None:
+        """Write the live shadow cache (after a prefill, or mid-generation)
+        to ``path``; ``load_state`` in this or another engine resumes it."""
+        if not self.is_shadow:
+            raise ValueError("save_state serves the shadow cache modes")
+        if self._cache is None:
+            raise ValueError("save_state needs a prefilled cache: call "
+                             "prefill() or generate() first")
+        checkpoint.save_shadow_state(self._cache, path)
+
+    def load_state(self, path: str) -> None:
+        """Load a ``save_state`` file as the live cache; afterwards
+        ``generate(..., cont=True)`` continues that context. The V store
+        lands where this engine keeps it (the card, or the host store: a
+        file saved with V on the card loads into a ``shadow_offload``
+        engine without passing through device memory, and the reverse).
+        The layout must match this engine's cache config (``_check_layout``),
+        the shapes its model. The old cache's graphs are dropped and the
+        slots' host-side depths are rebuilt from the loaded ``gen_len``."""
+        if not self.is_shadow:
+            raise ValueError("load_state serves the shadow cache modes")
+        self._cache = None
+        self._steps = None
+        cache = checkpoint.load_shadow_state(
+            path, self.device, v_on_host=self.v_on_host,
+            check=self._check_layout)
+        m = self.model
+        l, b, kh, _, dh = cache.k_buf.shape
+        if (l, kh, dh) != (m.num_layers, m.num_kv_heads, m.head_dim):
+            raise ValueError(
+                f"checkpoint cache [L {l}, K {kh}, Dh {dh}] does not match "
+                f"this engine's model [L {m.num_layers}, K "
+                f"{m.num_kv_heads}, Dh {m.head_dim}]")
+        self._cache = cache
+        self._hit_prev_ids = None
+        depth = cache.gen_len.cpu().numpy().astype(np.int64)
+        self._steps = StepGraphs(cache, b, depth, self.cache_cfg.gen_capacity,
+                                 self.device)
+
+    def _check_layout(self, lo: ShadowLayout) -> None:
+        """Refuse a checkpoint whose static layout differs from this engine's
+        cache config: decoding it would read out of place."""
+        cc = self.cache_cfg
+        expect = {"chunk_size": cc.chunk_size, "select_sets": cc.select_sets,
+                  "rank": cc.rank, "gen_capacity": cc.gen_capacity,
+                  "quant": cc.kv_quant}
+        got = {k: getattr(lo, k) for k in expect}
+        if got != expect:
+            raise ValueError(f"checkpoint layout does not match this engine: "
+                             f"{got} != {expect}")
+        if lo.prefill_len > cc.max_length:
+            raise ValueError(f"checkpoint prefill_len {lo.prefill_len} "
+                             f"exceeds max_length {cc.max_length} (RoPE "
+                             "tables too short)")
+
     # -- observability ------------------------------------------------------
 
     def kv_stats(self) -> dict:
@@ -626,7 +688,19 @@ class Engine:
         out["device_bytes"] = sum(bytes_by_field.values())
         out["host_bytes"] = host_bytes
         if self.is_shadow:
-            out["cached"] = int(cache.kv_len.max())
+            m = self.model
+            cached = int(cache.kv_len.max())
+            bytes_per = 4 if m.dtype == torch.float32 else 2
+            full_equiv = (2 * m.num_layers * cache.k_buf.shape[1]
+                          * m.num_kv_heads * max(cached, 1) * m.head_dim
+                          * bytes_per)
+            out.update(
+                sparse_budget=cc.sparse_budget, chunk_size=cc.chunk_size,
+                rank=cc.rank, cached=cached, local_chunks=cc.local_chunks,
+                outlier_chunks=cc.resolved_outlier_chunks(),
+                full_equivalent_bytes=full_equiv,
+                hbm_reduction=full_equiv / max(1, out["device_bytes"]),
+            )
             if self._hit_samples:
                 out.update(
                     hit_rate_mean=float(np.mean(
@@ -643,6 +717,32 @@ class Engine:
         else:
             out["cached"] = int(cache.length)
         return out
+
+    def print_kv_stats(self) -> None:
+        """One line of ``kv_stats``: the live cache's bytes by field, device
+        and host GiB and, for a shadow cache, the reduction against a full
+        cache of the same context."""
+        s = self.kv_stats()
+        if not s.get("bytes_by_field"):
+            print(f"[KV] mode={s['mode']}: no live cache (prefill first)")
+            return
+        gib = 2.0**30
+        if not self.is_shadow:
+            print(f"[KV] full | cached {s['cached']} | device "
+                  f"{s['device_bytes'] / gib:.2f} GiB")
+            return
+        parts = ", ".join(
+            f"{k} {v / gib:.3f}"
+            for k, v in sorted(s["bytes_by_field"].items(),
+                               key=lambda kv: -kv[1]) if v > 0)
+        print(
+            f"[KV] {s['mode']} | budget {s['sparse_budget']} | chunk "
+            f"{s['chunk_size']} | rank {s['rank']} | cached {s['cached']} | "
+            f"local {s['local_chunks']} | outlier {s['outlier_chunks']} | "
+            f"device {s['device_bytes'] / gib:.2f} GiB ({parts}) | host "
+            f"{s['host_bytes'] / gib:.2f} GiB | full-attn equivalent "
+            f"{s['full_equivalent_bytes'] / gib:.2f} GiB "
+            f"({s['hbm_reduction']:.1f}x reduction)")
 
 
 def _truncate_at_stop(tokens: np.ndarray, stop_ids: tuple[int, ...]):

@@ -39,6 +39,7 @@ from shadowkv_tpu_torch.cache.shadow import (
 from shadowkv_tpu_torch.config import ModelConfig, RuntimeConfig
 from shadowkv_tpu_torch.core import minference as mi
 from shadowkv_tpu_torch.core import rope as rope_lib
+from shadowkv_tpu_torch.core import wquant
 from shadowkv_tpu_torch.core.attention import decode_attention_hm
 from shadowkv_tpu_torch.core.layers import (
     LayerParams,
@@ -73,11 +74,12 @@ def _layer_tail(lp: LayerParams, model: ModelConfig, x, ctx):
 
 
 def _finalize(model: ModelConfig, params: ModelParams, x) -> torch.Tensor:
-    """Last-position logits [B, 1, V] in f32 (computed in the model dtype:
-    on bf16 models the logits carry one bf16 rounding, where JAX asks XLA
-    for an f32 product)."""
+    """Last-position logits [B, 1, V] in f32 (the product is taken in the
+    model dtype: on bf16 models the logits carry one bf16 rounding, where
+    JAX asks XLA for an f32 product; an int8 lm_head's scale multiplies in
+    f32)."""
     x = rms_norm(x[:, -1:], params.final_norm, model.rms_norm_eps)
-    return torch.matmul(x, params.lm_head).float()
+    return wquant.mat(x, params.lm_head, out_dtype=torch.float32)
 
 
 def _tables(cos_table, sin_table, n: int):
@@ -147,7 +149,7 @@ def prefill_full(
     """Prefill of a sub-batch into ``cache`` rows
     [batch_start, batch_start + Bsub); returns last-token logits."""
     b, s = input_ids.shape
-    x = params.embed[input_ids]
+    x = wquant.take_rows(params.embed, input_ids, model.dtype)
     cos, sin = _tables(cos_table, sin_table, s)
     bs = slice(batch_start, batch_start + b)
     for layer in range(model.num_layers):
@@ -170,7 +172,7 @@ def decode_full(
     sin_table: torch.Tensor,
 ) -> torch.Tensor:
     b, qn = tokens.shape
-    x = params.embed[tokens]
+    x = wquant.take_rows(params.embed, tokens, model.dtype)
     start = cache.length
     cos, sin = _decode_tables(cos_table, sin_table, start, qn)
     rows = start.long() + torch.arange(qn, device=start.device)
@@ -238,7 +240,7 @@ def prefill_shadow_into(
     b, s = input_ids.shape
     if s != cache.layout.prefill_len:
         raise ValueError("prompt length does not match the cache layout")
-    x = params.embed[input_ids]
+    x = wquant.take_rows(params.embed, input_ids, model.dtype)
     cos, sin = _tables(cos_table, sin_table, s)
     for layer in range(model.num_layers):
         x = shadow_prefill_body(
@@ -267,7 +269,7 @@ def decode_shadow(
     ``use_kernel`` picks the fused refresh, else the XLA-gather branch
     (through the chunk-gather kernel with ``ring``)."""
     b, qn = tokens.shape
-    x = params.embed[tokens]
+    x = wquant.take_rows(params.embed, tokens, model.dtype)
     cos, sin = _decode_tables(cos_table, sin_table, cache.kv_len, qn)
     for layer in range(model.num_layers):
         lp = params.layer(layer)

@@ -87,13 +87,15 @@ class StepGraphs:
     is written only in place, and a step raises if the cache holds another
     one (a graph would read a dead buffer)."""
 
-    def __init__(self, cache, batch: int, depth: int, limit: int, device):
+    def __init__(self, cache, batch: int, depth, limit: int, device):
+        """``depth``: the slots' present depth, one for all or [B] (a
+        loaded checkpoint's ``gen_len``)."""
         self.cache = cache
         self.position = _position(cache)
         self.depth = np.full(batch, depth, dtype=np.int64)
         self.need = np.full(batch, np.iinfo(np.int64).max)
         self.limit = limit
-        self.rows = limit - depth  # the longest run of steps
+        self.rows = limit - int(self.depth.max())  # the longest run of steps
         self.run = 0  # steps of the current run
         self.stepped = False  # a step has run on this cache
         self.captures = 0

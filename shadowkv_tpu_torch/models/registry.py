@@ -1,8 +1,11 @@
-"""Model-name -> ModelConfig dispatch (counterpart of
+"""Model-name -> ModelConfig dispatch, and ModelConfig from a local HF
+checkpoint's ``config.json`` (counterpart of
 ``shadowkv_tpu/models/registry.py``; pure data)."""
 
 from __future__ import annotations
 
+import json
+import os
 from typing import Callable
 
 from shadowkv_tpu_torch.config import ModelConfig
@@ -142,6 +145,41 @@ def phi3_mini(name: str, **kw) -> ModelConfig:
         max_position_embeddings=131072,
         **kw,
     )
+
+
+def config_from_hf_dir(model_dir: str, name: str | None = None,
+                       **overrides) -> ModelConfig:
+    """Build a ModelConfig from a local HF checkpoint's config.json (a plain
+    JSON read, so any local checkpoint, tiny test models included, resolves
+    without a registry entry): GLM's partial interleaved RoPE and bias,
+    Qwen2's qkv bias, and ``rope_scaling`` passed through."""
+    with open(os.path.join(model_dir, "config.json")) as f:
+        hf = json.load(f)
+    arch = (hf.get("architectures") or [""])[0].lower()
+    heads = hf["num_attention_heads"]
+    head_dim = hf.get("head_dim") or hf["hidden_size"] // heads
+    kw = dict(
+        name=name or hf.get("_name_or_path") or model_dir,
+        num_layers=hf["num_hidden_layers"],
+        hidden_size=hf["hidden_size"],
+        num_heads=heads,
+        num_kv_heads=hf.get("num_key_value_heads", heads),
+        head_dim=head_dim,
+        intermediate_size=hf["intermediate_size"],
+        vocab_size=hf["vocab_size"],
+        rope_theta=hf.get("rope_theta", 10000.0),
+        rms_norm_eps=hf.get("rms_norm_eps", 1e-5),
+        max_position_embeddings=hf.get("max_position_embeddings", 131072),
+    )
+    if isinstance(hf.get("rope_scaling"), dict):
+        kw["rope_scaling"] = hf["rope_scaling"]
+    if "glm" in arch:
+        kw.update(rope_style="glm", rope_partial_dim=head_dim // 2,
+                  qkv_bias=hf.get("attention_bias", True))
+    elif "qwen2" in arch:
+        kw.update(qkv_bias=True)
+    kw.update(overrides)
+    return ModelConfig(**kw)
 
 
 def toy_config(**kw) -> ModelConfig:

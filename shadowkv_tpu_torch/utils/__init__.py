@@ -1,0 +1,1 @@
+"""utils of the PyTorch/CUDA port (see the package docstring)."""

@@ -17,7 +17,8 @@ memory. The compiled decode step (CUDA graphs) on a toy bf16 engine: for
 each decode path, steps through the graph give the eager steps' tokens and
 bit-equal cache state; kernel launches are counted through replays;
 sampling inside the graph draws new numbers at every replay; 'auto'
-captures both paths."""
+captures both paths. int8 weight quantization (``core/wquant.py``) on the
+card equals the host's bit for bit."""
 
 from __future__ import annotations
 
@@ -624,3 +625,17 @@ def test_auto_captures_both_paths(gen):
     assert eng._kernel_now and eng._auto_switches >= 1
     layers = eng.model.num_layers
     assert launched % layers == 0 and layers <= launched < layers * 8
+
+
+@pytest.mark.parametrize("shape, axis", [((3, 512, 384), -2), ((1000, 256), -1)])
+def test_quantize_weight_card_equals_host(gen, shape, axis):
+    """int8 weights quantized on the card equal the host's bit for bit (the
+    HF loader quantizes on the host, ``quantize_params`` on the card)."""
+    from shadowkv_tpu_torch.core.wquant import quantize_weight
+
+    w = (torch.randn(shape, generator=gen, device="cuda") * 0.02).to(
+        torch.bfloat16)
+    dev = quantize_weight(w, reduce_axis=axis)
+    host = quantize_weight(w.cpu(), reduce_axis=axis)
+    assert torch.equal(dev.q.cpu(), host.q)
+    assert torch.equal(dev.s.cpu(), host.s)

@@ -1,5 +1,8 @@
 """The PyTorch port stands alone: no JAX, no flax, nothing of the JAX
-package; and it never falls back from a requested CUDA device to the CPU."""
+package, and no ``transformers``, ``safetensors`` or ``ml_dtypes`` at module
+level (the port needs none of them: only a tokenizer load imports
+``transformers``); and it never falls back from a requested CUDA device to
+the CPU."""
 
 from __future__ import annotations
 
@@ -17,6 +20,9 @@ from shadowkv_tpu_torch.models.registry import toy_config
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "shadowkv_tpu"}
+# Importable only inside the function that needs them (the tokenizer).
+NOT_AT_MODULE_LEVEL = {"transformers", "safetensors", "ml_dtypes",
+                       "tokenizers"}
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -26,6 +32,26 @@ def _imported_roots(path: Path) -> set[str]:
             roots.update(a.name.split(".")[0] for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             roots.add(node.module.split(".")[0])
+    return roots
+
+
+def _module_level_roots(path: Path) -> set[str]:
+    """Roots imported when the module is imported: every import outside a
+    function body."""
+    roots = set()
+
+    def visit(node):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef,
+                                  ast.Lambda)):
+                continue
+            if isinstance(child, ast.Import):
+                roots.update(a.name.split(".")[0] for a in child.names)
+            elif isinstance(child, ast.ImportFrom) and child.level == 0:
+                roots.add(child.module.split(".")[0])
+            visit(child)
+
+    visit(ast.parse(path.read_text(), filename=str(path)))
     return roots
 
 
@@ -48,6 +74,23 @@ def test_port_files_exist():
         "shadowkv_tpu_torch/models/calibrate.py",
         "shadowkv_tpu_torch/models/engine.py",
         "shadowkv_tpu_torch/serving.py",
+        "shadowkv_tpu_torch/core/wquant.py",
+        "shadowkv_tpu_torch/models/params.py",
+        "shadowkv_tpu_torch/models/registry.py",
+        "shadowkv_tpu_torch/models/prompt_templates.py",
+        "shadowkv_tpu_torch/models/llm.py",
+        "shadowkv_tpu_torch/utils/checkpoint.py",
+        "shadowkv_tpu_torch/data/dataset.py",
+        "shadowkv_tpu_torch/data/metrics.py",
+        "shadowkv_tpu_torch/data/wordlists.py",
+        "shadowkv_tpu_torch/data/niah.py",
+        "shadowkv_tpu_torch/data/longbench.py",
+        "shadowkv_tpu_torch/data/viz.py",
+        "shadowkv_tpu_torch/data/ruler/generate.py",
+        "shadowkv_tpu_torch/data/ruler/prepare.py",
+        "shadowkv_tpu_torch/eval/evaluator.py",
+        "shadowkv_tpu_torch/entry/e2e.py",
+        "shadowkv_tpu_torch/entry/eval_acc.py",
     ):
         assert must in names
 
@@ -58,6 +101,25 @@ def test_port_files_exist():
 def test_no_jax_imports(path):
     bad = _imported_roots(path) & FORBIDDEN
     assert not bad, f"{path} imports {sorted(bad)}"
+
+
+@pytest.mark.parametrize(
+    "path", _port_files(), ids=lambda p: p.relative_to(ROOT).as_posix()
+)
+def test_no_module_level_hf_imports(path):
+    bad = _module_level_roots(path) & NOT_AT_MODULE_LEVEL
+    assert not bad, f"{path} imports {sorted(bad)} at module level"
+
+
+def test_llm_cuda_without_gpu_raises():
+    """``LLM`` runs on the card unless told otherwise, and refuses before
+    it makes a weight."""
+    from shadowkv_tpu_torch.models.llm import LLM
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the no-GPU refusal is moot")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LLM("meta-llama/Meta-Llama-3.1-8B-Instruct")
 
 
 def _toy_engine_args():
@@ -86,14 +148,14 @@ def test_engine_cuda_without_gpu_raises():
          dict(use_pallas=True, offload_prefill_segments=2)),
         (dict(mode="full"), dict(tp=2)),
         (dict(mode="full"), dict(prefill_pattern="vs", vs_sim="clustered")),
-        (dict(mode="full"), dict(weight_quant="int8")),
+        (dict(mode="full"), dict(pp=2)),
         (dict(mode="shadow"), dict(decode_segmented=True)),
     ],
 )
 def test_unserved_settings_are_rejected(cache_kw, rt_kw):
     """Unported values of served fields raise NotImplementedError naming
-    the ROADMAP item; fields of unported paths (parallelism, int8 weights)
-    do not exist, so passing one is a TypeError."""
+    the ROADMAP item; fields of unported paths (parallelism) do not exist,
+    so passing one is a TypeError."""
     served = {f.name for f in dataclasses.fields(RuntimeConfig)}
     if not set(rt_kw) <= served:
         with pytest.raises(TypeError):
