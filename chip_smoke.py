@@ -88,6 +88,34 @@ to the CPU):
    (``decode_chunk``) must give the same tokens and cached ids and count
    one kernel launch per layer and step; on the shadow run eight steps
    at temperature 0.6 through the graph must not repeat one token.
+   Then the last single-device settings: ``gather_v_rows`` (the miss-only
+   V gather of JAX's HostVStore path) against its plain version with a forced
+   stay mask that skips about half of the slots, bit-equal on the missed
+   ones, timed over 8 layers against the missed bytes over the measured
+   link rate; and six more runs as above: offload-host
+   (``shadow_offload`` with a 3.98 GiB bf16 V store pinned on the host and
+   neither decode kernel, so ``gather_v_rows`` once per layer and step),
+   whose tokens and cached ids must equal those of shadow-bf16-gather (the
+   same engine with V on the card); offload-seg4 (the layer-segmented
+   offload prefill, 4 segments, ring gather), whose tokens must equal
+   those of offload-ring run again just before it, with prefill_s and
+   peak GiB beside it (the port's
+   prefill already writes each layer's V into the pinned store, so the
+   setting runs the ordinary prefill over the whole batch and refuses
+   admissions); ring-segmented (segmented decode attention on the ring
+   path), ms per step beside shadow-ring's, whose per-segment sums round
+   otherwise, so from one prefilled state the two attentions agree in f32
+   on layer 0's buffers, and at every layer of eight teacher-forced
+   segmented steps on the segments the engine hands over, within 1e-5 of
+   the largest output; the steps' logits agree within 5 % of the largest
+   (the toy engine's decode bound) and give the same greedy token
+   wherever the top two are more than twice the difference apart; the
+   logit bound's noise floor (one ulp on layer 0's attention output of
+   the stacked path) is printed beside it, and two planted faults of the
+   segments (the gen mask a row short, the sparse segment dropped) must
+   fail both bounds; vs-sim (``vs_sim="clustered"``
+   on the vs-tile run) beside vs-tile, with the mean diagonal blocks per
+   head and F's ms on one layer's simulated and estimated flags.
 12. The crossover of the two shadow decode branches at full width, chunk
    sizes 16 and 8: ms per step of the fused refresh and of the XLA-gather
    branch at forced slot hit rates 0, 0.25, 0.5, 0.75 and 0.9
@@ -1394,7 +1422,7 @@ OFFLOAD_TWINS = {"offload-fused": "shadow", "offload-ring": "shadow-ring"}
 
 
 def _counters():
-    from shadowkv_tpu_torch.kernels.gather import gather_chunks
+    from shadowkv_tpu_torch.kernels.gather import gather_chunks, gather_v_rows
     from shadowkv_tpu_torch.kernels.prefill_attention import (
         causal_prefill_splash,
         sparse_prefill_splash,
@@ -1412,6 +1440,7 @@ def _counters():
         "gather_chunks_host_v": (gather_chunks, "host_launches"),
         "vs_tile_attention": (vs_tile_attention, "launches"),
         "vs_sparse_attention": (vs_sparse_attention, "launches"),
+        "gather_v_rows": (gather_v_rows, "launches"),
     }
 
 
@@ -1447,8 +1476,20 @@ def _eager_window(torch, eng, cache, tok):
     return torch.stack(out).cpu(), (time.perf_counter() - t0) / EAGER_STEPS * 1e3
 
 
+def decode_kernel(mode: str, rt_kw: dict):
+    """The kernel a decode step of this path launches once per layer
+    (None: the XLA-gather branch by tensor indexing, or the full cache)."""
+    if mode == "full":
+        return None
+    if rt_kw.get("use_pallas"):
+        return "sparse_refresh"
+    if rt_kw.get("ring_gather"):
+        return "gather_chunks"
+    return "gather_v_rows" if mode == "shadow_offload" else None
+
+
 def run_slice(torch, cfg, params, label: str, mode: str, rt_kw: dict,
-              prompt_len: int) -> dict:
+              prompt_len: int, cache_kw: dict | None = None) -> dict:
     """One Engine run at full width through batch_generate (every decode
     step after the first replays the captured step); returns its numbers,
     the kernel launch counts of the run (counted through the replays), its
@@ -1457,15 +1498,17 @@ def run_slice(torch, cfg, params, label: str, mode: str, rt_kw: dict,
     and as many steps through the same graph on the cache itself
     (``decode_chunk``), which must give the eager steps' tokens and cached
     ids and launch the decode kernel once per layer and step; the full
-    cache runs its eager window on the cache itself."""
+    cache runs its eager window on the cache itself. ``cache_kw``
+    overrides fields of the headline cache config."""
     import numpy as np
 
     from shadowkv_tpu_torch.config import CacheConfig, RuntimeConfig
     from shadowkv_tpu_torch.models.engine import Engine
 
-    cc = CacheConfig(mode=mode, max_length=prompt_len + 256,
-                     sparse_budget=2048, rank=160, chunk_size=16,
-                     kv_quant="int8", gen_capacity=256)
+    cc = CacheConfig(**{**dict(mode=mode, max_length=prompt_len + 256,
+                               sparse_budget=2048, rank=160, chunk_size=16,
+                               kv_quant="int8", gen_capacity=256),
+                        **(cache_kw or {})})
     rt = RuntimeConfig(**{"prefill_pattern": "dense-splash", **rt_kw},
                        track_hit_rate=True, pallas_auto_interval=4)
     eng = Engine(cfg, cc, rt, params, device=DEVICE)
@@ -1489,11 +1532,10 @@ def run_slice(torch, cfg, params, label: str, mode: str, rt_kw: dict,
     prefill_kernel = PREFILL_KERNEL.get(
         rt.vs_impl if pattern == "vs" else pattern, "prefill_attention")
     want[prefill_kernel] = cfg.num_layers * sub_batches
-    kernel = None
-    if mode != "full":
-        kernel = "sparse_refresh" if rt_kw.get("use_pallas") else "gather_chunks"
+    kernel = decode_kernel(mode, rt_kw)
+    if kernel is not None:
         want[kernel] = steps
-        if mode == "shadow_offload":
+        if mode == "shadow_offload" and kernel != "gather_v_rows":
             want[kernel + "_host_v"] = steps
     if launches != want:
         raise AssertionError(f"slice {label}: kernel launches {launches}, "
@@ -1520,12 +1562,12 @@ def run_slice(torch, cfg, params, label: str, mode: str, rt_kw: dict,
     else:
         copy = _mutable_copy(cache)
         eager_toks, eager_ms = _eager_window(torch, eng, copy, tok)
-        fn, attr = counters[kernel]
-        before = getattr(fn, attr)
+        fn, attr = counters[kernel] if kernel else (None, None)
+        before = getattr(fn, attr) if kernel else 0
         zeros = torch.zeros(EAGER_STEPS, BATCH, dtype=torch.int32,
                             device=DEVICE)
         _, graph_toks = eng.decode_chunk(cache, tok, zeros, zeros.bool())
-        replayed = getattr(fn, attr) - before
+        replayed = getattr(fn, attr) - before if kernel else None
         same_toks = torch.equal(graph_toks, eager_toks)
         same_ids = torch.equal(cache.cached_ids, copy.cached_ids)
         res.update(graph_eq_eager_tokens=same_toks,
@@ -1535,7 +1577,7 @@ def run_slice(torch, cfg, params, label: str, mode: str, rt_kw: dict,
         if not (same_toks and same_ids):
             raise AssertionError(f"slice {label}: {EAGER_STEPS} graph steps "
                                  "and eager steps from one state differ")
-        if replayed != cfg.num_layers * EAGER_STEPS:
+        if kernel and replayed != cfg.num_layers * EAGER_STEPS:
             raise AssertionError(f"slice {label}: {replayed} {kernel} "
                                  "launches counted through the replays of "
                                  f"{EAGER_STEPS} steps")
@@ -2287,6 +2329,398 @@ def check_offload_twins(torch, runs: dict) -> None:
                                  "host store not 1.99 GiB")
 
 
+# ---------------------------------------------------------------------------
+# The last single-device settings: the HostVStore path, the segmented
+# offload prefill, segmented decode attention, vs_sim
+# ---------------------------------------------------------------------------
+
+
+def check_gather_v_rows(torch, cfg, lay, link: float, layers: int = 8) -> dict:
+    """``gather_v_rows`` (the HostVStore path's miss-only V gather) against
+    its plain version at the slice's per-layer shapes (B 2, 8 KV heads,
+    128 of 2040 chunks of 16 rows, bf16 V pinned on the host) with a forced
+    stay mask that skips about half of the slots: bit-equal on the missed
+    slots. Timed cycling over ``layers`` stacked layers (cold L2; the rows
+    come over the link); bound: the missed rows' bytes over the link rate
+    this run measured (written once to the card)."""
+    from shadowkv_tpu_torch.kernels.gather import (
+        gather_v_rows,
+        gather_v_rows_plain,
+    )
+    from shadowkv_tpu_torch.tools.time_refresh import cycle_layers, device_ms
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 9)
+    kh, dh, cs, s, c = (cfg.num_kv_heads, cfg.head_dim, lay.chunk_size,
+                        lay.select_sets, lay.chunks)
+    v = torch.randn(layers, BATCH, kh, c * cs, dh, device=DEVICE,
+                    generator=gen, dtype=torch.bfloat16)
+    ids = torch.stack([torch.randperm(c, device=DEVICE, generator=gen)[:s]
+                       for _ in range(BATCH * kh)]).reshape(
+                           BATCH, kh, s).to(torch.int32)
+    stay = torch.rand(BATCH, kh, s, device=DEVICE, generator=gen) < 0.5
+    v_host = pinned_copy(torch, v)
+    layer = layers - 1
+    ref = gather_v_rows_plain(layer, ids, stay, v, chunk_size=cs)
+    out = gather_v_rows(layer, ids, stay, v_host, chunk_size=cs)
+    torch.cuda.synchronize()
+    miss = ~stay
+    same = torch.equal(out[miss], ref[miss])
+    err = float((out[miss].float() - ref[miss].float()).abs().max())
+    n_miss = int(miss.sum())
+    log(f"[gather_v_rows, V on host] {n_miss} of {stay.numel()} slots missed;"
+        f" bit-equal to the plain version on them: {same}")
+    if not same:
+        raise AssertionError("gather_v_rows: kernel disagrees with its plain "
+                             "version")
+    ms = device_ms(cycle_layers(lambda lyr: gather_v_rows(
+        lyr, ids, stay, v_host, chunk_size=cs), layers), reps=64)
+    plain_ms = device_ms(cycle_layers(lambda lyr: gather_v_rows_plain(
+        lyr, ids, stay, v, chunk_size=cs), layers), reps=16)
+    miss_bytes = n_miss * cs * dh * 2
+    b_ms, b_by = bound(miss_bytes, 0, miss_bytes, link)
+    log(f"[gather_v_rows, V on host] kernel_ms {ms:.4f} plain_ms (V on the "
+        f"card) {plain_ms:.4f} bound_ms {b_ms:.4f} ({b_by}: {miss_bytes} "
+        f"missed bytes over {link / 1e9:.2f} GB/s; cycling over {layers} "
+        f"layers) = {b_ms / ms:.0%} of bound")
+    del v, v_host, ref, out
+    torch.cuda.empty_cache()
+    return dict(
+        name="gather_v_rows", route="cuda",
+        source="shadowkv_tpu_torch/csrc/gather.cu",
+        replaces="port-own: shadowkv_tpu/cache/offload.py:77 (io_callback + "
+                 "native/host_gather.cpp; no Pallas kernel)",
+        launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+    )
+
+
+def check_vs_sim_flags(torch, cfg) -> dict:
+    """The MInference flags of one layer at the slice's shape (B*H 64, S
+    32768, random q/k/v): estimated, and simulated from the same estimate
+    (``sim_vs_scores``, salt 31, the port's draws). Mean diagonal blocks per
+    head of each, and kernel F's ms on each."""
+    from shadowkv_tpu_torch.core import minference as mi
+    from shadowkv_tpu_torch.kernels import vs_tile
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 10)
+    b, s, h, kh, dh = BATCH, PROMPT_LEN, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = torch.randn(b, s, h, dh, device=DEVICE, generator=gen, dtype=torch.bfloat16)
+    k = torch.randn(b, s, kh, dh, device=DEVICE, generator=gen, dtype=torch.bfloat16)
+    v = torch.randn(b, s, kh, dh, device=DEVICE, generator=gen, dtype=torch.bfloat16)
+    vert, sl = mi.estimate_vertical_slash(q, k)
+    sets = {"estimated": (vert, sl),
+            "clustered-sim": mi.sim_vs_scores("clustered", vert, sl, salt=31)}
+    q_f, k_f, v_f = mi.flat_heads(q, s), mi.flat_heads(k, s), mi.flat_heads(v, s)
+    del q, k, v
+    kv_map = mi.kv_map_of(b, kh, range(h), h // kh, DEVICE)
+    out = {}
+    for label, (vt, st) in sets.items():
+        v_idx, dflag, _, _ = _vs_inputs(torch, vt.reshape(b * h, s),
+                                        st.reshape(b * h, s), s)
+        diag = float(dflag.float().sum(-1).mean())
+        ms = time_ms(torch, lambda: vs_tile.vs_tile_attention(
+            q_f, k_f, v_f, v_idx, dflag, kv_map, block=VS["vs_block"],
+            scale=dh**-0.5, seq_len=s), reps=3, warmup=1)
+        log(f"[vs-sim flags {label}] mean diagonal blocks per head "
+            f"{diag:.1f} of {s // VS['vs_block']}; F kernel_ms {ms:.4f}")
+        out[label] = dict(diag_blocks=diag, f_ms=ms)
+    del q_f, k_f, v_f, sets, vert, sl
+    torch.cuda.empty_cache()
+    return out
+
+
+# The segmented check's bounds: the two attentions in f32 (relative to the
+# largest output: f32 sums in another order), on one layer's buffers and
+# inside the engine's segmented steps at every layer, and the engine's
+# logits (of the step's largest |logit|: a last-bit difference in one
+# layer's bf16 attention output grows through 32 layers of random weights;
+# the toy engine check's decode-step bound). The same run reads the logit
+# bound's noise floor (the stacked path with one layer's bf16 attention
+# output moved by one ulp) and two planted faults of the segments, which
+# must fail both bounds.
+SEG_ATTN_TOL = 1e-5
+SEG_STEP_TOL = 0.05
+SEG_FAULTS = ("gen-mask-short", "sparse-dropped")
+
+
+def _ulp_noise(torch, fn, num_layers: int, seed: int):
+    """``fn`` (the stacked decode attention) with layer 0's bf16 output
+    moved by one ulp, up or down at random, on every nonzero entry."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    calls = [0]
+
+    def noisy(q, *args):
+        out = fn(q, *args)
+        first = calls[0] % num_layers == 0
+        calls[0] += 1
+        if not first:
+            return out
+        step = torch.randint(0, 2, out.shape, generator=gen, device=out.device,
+                             dtype=torch.int16) * 2 - 1
+        moved = (out.view(torch.int16) + step).view(out.dtype)
+        return torch.where(out == 0, out, moved)
+
+    return noisy
+
+
+def _planted_fault(fn, fault: str):
+    """``fn`` (the segmented decode attention) with a planted fault of the
+    segments it is handed: the gen region's mask one row short (the newest
+    token unseen), or the sparse segment dropped."""
+    def faulty(q, segs, kv_len):
+        if fault == "gen-mask-short":
+            return fn(q, segs, kv_len - 1)
+        return fn(q, (segs[0], segs[2]), kv_len)
+
+    return faulty
+
+
+def check_segmented_steps(torch, cfg, params) -> dict:
+    """Segmented against stacked decode attention at full width (the
+    headline cache, ring path, the slice's prompt), from one prefilled
+    state:
+
+    - the two functions in f32 on layer 0's compact buffers with random
+      f32 queries and per-slot lengths that mask part of the gen region:
+      equal within SEG_ATTN_TOL of the largest output (the segmented one
+      sums P @ V per segment, then across segments);
+    - EAGER_STEPS eager engine steps of each on copies of the state, both
+      fed the stacked path's greedy tokens. At every layer of the
+      segmented steps, the segments the engine hands the attention are
+      held in f32 against the stacked attention over that layer's whole
+      buffer, with the engine's query and lengths: within SEG_ATTN_TOL.
+      The bf16 model rounds the two sums' last-bit differences otherwise,
+      so on synthetic weights a free greedy run parts at the first
+      near-tie; the logits must agree within SEG_STEP_TOL of the step's
+      largest |logit| and the greedy token on every row whose top-two
+      margin exceeds twice the difference;
+    - the same teacher-forced steps of the controls: the stacked path with
+      one ulp of noise on layer 0's attention output (the logit bound's
+      noise floor; reported), and the segmented path with each planted
+      fault of ``_planted_fault``, which must fail both the in-engine f32
+      check and the logit bound."""
+    import numpy as np
+
+    from shadowkv_tpu_torch.config import CacheConfig, RuntimeConfig
+    from shadowkv_tpu_torch.core.attention import (
+        decode_attention_hm,
+        decode_attention_segments,
+    )
+    from shadowkv_tpu_torch.models import forward
+    from shadowkv_tpu_torch.models.engine import Engine
+
+    cc = CacheConfig(mode="shadow", max_length=PROMPT_LEN + 256,
+                     sparse_budget=2048, rank=160, chunk_size=16,
+                     kv_quant="int8", gen_capacity=256)
+    eng = Engine(cfg, cc, RuntimeConfig(prefill_pattern="dense-splash",
+                                        ring_gather=True), params,
+                 device=DEVICE)
+    ids = np.random.RandomState(SEED).randint(1, cfg.vocab_size,
+                                              (BATCH, PROMPT_LEN))
+    logits, cache = eng.prefill(ids)
+
+    lo = cache.layout
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 11)
+    q = torch.randn(BATCH, 1, cfg.num_heads, cfg.head_dim, device=DEVICE,
+                    generator=gen)
+    valid = torch.tensor([lo.sparse_end + 1, lo.sparse_end + 40],
+                         device=DEVICE)
+    k_l, v_l = cache.k_buf[0], cache.v_buf[0]
+    ss, se = lo.sparse_start, lo.sparse_end
+    segs = ((k_l[:, :, :ss], v_l[:, :, :ss], 0, False),
+            (k_l[:, :, ss:se], v_l[:, :, ss:se], ss, False),
+            (k_l[:, :, se:], v_l[:, :, se:], se, True))
+    hm = decode_attention_hm(q, k_l, v_l, valid)
+    attn_rel = float((decode_attention_segments(q, segs, valid) - hm).abs()
+                     .max() / hm.abs().max())
+
+    tok = logits[:, -1].argmax(-1).int()
+    feeds = []
+
+    def steps(seg: bool, fault: str | None = None, noise: bool = False):
+        """EAGER_STEPS eager steps on a copy of the state, fed ``feeds``
+        (the first run, stacked and plain, makes them). Returns (logits
+        [steps, B, V], the in-engine f32 check's largest relative gap, or
+        None on the stacked path)."""
+        eng.decode_segmented = seg
+        copy = _mutable_copy(cache)
+        seg_fn = (decode_attention_segments if fault is None
+                  else _planted_fault(decode_attention_segments, fault))
+        calls, gaps = [0], []
+
+        def witnessed(q, segs, kv_len):
+            layer = calls[0] % cfg.num_layers
+            calls[0] += 1
+            whole = decode_attention_hm(q.float(), copy.k_buf[layer],
+                                        copy.v_buf[layer], kv_len)
+            gaps.append((seg_fn(q.float(), segs, kv_len) - whole).abs().max()
+                        / whole.abs().max())
+            return seg_fn(q, segs, kv_len)
+
+        forward.decode_attention_segments = witnessed
+        if noise:
+            forward.decode_attention_hm = _ulp_noise(
+                torch, decode_attention_hm, cfg.num_layers, SEED + 12)
+        try:
+            t, rows = tok, []
+            for i in range(EAGER_STEPS):
+                lg = eng._decode(copy, t[:, None])[:, -1].float()
+                rows.append(lg)
+                if len(feeds) < EAGER_STEPS:
+                    feeds.append(lg.argmax(-1).int())
+                t = feeds[i]
+        finally:
+            forward.decode_attention_segments = decode_attention_segments
+            forward.decode_attention_hm = decode_attention_hm
+            eng.decode_segmented = False
+        gap = float(torch.stack(gaps).max()) if gaps else None
+        return torch.stack(rows), gap
+
+    ref, _ = steps(False)
+    got, gap = steps(True)
+
+    def rel_of(x):  # [steps]
+        return ((x - ref).abs().amax(-1) / ref.abs().amax(-1)).amax(-1)
+
+    err = (got - ref).abs().amax(-1)  # [steps, B]
+    rel = rel_of(got)
+    top2 = ref.topk(2, dim=-1).values
+    decisive = (top2[..., 0] - top2[..., 1]) > 2 * err
+    agree = got.argmax(-1) == ref.argmax(-1)
+    noise = rel_of(steps(False, noise=True)[0])
+    faults = {}
+    for f in SEG_FAULTS:
+        lg, f_gap = steps(True, fault=f)
+        faults[f] = dict(attn_gap=f_gap, rel_by_step=rel_of(lg).tolist())
+    res = dict(attn_rel=attn_rel, engine_attn_gap=gap,
+               max_err=float(err.max()), rel_by_step=rel.tolist(),
+               decisive=int(decisive.sum()), rows=int(err.numel()),
+               agree=int(agree.sum()),
+               decisive_agree=bool(agree[decisive].all()),
+               noise_by_step=noise.tolist(), faults=faults)
+    def fmt(xs):
+        return [f"{x:.2e}" for x in xs]
+
+    log(f"[segmented decode] f32 attention on layer 0's buffers: max |diff| "
+        f"{attn_rel:.3e} of the largest output; in the engine's segmented "
+        f"steps, every layer: {gap:.3e} (tol {SEG_ATTN_TOL:.0e}); "
+        f"{EAGER_STEPS} teacher-forced engine steps from one state: logits "
+        f"max |diff| {res['max_err']:.4e}, by step of the largest |logit| "
+        f"{fmt(res['rel_by_step'])} (tol {SEG_STEP_TOL}); greedy tokens "
+        f"agree on {res['agree']} of {res['rows']} rows, on every one of "
+        f"the {res['decisive']} decisive rows: {res['decisive_agree']}")
+    log(f"[segmented decode] logit noise floor, stacked with one ulp on "
+        f"layer 0's attention output: {fmt(res['noise_by_step'])}; "
+        + "; ".join(f"planted fault {f}: in-engine f32 gap "
+                    f"{v['attn_gap']:.3e}, logits {fmt(v['rel_by_step'])}"
+                    for f, v in faults.items()))
+    if not (attn_rel <= SEG_ATTN_TOL and gap <= SEG_ATTN_TOL
+            and bool((rel <= SEG_STEP_TOL).all()) and res["decisive_agree"]):
+        raise AssertionError("segmented decode attention disagrees with the "
+                             "stacked view")
+    for f, v in faults.items():
+        if not (v["attn_gap"] > SEG_ATTN_TOL
+                and max(v["rel_by_step"]) > SEG_STEP_TOL):
+            raise AssertionError(f"the planted fault {f} passes a bound of "
+                                 "the segmented check")
+    del eng, cache
+    torch.cuda.empty_cache()
+    return res
+
+
+# (label, cache mode, runtime settings, cache settings, the earlier run it
+# is held against, whether its tokens and cached ids must be equal)
+SETTING_RUNS = (
+    ("offload-host", "shadow_offload", dict(), dict(kv_quant="none"),
+     "shadow-bf16-gather", True),
+    ("shadow-bf16-gather", "shadow", dict(), dict(kv_quant="none"), None,
+     False),
+    # offload-ring again, in the place before offload-seg4: the two run
+    # the same prefill, so this pair reads what the order alone moves
+    ("offload-ring-2", "shadow_offload", dict(ring_gather=True), {},
+     "offload-ring", True),
+    ("offload-seg4", "shadow_offload",
+     dict(ring_gather=True, offload_prefill_segments=4), {}, "offload-ring-2",
+     True),
+    # another rounding order: held by check_segmented_steps instead
+    ("ring-segmented", "shadow", dict(ring_gather=True, decode_segmented=True),
+     {}, "shadow-ring", False),
+    ("vs-sim", "shadow", dict(use_pallas=True, prefill_pattern="vs",
+                              vs_impl="tile", vs_sim="clustered", **VS),
+     {}, "vs-tile", False),
+)
+# 32 layers x 2 x 8 heads x 32640 rows x 128 x 2 bytes (bf16)
+HOST_STORE_GIB = 32 * 2 * 8 * 32640 * 128 * 2 / 2**30
+
+
+def run_settings(torch, cfg, params, runs: dict) -> dict:
+    """The four settings at full width, each run as the slice's runs are
+    (``run_slice``: launches exact through the replays, graph = eager
+    tokens and cached ids), then held against an earlier run of this call:
+
+    - offload-host: the bf16 V store pinned on the host, neither kernel:
+      its tokens and cached ids bit-equal to the bf16 XLA-gather engine's
+      on the card (the same V bytes in another place), its host store the
+      3.98 GiB bf16 store;
+    - offload-seg4: the segmented offload prefill (4 segments: the
+      ordinary prefill over the whole batch, the store marked
+      layer-sharded) against offload-ring (1), run again just before it
+      (offload-ring-2, itself held against the slice's offload-ring): the
+      same tokens and cached ids; prefill_s and peak GiB beside;
+    - ring-segmented: segmented decode attention against shadow-ring's
+      stacked view, ms per step beside; the two round otherwise, so the
+      free-running tokens are compared for the record and the check is
+      ``check_segmented_steps`` (f32 attention in the engine's steps,
+      teacher-forced logits from one state, the controls);
+    - vs-sim: vs_sim='clustered' against the estimated-flag vs-tile run:
+      prefill_s and F's launches beside, the flags' diagonal blocks and
+      F's ms from ``check_vs_sim_flags``."""
+    t0 = time.perf_counter()
+    new = {label: run_slice(torch, cfg, params, label, mode, rt_kw,
+                            PROMPT_LEN, cache_kw)
+           for label, mode, rt_kw, cache_kw, _, _ in SETTING_RUNS}
+    both = {**runs, **new}
+    for label, _, _, _, twin, exact in SETTING_RUNS:
+        if twin is None:
+            continue
+        a, b = both[label], both[twin]
+        same_toks = bool((a["tokens"] == b["tokens"]).all())
+        same_ids = torch.equal(a["cached_ids"], b["cached_ids"])
+        differ = (a["tokens"] != b["tokens"]).any(0).nonzero()[0]
+        a["first_token_diff"] = int(differ[0]) if differ.size else None
+        log(f"[setting {label} vs {twin}] tokens equal {same_toks} (first "
+            f"differing step {a['first_token_diff']}), cached "
+            f"ids equal {same_ids}; prefill_s {a['prefill_s']:.3f} vs "
+            f"{b['prefill_s']:.3f}; peak {a['peak_gib']:.3f} vs "
+            f"{b['peak_gib']:.3f} GiB; graph ms/step "
+            f"{a['decode_ms_per_step']:.3f} vs {b['decode_ms_per_step']:.3f}; "
+            f"tok/s {a['decode_tok_s']:.2f} (eager {a['eager_tok_s']:.2f}) vs "
+            f"{b['decode_tok_s']:.2f}")
+        if exact and not (same_toks and same_ids):
+            raise AssertionError(f"{label}: tokens or cached ids differ from "
+                                 f"{twin}")
+    host = new["offload-host"]
+    if abs(host["host_gib"] / HOST_STORE_GIB - 1) > 0.01 \
+            or host["cache_gib"] > new["shadow-bf16-gather"]["cache_gib"] \
+            - HOST_STORE_GIB + 0.01:
+        raise AssertionError(f"offload-host: host store {host['host_gib']} "
+                             f"GiB, device cache {host['cache_gib']} GiB")
+    new["ring-segmented"]["teacher_forced"] = check_segmented_steps(
+        torch, cfg, params)
+    flags = check_vs_sim_flags(torch, cfg)
+    new["vs-sim"]["flags"] = flags
+    log(f"[settings] offload-host {host['decode_tok_s']:.2f} tok/s graph "
+        f"({host['eager_tok_s']:.2f} eager), host {host['host_gib']:.3f} GiB,"
+        f" peak {host['peak_gib']:.3f} GiB, gather_v_rows launches "
+        f"{host['launches']['gather_v_rows']}; vs-sim diag blocks per head "
+        f"{flags['clustered-sim']['diag_blocks']:.1f} (estimated "
+        f"{flags['estimated']['diag_blocks']:.1f}), F ms "
+        f"{flags['clustered-sim']['f_ms']:.3f} (estimated "
+        f"{flags['estimated']['f_ms']:.3f}); phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    return new
+
+
 def main() -> int:
     # The flex_attention yardstick compiles in this process (no compile
     # workers to stop) into the checkout's gitignored build directory.
@@ -2351,6 +2785,8 @@ def main() -> int:
                              PROMPT_LEN)
             for label, mode, rt_kw in SLICE_RUNS}
     check_offload_twins(torch, runs)
+    entries["gather_v_rows"] = check_gather_v_rows(torch, cfg, lay, link)
+    runs.update(run_settings(torch, cfg, params, runs))
     cross = {cs: crossover_sweep(torch, cfg, params, cs)
              for cs in SWEEP_CHUNKS}
     run_auto(torch, cfg, params)
@@ -2365,7 +2801,8 @@ def main() -> int:
             "gather_chunks": "shadow-ring",
             "gather_chunks_host_v": "offload-ring",
             "sparse_prefill_attention": "stream",
-            "vs_tile_attention": "vs-tile", "vs_sparse_attention": "vs-walk"}
+            "vs_tile_attention": "vs-tile", "vs_sparse_attention": "vs-walk",
+            "gather_v_rows": "offload-host"}
     for name, entry in entries.items():
         entry["launches"] = runs[home[name]]["launches"][name]
     log("[summary] prefill_s " + ", ".join(

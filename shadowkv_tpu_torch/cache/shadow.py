@@ -9,7 +9,9 @@ selected chunk (by tensor indexing, or by the chunk-gather kernel of
 
 The V store may live in host memory (``mode="shadow_offload"``): a pinned
 CPU tensor when the engine runs on the card, which both decode kernels
-read in place; every other field stays on the engine's device.
+read in place, and from which the XLA-gather branch without a kernel
+reads the missed chunks only (``kernels/gather.py::gather_v_rows``, JAX's
+``HostVStore`` path); every other field stays on the engine's device.
 
 Compact buffer per (layer, batch, kv head), as in the JAX package:
 
@@ -57,7 +59,7 @@ from shadowkv_tpu_torch.core.selection import (
     compute_landmarks_outliers,
     score_and_select,
 )
-from shadowkv_tpu_torch.kernels.gather import gather_chunks
+from shadowkv_tpu_torch.kernels.gather import gather_chunks, gather_v_rows
 from shadowkv_tpu_torch.kernels.reconstruct import sparse_refresh
 
 
@@ -299,13 +301,19 @@ def shadow_decode_layer(
     sin_table: torch.Tensor | None = None,
     debug_hit_rate: float | None = None,
     debug_hit_layout: str = "scatter",
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    segmented: bool = False,
+):
     """One layer's cache update at decode: landmark selection (or the
     forced ``debug_hit_rate`` ids) -> slot-stable assignment -> the sparse
     region's refresh -> the new tokens appended to the gen region. Updates
     ``cache`` in place and returns (k_view, v_view, valid_len) with views
     [B, K, cap, Dh] and ``valid_len`` a device tensor shaped as
-    ``cache.gen_len``.
+    ``cache.gen_len``. With ``segmented`` (the XLA-gather branch only) the
+    first element is instead the attention segments of
+    ``core/attention.py::decode_attention_segments`` — (k, v, base,
+    masked) over the static prefix, the sparse region and the gen region,
+    views of this layer's buffers — and the second is None, as JAX's
+    ``shadow_decode_layer(segmented=True)``.
 
     The refresh is one of the JAX package's two strategies:
 
@@ -315,7 +323,9 @@ def shadow_decode_layer(
       gathered (``ring``: the chunk-gather kernel; else tensor indexing),
       K is rebuilt and rotated in two stages (offset table, then computed
       chunk-base trig), and hit slots keep their bytes through
-      ``where(stay, old, new)``. Only the sparse region is written.
+      ``where(stay, old, new)``. Only the sparse region is written. With V
+      in host memory (bf16 stores) only the missed chunks' V rows are
+      read.
     """
     lo = cache.layout
     b, qn, kh, dh = k_new.shape
@@ -346,7 +356,7 @@ def shadow_decode_layer(
     else:
         k_rows, v_rows = _gather_rebuild(
             model, cache, layer, asg.slot_ids, ring, cos_table, sin_table,
-            inv_freq_full,
+            inv_freq_full, asg.stay_mask,
         )
         stay = asg.stay_mask[..., None, None]  # [B, K, S, 1, 1]
         for buf, new in ((cache.k_buf, k_rows), (cache.v_buf, v_rows)):
@@ -363,7 +373,14 @@ def shadow_decode_layer(
         _append_gen_rows(cache.k_buf[layer], k_new.transpose(1, 2), row)
         _append_gen_rows(cache.v_buf[layer], v_new.transpose(1, 2), row)
     cache.cached_ids[layer] = asg.slot_ids
-    return cache.k_buf[layer], cache.v_buf[layer], row + qn
+    k_l, v_l = cache.k_buf[layer], cache.v_buf[layer]
+    if segmented and not use_kernel:
+        ss, se = lo.sparse_start, lo.sparse_end
+        segs = ((k_l[:, :, :ss], v_l[:, :, :ss], 0, False),
+                (k_l[:, :, ss:se], v_l[:, :, ss:se], ss, False),
+                (k_l[:, :, se:], v_l[:, :, se:], se, True))
+        return segs, None, row + qn
+    return k_l, v_l, row + qn
 
 
 def _append_gen_rows(buf: torch.Tensor, new_t: torch.Tensor,
@@ -389,10 +406,15 @@ def _gather_rebuild(
     cos_table: torch.Tensor,
     sin_table: torch.Tensor,
     inv_freq_full: torch.Tensor,
+    stay: torch.Tensor,  # [B, K, S] bool
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The XLA-gather branch's new rows for EVERY slot (JAX
     ``shadow_decode_layer`` :711-941): K rebuilt from the gathered U rows
     and rotated, V dequantized; each [B, K, S, cs, Dh] in the buffer dtype.
+    Without ``ring``, a V store in host memory (bf16 stores: JAX's
+    ``HostVStore`` path, :865-870) is read for the missed chunks only by
+    ``gather_v_rows``, in place on the card; its ``stay`` rows are
+    unspecified, and the caller keeps the resident rows there.
 
     Rounding as in JAX: int8 U goes to the buffer dtype, the product
     accumulates in f32, the per-row scale multiplies the f32 output, then
@@ -415,7 +437,11 @@ def _gather_rebuild(
         bi = torch.arange(b, device=rows.device)[:, None, None]
         ki = torch.arange(kh, device=rows.device)[None, :, None]
         u_q = cache.u[layer][bi, rows]
-        v_q = cache.v_full[layer][bi, ki, rows]
+        if cache.v_on_host:
+            v_q = gather_v_rows(layer, slot_ids, stay, cache.v_full,
+                                chunk_size=cs)
+        else:
+            v_q = cache.v_full[layer][bi, ki, rows]
         if cache.u_scale is not None:
             u_sc = cache.u_scale[layer][bi, rows]
             v_sc = cache.v_scale[layer][bi, ki, rows]

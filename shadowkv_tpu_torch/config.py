@@ -19,22 +19,28 @@ fields the JAX package has for the paths this port serves:
   ``vs_impl="tile"``, kernel F, or ``"walk"``, kernel G; uniform
   ``minference_patterns`` or per-layer ``minference_layer_patterns``).
 
+- ``mode="shadow_offload"`` with neither decode kernel: the JAX
+  ``HostVStore`` path (bf16 stores only), whose XLA-gather branch reads
+  each layer's missed chunks from the pinned store
+  (``kernels/gather.py::gather_v_rows``); ``offload_prefill_segments >
+  1``: the layer-segmented offload prefill (``ring_gather=True``, the
+  layers a multiple of the segments); ``decode_segmented=True``: decode
+  attention over the buffer's segments on the XLA-gather branch (the fused
+  path ignores it); ``vs_sim="clustered"``: the benchmark-only MInference
+  score simulation.
+
 ``weight_quant`` (``"none"`` | ``"int8"``) records whether the params are
 int8 ``QTensor`` leaves (``core/wquant.py``); as in JAX it is
-informational, the params decide. Fields of paths the port does not serve
-yet (parallelism, approximate top-k) are left out, so passing one is a
-``TypeError``. Where a
-field takes a value of an unported path, ``check_served`` raises
-``NotImplementedError`` naming the ROADMAP.md item that ports it:
-``vs_sim`` (§1 'MInference pattern simulation'), ``decode_segmented=True``
-(§1 'Segmented decode attention'), ``offload_prefill_segments > 1`` (§1
-'Host offload, rest'), and
-``shadow_offload`` with a bf16 store and neither decode kernel (the JAX
-``HostVStore`` io_callback path, §1 'Host offload, rest'). The JAX rules
-that assert are ``ValueError`` here: ``use_pallas`` and ``ring_gather``
-exclude each other, an int8 offloaded store needs one of them, and
-``use_pallas="auto"`` serves the ``"shadow"`` mode without ``ring_gather``
-only.
+informational, the params decide. ``approx_topk`` is no field: XLA's
+approximate top-k is exact off the TPU, and the port's top-k is always
+exact, so ``LLM`` accepts the flag and ignores it. Fields of the path the
+port does not serve yet (parallelism: dp, tp, sp, pp) are left out, so
+passing one is a ``TypeError``. The JAX rules that assert are
+``ValueError`` here: ``use_pallas`` and ``ring_gather`` exclude each
+other, an int8 offloaded store needs one of them, ``use_pallas="auto"``
+serves the ``"shadow"`` mode without ``ring_gather`` only, and the
+segmented offload prefill needs ``shadow_offload`` with ``ring_gather``
+(the engine checks the layer count).
 """
 
 from __future__ import annotations
@@ -180,7 +186,10 @@ class RuntimeConfig:
     # Per-layer table: num_layers per-head tables (no block_sparse).
     # Takes precedence over minference_patterns.
     minference_layer_patterns: Optional[tuple] = None
-    # Benchmark-only score simulation of the JAX package (not ported).
+    # BENCHMARK-ONLY MInference score simulation (core/minference.py
+    # sim_vs_scores): None, or 'clustered' (decaying slashes plus hot
+    # verticals in place of the estimated scores). Uniform pattern tables
+    # only, as in JAX: a per-layer table ignores it.
     vs_sim: Optional[str] = None
     # Shadow decode path: True = the fused sparse-refresh kernel (hit
     # reuse, misses only); None/False = the XLA-gather branch (every
@@ -209,9 +218,16 @@ class RuntimeConfig:
     # window ignores the landmark mask: never combine with accuracy runs.
     debug_hit_rate: Optional[float] = None
     debug_hit_layout: str = "scatter"
-    # Unported alternatives of the JAX package, kept so that asking for
-    # them names their ROADMAP item instead of a TypeError.
+    # Decode attention over the compact buffer's segments (static prefix,
+    # sparse region, gen region) instead of one view of the whole buffer,
+    # on the XLA-gather branch (core/attention.py
+    # decode_attention_segments); the fused refresh ignores it.
     decode_segmented: Optional[bool] = None
+    # > 1: the layer-segmented offload prefill: the whole batch in one
+    # call, its store recorded as sharded over layers, so admissions are
+    # refused (shadow_offload with ring_gather only; the layers must divide
+    # evenly). Each layer's V rows go straight into the pinned store, so
+    # no segment is staged on the card (models/engine.py).
     offload_prefill_segments: int = 1
     # Weight-only quantization of the dense path ('none' | 'int8':
     # per-output-channel QTensor leaves, core/wquant.py). Informational,
@@ -219,8 +235,8 @@ class RuntimeConfig:
     weight_quant: str = "none"
 
     def check_served(self, cache: CacheConfig) -> None:
-        """Raise for settings of paths this port does not serve yet, and
-        for combinations the JAX engine rejects."""
+        """Raise ``ValueError`` for unknown values and for combinations the
+        JAX engine rejects."""
         if self.prefill_pattern not in ("dense", "dense-splash", "stream",
                                         "vs"):
             raise ValueError(f"unknown prefill_pattern {self.prefill_pattern!r}")
@@ -228,11 +244,9 @@ class RuntimeConfig:
             raise ValueError(f"unknown weight_quant {self.weight_quant!r}")
         if self.vs_impl not in ("tile", "walk"):
             raise ValueError(f"unknown vs_impl {self.vs_impl!r}")
-        if self.vs_sim is not None:
-            raise NotImplementedError(
-                "vs_sim (benchmark-only MInference score simulation) is not "
-                "ported yet (ROADMAP.md §1 'MInference pattern simulation')"
-            )
+        if self.vs_sim not in (None, "clustered"):
+            raise ValueError(f"unknown vs_sim regime {self.vs_sim!r} "
+                             "(supported: 'clustered')")
         if self.use_pallas not in (None, True, False, "auto"):
             raise ValueError(
                 f"use_pallas must be None/True/False/'auto', got "
@@ -242,16 +256,14 @@ class RuntimeConfig:
             raise ValueError(
                 f"unknown debug_hit_layout {self.debug_hit_layout!r}"
             )
-        if self.decode_segmented:
-            raise NotImplementedError(
-                "decode_segmented=True is not ported yet "
-                "(ROADMAP.md §1 'Segmented decode attention')"
-            )
-        if self.offload_prefill_segments != 1:
-            raise NotImplementedError(
-                "offload_prefill_segments > 1 (layer-segmented offload "
-                "prefill) is not ported yet (ROADMAP.md §1 'Host offload, "
-                "rest')"
+        if self.offload_prefill_segments < 1:
+            raise ValueError("offload_prefill_segments must be >= 1")
+        if self.offload_prefill_segments > 1 and not (
+            cache.mode == "shadow_offload" and self.ring_gather
+        ):
+            raise ValueError(
+                "segmented offload prefill serves the single-chip ring path: "
+                "mode='shadow_offload' with ring_gather=True"
             )
         if self.use_pallas == "auto":
             if cache.mode != "shadow":
@@ -271,19 +283,12 @@ class RuntimeConfig:
                 "use_pallas and ring_gather are mutually exclusive decode "
                 "paths"
             )
-        if cache.mode == "shadow_offload" and not (
-            self.use_pallas or self.ring_gather
-        ):
-            if cache.kv_quant != "none":
-                raise ValueError(
-                    "offload + quantized V store needs ring_gather=True or "
-                    "use_pallas=True (the io_callback path serves bf16 rows "
-                    "only)"
-                )
-            raise NotImplementedError(
-                "shadow_offload with neither ring_gather nor use_pallas is "
-                "the JAX HostVStore io_callback path, not ported yet "
-                "(ROADMAP.md §1 'Host offload, rest')"
+        if (cache.mode == "shadow_offload" and cache.kv_quant != "none"
+                and not (self.use_pallas or self.ring_gather)):
+            raise ValueError(
+                "offload + quantized V store needs ring_gather=True or "
+                "use_pallas=True (the host V store path serves bf16 rows "
+                "only)"
             )
 
     def hit_threshold(self, cache: CacheConfig) -> float:

@@ -121,3 +121,51 @@ def decode_attention_hm(
         "bkgst,bktd->bskgd", probs.to(v_hm.dtype).float(), v_hm.float()
     )
     return out.reshape(b, s_new, h, dh).to(q.dtype)
+
+
+def decode_attention_segments(
+    q: torch.Tensor,
+    segments,
+    kv_len: int | torch.Tensor,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Decode attention over a SEGMENTED head-major cache (JAX
+    ``decode_attention_segments``): the math of ``decode_attention_hm``
+    over the concatenation of the segments without building it. Scores per
+    segment, one f32 softmax over the concatenated score rows, and the sum
+    of the per-segment P @ V products.
+
+    ``segments``: (k_hm, v_hm, base, masked) with k/v [B, K, T_s, Dh] at
+    absolute buffer rows [base, base + T_s); ``masked=False`` says every
+    row is valid (the static prefix, the sparse region), ``masked=True``
+    applies the ``kv_len`` validity mask (the gen region). ``kv_len`` is a
+    0-d or [B] count of the valid rows including the S_new new tokens.
+    """
+    b, s_new, h, dh = q.shape
+    kheads = segments[0][0].shape[1]
+    g = h // kheads
+    scale = scale if scale is not None else dh**-0.5
+    if not isinstance(kv_len, torch.Tensor):
+        kv_len = torch.tensor(kv_len, device=q.device)
+    if kv_len.dim() == 0:
+        kv_len = kv_len.expand(b)
+    qg = q.reshape(b, s_new, kheads, g, dh).float()
+    q_abs = kv_len[:, None] - s_new + torch.arange(s_new, device=q.device)
+    scores = []
+    for k_hm, _, base, masked in segments:
+        sc = torch.einsum("bskgd,bktd->bkgst", qg, k_hm.float()) * scale
+        if masked:
+            pos_k = base + torch.arange(k_hm.shape[2], device=q.device)
+            mask = (pos_k <= q_abs[..., None])[:, None, None]  # [B,1,1,S,T]
+            sc = torch.where(mask, sc, _F32_MIN)
+        scores.append(sc)
+    probs = torch.softmax(torch.cat(scores, dim=-1), dim=-1)
+    out = None
+    off = 0
+    for k_hm, v_hm, _, _ in segments:
+        t = k_hm.shape[2]
+        p = probs[..., off:off + t].to(v_hm.dtype).float()
+        o = torch.einsum("bkgst,bktd->bskgd", p, v_hm.float())
+        out = o if out is None else out + o
+        off += t
+    return out.reshape(b, s_new, h, dh).to(q.dtype)

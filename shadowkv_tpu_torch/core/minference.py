@@ -121,6 +121,60 @@ def estimate_vertical_slash(
     return vertical, slash
 
 
+SIM_HOT = 512  # hot vertical tokens per head of the 'clustered' simulation
+SIM_KEY = 0  # the simulation's base seed (JAX: PRNGKey(0))
+
+
+def sim_vs_draws(b: int, hm: int, s: int, salt: int = 0, device=None):
+    """The random draws of ``sim_vs_scores``: (noise [B, Hm, S] f32 standard
+    normal, hot [B, Hm, SIM_HOT] int64 token ids in [0, S), uniform [B, Hm,
+    S] f32 in [0, 1)), from a ``torch.Generator`` on ``device`` seeded with
+    ``SIM_KEY * 2**32 + salt`` — the counterpart of JAX's
+    ``fold_in(PRNGKey(0), salt)`` split three ways; the numbers differ from
+    JAX's, whose draws a test can hand in instead."""
+    gen = torch.Generator(device=device).manual_seed(
+        SIM_KEY * 2**32 + int(salt))
+    noise = torch.randn(b, hm, s, generator=gen, device=device)
+    hot = torch.randint(0, s, (b, hm, SIM_HOT), generator=gen, device=device)
+    uniform = torch.rand(b, hm, s, generator=gen, device=device)
+    return noise, hot, uniform
+
+
+def sim_vs_scores(
+    regime: str,
+    vertical: torch.Tensor,  # [B, Hm, S] estimated scores (f32)
+    slash: torch.Tensor,
+    salt: int = 0,
+    draws=None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """BENCHMARK-ONLY pattern simulation (``RuntimeConfig.vs_sim``, JAX
+    ``sim_vs_scores``). Synthetic weights give top-k-of-noise patterns whose
+    diagonal blocks scatter over the whole context; real checkpoints give
+    slashes that decay from the diagonal and a few hundred hot vertical
+    tokens. ``'clustered'`` replaces the estimated scores by that structure
+    (slash d scores ``-d / 2048 + 0.2 * noise``, verticals ``0.1 * uniform``
+    plus 1 per hot draw) and blends the estimates in at 1e-12 weight, so
+    the estimation still runs and its forced +inf rows (first 30
+    verticals, nearest 100 slashes) survive as +inf. ``salt`` (the layer)
+    varies the pattern per layer; ``draws`` (``sim_vs_draws``' triple)
+    replaces the draws."""
+    if regime != "clustered":
+        raise ValueError(
+            f"unknown vs_sim regime {regime!r} (supported: 'clustered')")
+    b, hm, s = slash.shape
+    if draws is None:
+        draws = sim_vs_draws(b, hm, s, salt, slash.device)
+    noise, hot, uniform = draws
+    d = torch.arange(s, dtype=torch.float32, device=slash.device)
+    sl = -d / 2048.0 + 0.2 * noise
+    vt = uniform * 0.1
+    bi = torch.arange(b, device=slash.device)[:, None, None]
+    hi = torch.arange(hm, device=slash.device)[None, :, None]
+    vt = vt.index_put((bi.expand_as(hot), hi.expand_as(hot), hot.long()),
+                      torch.ones((), device=slash.device), accumulate=True)
+    return vt + 1e-12 * vertical, sl + 1e-12 * slash
+
+
 def _compact_flags(flags: torch.Tensor, pad_value: int) -> torch.Tensor:
     """[..., N] 0/1 flags -> ids of set positions ascending, the rest
     ``pad_value`` at the tail."""
@@ -385,14 +439,17 @@ def flat_heads(t: torch.Tensor, s_pad: int) -> torch.Tensor:
         b * n, s_pad, dh).contiguous()
 
 
-def _estimate(q, k, pats, scale, meta_heads, g):
+def _estimate(q, k, pats, scale, meta_heads, g, sim=None, sim_salt=0):
     """Scores of the vertical_and_slash heads among ``meta_heads``:
-    ({head: row}, vertical, slash) with [B, Hv, S] scores."""
+    ({head: row}, vertical, slash) with [B, Hv, S] scores (simulated with
+    ``sim``, ``sim_vs_scores``)."""
     vs_heads = [i for i in meta_heads if pats[i][0] == "vertical_and_slash"]
     if not vs_heads:
         return {}, None, None
     vertical, slash = estimate_vertical_slash(
         q[:, :, vs_heads], k, scale, head_kv=[i // g for i in vs_heads])
+    if sim is not None:
+        vertical, slash = sim_vs_scores(sim, vertical, slash, salt=sim_salt)
     return {hh: j for j, hh in enumerate(vs_heads)}, vertical, slash
 
 
@@ -444,12 +501,15 @@ def minference_prefill(
     bs_topk_blocks: int = 100,
     bs_block: int = 64,
     scale: Optional[float] = None,
+    sim: Optional[str] = None,
+    sim_salt: int = 0,
 ) -> torch.Tensor:
     """Per-head sparse prefill through the block walk (``vs_impl="walk"``):
     vertical_and_slash, stream_llm and dense heads become VS block
     metadata and run in ONE launch of kernel G (``kernels/vs_sparse.py``;
     its plain version on CPU tensors); block_sparse heads run
-    ``block_sparse_attention``. Returns [B, S, H, Dh]."""
+    ``block_sparse_attention``. ``sim`` / ``sim_salt``: the benchmark-only
+    score simulation (``sim_vs_scores``). Returns [B, S, H, Dh]."""
     from shadowkv_tpu_torch.kernels.vs_sparse import vs_sparse_attention
 
     b, s, h, dh = q.shape
@@ -462,7 +522,8 @@ def minference_prefill(
     n_blk = s_pad // block
     out = torch.zeros_like(q)
     if meta_heads:
-        rows, vertical, slash = _estimate(q, k, pats, scale, meta_heads, g)
+        rows, vertical, slash = _estimate(q, k, pats, scale, meta_heads, g,
+                                          sim, sim_salt)
         col = torch.empty(b, len(meta_heads), n_blk, dtype=torch.int32,
                           device=q.device)
         diag = torch.empty_like(col)
@@ -507,6 +568,8 @@ def minference_prefill_tile(
     bs_topk_blocks: int = 100,
     bs_block: int = 64,
     scale: Optional[float] = None,
+    sim: Optional[str] = None,
+    sim_salt: int = 0,
 ) -> torch.Tensor:
     """Per-head sparse prefill through the tile kernel (``vs_impl="tile"``,
     the default): verticals token-granular, slashes as block bands, one
@@ -521,8 +584,8 @@ def minference_prefill_tile(
     S is padded to a multiple of ``block`` and of kernel F's 128-row tile
     (JAX's ``tile`` argument sizes the TPU kernel's tiles only; padded rows
     are sliced off and padded keys masked, so it changes no result);
-    vertical lists are padded to one capacity with ``2 * S_pad``. Returns
-    [B, S, H, Dh]."""
+    vertical lists are padded to one capacity with ``2 * S_pad``. ``sim`` /
+    ``sim_salt`` as in ``minference_prefill``. Returns [B, S, H, Dh]."""
     from shadowkv_tpu_torch.kernels.vs_tile import TILE, vs_tile_attention
 
     b, s, h, dh = q.shape
@@ -535,7 +598,8 @@ def minference_prefill_tile(
     n_blk = s_pad // block
     out = torch.zeros_like(q)
     if meta_heads:
-        rows, vertical, slash = _estimate(q, k, pats, scale, meta_heads, g)
+        rows, vertical, slash = _estimate(q, k, pats, scale, meta_heads, g,
+                                          sim, sim_salt)
         nv_cap = max(topk_sizes(vsize, 0, s)[0] if kind == "vertical_and_slash"
                      else min(stream_sink, s) if kind == "stream_llm" else 1
                      for kind, vsize, _ in (pats[i] for i in meta_heads))

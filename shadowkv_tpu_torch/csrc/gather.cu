@@ -33,6 +33,18 @@
 //
 // The ids come from assign_slots_stable (core/selection.py), so every id is
 // a valid chunk of the store; the kernel does not bounds-check them.
+//
+// gather_v_rows_kernel (below) is the port's own kernel for the XLA-gather
+// branch over a bf16 V store in pinned host memory (the JAX HostVStore
+// path): V rows only, and only those of the chunks that MISSED. The JAX
+// package has no Pallas kernel there; its decode program calls back to the
+// host per layer (io_callback) and gathers with native/host_gather.cpp,
+// skipping the slots whose chunk stayed (gather_rows(skip=stay)). Here the
+// card reads the pinned rows in place, so the step never leaves the device
+// and stays inside the captured decode graph. One block per selected chunk:
+// a block whose stay flag is set returns at once, so only missed chunks
+// cross the host link (the reference's "skip the hit prefix"); the rows of
+// those slots in the output are left unwritten.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -95,6 +107,42 @@ __global__ void __launch_bounds__(kThreads)
         const int idx = base + u * kThreads;
         if (idx < total) dst[idx] = r[u];
       }
+    }
+  }
+}
+
+constexpr int kVThreads = 128;
+
+struct VRowsArgs {
+  const uint4* src;        // this layer's V store [B*K, n_rows * row_vecs]
+  uint4* dst;              // [B*K, S, chunk_vecs]
+  const int* ids;          // [B*K, S]
+  const uint8_t* stay;     // [B*K, S] 0/1
+  long long head_vecs;     // vectors between (b, k) heads of src
+  int chunk_vecs;          // vectors per chunk
+  int select_sets;
+};
+
+// grid (S, B*K): block (j, bk) copies chunk ids[bk, j] unless it stayed.
+__global__ void __launch_bounds__(kVThreads)
+    gather_v_rows_kernel(const __grid_constant__ VRowsArgs a) {
+  const long long slot = (long long)blockIdx.y * a.select_sets + blockIdx.x;
+  if (a.stay[slot]) return;
+  const int cv = a.chunk_vecs;
+  const uint4* __restrict__ src =
+      a.src + blockIdx.y * a.head_vecs + (long long)a.ids[slot] * cv;
+  uint4* __restrict__ dst = a.dst + slot * cv;
+  for (int base = threadIdx.x; base < cv; base += kVThreads * kUnroll) {
+    uint4 r[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int idx = base + u * kVThreads;
+      if (idx < cv) r[u] = src[idx];
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int idx = base + u * kVThreads;
+      if (idx < cv) dst[idx] = r[u];
     }
   }
 }
@@ -177,5 +225,39 @@ extern "C" int shadowkv_gather_chunks(
   dim3 grid((select_sets + kChunksPerBlock - 1) / kChunksPerBlock,
             batch * kv_heads);
   gather_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// v [B, K, n_rows, v_row_bytes] (this layer's slice; device or pinned host
+// memory), ids [B, K, S] int32, stay [B, K, S] bool; v_out [B, K, S, cs,
+// v_row_bytes], written only at the slots whose stay flag is clear.
+extern "C" int shadowkv_gather_v_rows(
+    const void* v, const void* ids, const void* stay, void* v_out,
+    int batch, int kv_heads, int n_rows, int select_sets, int chunk_size,
+    int v_row_bytes, void* stream) {
+  if (batch <= 0 || kv_heads <= 0 || select_sets <= 0 || chunk_size <= 0 ||
+      n_rows % chunk_size || batch * kv_heads > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const void* v_dev = nullptr;
+  int rc = shadowkv_kernel_pointer(v, &v_dev);
+  if (rc) return rc;
+  const long long chunk_bytes = (long long)chunk_size * v_row_bytes;
+  const long long head_bytes = (long long)n_rows * v_row_bytes;
+  if (chunk_bytes % 16 || head_bytes % 16 || !aligned16(v_dev) ||
+      !aligned16(v_out)) {
+    return (int)cudaErrorMisalignedAddress;
+  }
+  VRowsArgs a;
+  a.src = static_cast<const uint4*>(v_dev);
+  a.dst = static_cast<uint4*>(v_out);
+  a.ids = static_cast<const int*>(ids);
+  a.stay = static_cast<const uint8_t*>(stay);
+  a.head_vecs = head_bytes / 16;
+  a.chunk_vecs = (int)(chunk_bytes / 16);
+  a.select_sets = select_sets;
+  dim3 grid(select_sets, batch * kv_heads);
+  gather_v_rows_kernel<<<grid, kVThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }

@@ -58,8 +58,8 @@ def parse_args(argv=None):
                         "bench's default regime — eval it here)")
     p.add_argument("--approx_topk", type=int, default=None,
                    choices=[0, 1],
-                   help="0 = exact top-k (the port's only top-k); 1 = "
-                        "the TPU's approx_max_k, which the port refuses")
+                   help="1 = JAX's approx_max_k, which is exact off the "
+                        "TPU: the port's top-k is exact with 0 and 1")
     p.add_argument("--stream_sink", type=int, default=None)
     p.add_argument("--stream_window", type=int, default=None,
                    help="stream-prefill geometry; set both < datalen "
@@ -98,12 +98,23 @@ def parse_args(argv=None):
 def main(argv=None):
     args = parse_args(argv)
 
-    from shadowkv_tpu_torch.data.dataset import Dataset
-    from shadowkv_tpu_torch.eval.evaluator import Evaluator, init_dist
-    from shadowkv_tpu_torch.models.llm import LLM
+    from shadowkv_tpu_torch.eval.evaluator import (
+        Evaluator,
+        close_dist,
+        init_dist,
+    )
 
     dist = init_dist()
-    evaluator = Evaluator(dist)
+    try:
+        _evaluate(args, dist, Evaluator(dist))
+    finally:
+        close_dist(dist)
+
+
+def _evaluate(args, dist, evaluator):
+    """Build the LLM, evaluate every dataset and print the summary."""
+    from shadowkv_tpu_torch.data.dataset import Dataset
+    from shadowkv_tpu_torch.models.llm import LLM
 
     llm = LLM(
         model_name=args.model_name,

@@ -60,6 +60,21 @@ def init_dist(backend: Optional[str] = None) -> DistConfig:
     return cfg
 
 
+def close_dist(dist: DistConfig) -> None:
+    """Leave the process group that ``init_dist`` joined: a barrier, so no
+    rank tears down while another still talks to it, then
+    ``destroy_process_group``. Nothing happens for one process. A group
+    left up until interpreter exit has its gloo threads torn down in no
+    order, which can abort the process."""
+    if not dist.is_distributed:
+        return
+    import torch.distributed as tdist
+
+    if tdist.is_initialized():
+        tdist.barrier()
+        tdist.destroy_process_group()
+
+
 def _allgather_rows(rows: np.ndarray, dist: DistConfig) -> np.ndarray:
     """[n, 2] float64 rows of every rank -> [W, n, 2] (one
     ``all_gather``; the tensors live on the card under NCCL)."""

@@ -51,6 +51,7 @@ _SIGNATURES = {
         [_P] * 4 + [_I] * 5 + [ctypes.c_float] + [_I] * 2 + [_P], _I
     ),
     "shadowkv_gather_chunks": ([_P] * 9 + [_I] * 7 + [_P], _I),
+    "shadowkv_gather_v_rows": ([_P] * 4 + [_I] * 6 + [_P], _I),
     "shadowkv_vs_sparse_attention": (
         [_P] * 8 + [_I] * 5 + [ctypes.c_float, _P], _I
     ),

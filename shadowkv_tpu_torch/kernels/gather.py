@@ -22,12 +22,21 @@ the port keeps them in their own tensors and the kernel gathers them too.
 
 The ids come from ``assign_slots_stable``, so every id is a valid chunk;
 the kernel does not bounds-check them.
+
+``gather_v_rows`` is the port's own kernel for the JAX ``HostVStore`` path
+(``shadowkv_tpu/cache/offload.py``), which has no Pallas kernel: V rows
+only, of the
+chunks that missed (a slot whose chunk stayed is skipped, JAX's
+``gather_rows(skip=stay)`` of ``native/host_gather.cpp``), read in place
+from a pinned host store (or a store on the card), inside the decode step.
+What bounds it is the missed chunks' bytes over the host link.
 """
 
 from __future__ import annotations
 
 import torch
 
+from shadowkv_tpu_torch.core.selection import chunk_ids_to_positions
 from shadowkv_tpu_torch.kernels import build
 
 
@@ -143,3 +152,72 @@ def gather_chunks(
 
 gather_chunks.launches = 0  # kernel launches (CUDA path only)
 gather_chunks.host_launches = 0  # of which read V from pinned host memory
+
+
+def gather_v_rows_plain(
+    layer: int,
+    slot_ids: torch.Tensor,
+    stay: torch.Tensor,
+    v_full: torch.Tensor,
+    *,
+    chunk_size: int,
+) -> torch.Tensor:
+    """Plain PyTorch version: every selected chunk's V rows by indexing,
+    then zeros where ``stay`` is set."""
+    b, kh, s = slot_ids.shape
+    dev = slot_ids.device
+    rows = chunk_ids_to_positions(slot_ids, chunk_size)
+    bi = torch.arange(b, device=dev)[:, None, None]
+    ki = torch.arange(kh, device=dev)[None, :, None]
+    v = v_full[layer][bi, ki, rows].view(b, kh, s, chunk_size, -1)
+    return torch.where(stay[..., None, None], torch.zeros((), dtype=v.dtype,
+                                                          device=dev), v)
+
+
+def gather_v_rows(
+    layer: int,
+    slot_ids: torch.Tensor,  # [B, K, S] int32 selected chunk ids
+    stay: torch.Tensor,  # [B, K, S] bool: the slot keeps its chunk
+    v_full: torch.Tensor,  # [L, B, K, C*cs, Dh]; pinned CPU or CUDA
+    *,
+    chunk_size: int,
+) -> torch.Tensor:
+    """Layer ``layer``'s V rows of the chunks that missed, [B, K, S, cs,
+    Dh] in the store's dtype. Rows of the slots where ``stay`` is set are
+    unspecified (the kernel does not write them; the caller keeps the
+    resident rows there)."""
+    if not slot_ids.is_cuda:
+        return gather_v_rows_plain(layer, slot_ids, stay, v_full,
+                                   chunk_size=chunk_size)
+    dev = slot_ids.device
+    for t in (slot_ids, stay):
+        if not t.is_cuda or t.device != dev or not t.is_contiguous():
+            raise ValueError("gather_v_rows: ids and stay must be contiguous "
+                             "tensors on one CUDA device")
+    build.check_v_store(v_full, dev, "gather_v_rows")
+    if slot_ids.dtype != torch.int32 or slot_ids.dim() != 3 \
+            or stay.dtype != torch.bool or stay.shape != slot_ids.shape:
+        raise ValueError("gather_v_rows: slot_ids [B, K, S] int32 and stay "
+                         "[B, K, S] bool")
+    l, b, kh, n_rows, dh = v_full.shape
+    if (b, kh) != tuple(slot_ids.shape[:2]) or n_rows % chunk_size:
+        raise ValueError(f"store shapes disagree: ids {tuple(slot_ids.shape)}"
+                         f", v {tuple(v_full.shape)}")
+    if not 0 <= layer < l:
+        raise IndexError(f"layer {layer} out of range for {l} layers")
+    s = slot_ids.shape[2]
+    out = torch.empty(b, kh, s, chunk_size, dh, dtype=v_full.dtype,
+                      device=dev)
+    lib = build.library()
+    gather_v_rows.launches += 1
+    rc = lib.shadowkv_gather_v_rows(
+        v_full[layer].data_ptr(), slot_ids.data_ptr(), stay.data_ptr(),
+        out.data_ptr(), b, kh, n_rows, s, chunk_size,
+        dh * v_full.element_size(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    build.check(rc, "gather_v_rows")
+    return out
+
+
+gather_v_rows.launches = 0  # kernel launches (CUDA path only)

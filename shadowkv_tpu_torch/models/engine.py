@@ -37,11 +37,19 @@ layer of each prefill sub-batch copies its V rows straight into it, so the
 full-batch V store is never on the card; the JAX engine instead prefills a
 sub-batch's whole V store on the device and evicts it after the sub-batch.
 Decode reads the host store in place through the fused refresh kernel
-(misses only) or the chunk-gather kernel (every selected chunk); no host
-copy enters the decode step. An admission prefills straight into its slot
-of the live store, and a snapshot is one slot of it copied to a pinned
-tensor. Not ported (ROADMAP.md §1 'Host offload, rest'): the
-``HostVStore`` io_callback path and the layer-segmented offload prefill.
+(misses only), the chunk-gather kernel (every selected chunk) or, with
+neither kernel on a bf16 store, the XLA-gather branch, whose V rows are
+the missed chunks only, read by the port's ``gather_v_rows`` kernel (JAX's
+``HostVStore`` io_callback path, ``_offload_v``); no host copy enters the
+decode step. An admission prefills straight into its slot of the live
+store, and a snapshot is one slot of it copied to a pinned tensor. With
+``offload_prefill_segments > 1`` (JAX ``_prefill_offload_segmented``) the
+whole batch is prefilled in one call; the store is then recorded as
+sharded over layers and refuses admissions, as JAX's does. JAX runs the
+layers in segments so that one segment's V store, staged on the device,
+fits beside the rest; here each layer's V rows already go straight into
+the pinned store, so no segment is staged and the call is the ordinary
+prefill over the whole batch.
 
 Context checkpoints (``save_state`` / ``load_state``,
 ``utils/checkpoint.py``) write the live shadow cache to one file and load
@@ -136,6 +144,18 @@ class Engine:
         self.use_kernel = rt.use_pallas is True
         self.ring_gather = bool(rt.ring_gather)
         self.v_on_host = cache_cfg.mode == "shadow_offload"
+        # Offload with neither kernel: JAX's HostVStore (io_callback)
+        # path, which reads the missed chunks' V rows from the store.
+        self.host_store = self.v_on_host and not (self.use_kernel
+                                                  or self.ring_gather)
+        # The host store's shard axis as JAX records it: 'batch', or
+        # 'layer' after a segmented offload prefill (no admissions then).
+        self._host_axis = "batch"
+        self.decode_segmented = bool(rt.decode_segmented)
+        segs = rt.offload_prefill_segments
+        if segs > 1 and model.num_layers % segs:
+            raise ValueError(f"offload_prefill_segments {segs} does not "
+                             f"divide the {model.num_layers} layers")
         self._kernel_now = self.use_kernel  # the live path
         self._hit_threshold = (rt.hit_threshold(cache_cfg)
                                if self.pallas_auto else None)
@@ -169,6 +189,9 @@ class Engine:
                 f"{self.cache_cfg.max_length}"
             )
         t = max(1, min(self.rt.prefill_sub_batch, b))
+        segmented = self.rt.offload_prefill_segments > 1
+        if segmented:
+            t = b
         # The old cache's graphs bake in its addresses: drop them, and the
         # cache, before the new one is allocated.
         self._cache = None
@@ -178,6 +201,7 @@ class Engine:
             layout = ShadowLayout.build(self.cache_cfg, s)
             cache = ShadowCache.init(self.model, layout, b, self.device,
                                      v_on_host=self.v_on_host)
+            self._host_axis = "layer" if segmented else "batch"
             for b0 in range(0, b, t):
                 parts.append(forward.prefill_shadow_into(
                     self.model, self.params, cache, input_ids[b0:b0 + t],
@@ -220,6 +244,7 @@ class Engine:
                 use_kernel=self._kernel_now, ring=self.ring_gather,
                 debug_hit_rate=self._debug_hit_rate,
                 debug_hit_layout=self.rt.debug_hit_layout,
+                segmented=self.decode_segmented,
             )
         return forward.decode_full(
             self.model, self.params, cache, tokens, self.cos_table,
@@ -532,11 +557,17 @@ class Engine:
         ``admit_slot``); the other slots, the graphs and the step buffers
         are untouched. Every field is written in place, and with V in host
         memory each layer's V rows go straight into the slot's rows of the
-        pinned store, so neither mode needs a one-slot cache. Returns
+        pinned store, so neither mode needs a one-slot cache. A store from
+        a segmented offload prefill refuses, as JAX's does. Returns
         (last-token logits [1, 1, V], cache)."""
         if not self.is_shadow:
             raise ValueError("slot admission serves the shadow cache modes")
         self._steps_for(cache)
+        if self._host_axis != "batch":
+            raise ValueError(
+                "slot admission over a layer-sharded host store (from a "
+                "segmented offload prefill) is unsupported — serve with "
+                "offload_prefill_segments=1")
         ids = torch.as_tensor(np.asarray(ids_row)[None],
                               dtype=torch.long).to(self.device)
         lg = forward.prefill_shadow_into(
@@ -613,7 +644,11 @@ class Engine:
         if self._cache is None:
             raise ValueError("save_state needs a prefilled cache: call "
                              "prefill() or generate() first")
-        checkpoint.save_shadow_state(self._cache, path)
+        if not self.v_on_host:
+            variant = "hbm"
+        else:
+            variant = "io_callback" if self.host_store else "host"
+        checkpoint.save_shadow_state(self._cache, path, variant=variant)
 
     def load_state(self, path: str) -> None:
         """Load a ``save_state`` file as the live cache; afterwards
@@ -639,6 +674,7 @@ class Engine:
                 f"this engine's model [L {m.num_layers}, K "
                 f"{m.num_kv_heads}, Dh {m.head_dim}]")
         self._cache = cache
+        self._host_axis = "batch"
         self._hit_prev_ids = None
         depth = cache.gen_len.cpu().numpy().astype(np.int64)
         self._steps = StepGraphs(cache, b, depth, self.cache_cfg.gen_capacity,
@@ -684,6 +720,8 @@ class Engine:
         out["bytes_by_field"] = bytes_by_field
         host_bytes = 0
         if self.is_shadow and cache.v_on_host:
+            # the host V store of every offload path, as JAX counts
+            # v_store.rows
             host_bytes = bytes_by_field.pop("v_full")
         out["device_bytes"] = sum(bytes_by_field.values())
         out["host_bytes"] = host_bytes

@@ -12,7 +12,8 @@ graph (``models/engine.py``).
 - ``prefill_shadow_into`` / ``decode_shadow``: the ShadowKV path (dense
   prefill building the shadow cache, its V store on the card or in host
   memory; sparse decode through the fused refresh kernel or the
-  XLA-gather branch, see ``cache/shadow.py``).
+  XLA-gather branch, see ``cache/shadow.py``, with decode attention over
+  the whole buffer or, ``decode_segmented``, over its segments).
 
 Prefill attention follows ``RuntimeConfig.prefill_pattern`` (JAX
 ``forward.py`` :244-266 and :544-560): ``"dense"``/``"dense-splash"`` take
@@ -40,7 +41,10 @@ from shadowkv_tpu_torch.config import ModelConfig, RuntimeConfig
 from shadowkv_tpu_torch.core import minference as mi
 from shadowkv_tpu_torch.core import rope as rope_lib
 from shadowkv_tpu_torch.core import wquant
-from shadowkv_tpu_torch.core.attention import decode_attention_hm
+from shadowkv_tpu_torch.core.attention import (
+    decode_attention_hm,
+    decode_attention_segments,
+)
 from shadowkv_tpu_torch.core.layers import (
     LayerParams,
     ModelParams,
@@ -121,11 +125,16 @@ def prefill_attention(rt: RuntimeConfig, layer: int, q, k, v) -> torch.Tensor:
         return sparse_prefill_splash(q, k, v, rt.stream_window, rt.stream_sink)
     if rt.prefill_pattern != "vs":
         return causal_prefill_splash(q, k, v)
-    patterns = (rt.minference_patterns if rt.minference_layer_patterns is None
-                else rt.minference_layer_patterns[layer])
-    kw = dict(patterns=patterns, vertical_size=rt.vs_vertical_size,
+    kw = dict(vertical_size=rt.vs_vertical_size,
               slash_size=rt.vs_slash_size, block=rt.vs_block,
               stream_sink=rt.stream_sink, stream_window=rt.stream_window)
+    if rt.minference_layer_patterns is None:
+        # The score simulation serves uniform tables only, as in JAX (its
+        # per-layer path takes no ``sim``).
+        kw.update(patterns=rt.minference_patterns, sim=rt.vs_sim,
+                  sim_salt=layer)
+    else:
+        kw.update(patterns=rt.minference_layer_patterns[layer])
     if rt.vs_impl == "tile":
         return mi.minference_prefill_tile(q, k, v, **kw)
     return mi.minference_prefill(q, k, v, **kw)
@@ -208,9 +217,9 @@ def shadow_prefill_body(
     omega: torch.Tensor | None = None,
     rt: RuntimeConfig = _DENSE,
 ) -> torch.Tensor:
-    """One prefill layer (JAX ``make_shadow_prefill_body``, non-segmented):
-    QKV + RoPE, the layer's shadow-cache slices written into ``cache`` at
-    (layer, batch_start), the configured prefill attention, MLP. Returns the new
+    """One prefill layer (JAX ``make_shadow_prefill_body``): QKV + RoPE,
+    the layer's shadow-cache slices written into ``cache`` at (layer,
+    batch_start), the configured prefill attention, MLP. Returns the new
     residual. A host V store takes its rows by a synchronous copy from the
     card, so the layer's V rows are on the card only while it runs."""
     q, k_r, k_pre, v = _layer_qkv(model, lp, x, cos, sin)
@@ -263,11 +272,16 @@ def decode_shadow(
     ring: bool = False,
     debug_hit_rate: float | None = None,
     debug_hit_layout: str = "scatter",
+    segmented: bool = False,
 ) -> torch.Tensor:
     """One sparse decode step over all layers; advances ``cache.gen_len``
     in place.
     ``use_kernel`` picks the fused refresh, else the XLA-gather branch
-    (through the chunk-gather kernel with ``ring``)."""
+    (through the chunk-gather kernel with ``ring``; with V in host memory
+    and no ``ring``, reading V's missed chunks only). ``segmented`` runs the
+    XLA-gather branch's attention over the buffer's segments
+    (``decode_attention_segments``; JAX ``forward.py`` :604-677); the fused
+    refresh ignores it (JAX :638-640)."""
     b, qn = tokens.shape
     x = wquant.take_rows(params.embed, tokens, model.dtype)
     cos, sin = _decode_tables(cos_table, sin_table, cache.kv_len, qn)
@@ -278,9 +292,12 @@ def decode_shadow(
             model, cache, layer, q, k_r, v, inv_freq_full, hysteresis,
             use_kernel=use_kernel, ring=ring, cos_table=cos_table,
             sin_table=sin_table, debug_hit_rate=debug_hit_rate,
-            debug_hit_layout=debug_hit_layout,
+            debug_hit_layout=debug_hit_layout, segmented=segmented,
         )
-        ctx = decode_attention_hm(q, k_view, v_view, valid_len)
+        if v_view is None:
+            ctx = decode_attention_segments(q, k_view, valid_len)
+        else:
+            ctx = decode_attention_hm(q, k_view, v_view, valid_len)
         x = _layer_tail(lp, model, x, ctx)
     cache.gen_len.add_(qn)
     return _finalize(model, params, x)

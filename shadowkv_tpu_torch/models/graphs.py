@@ -41,13 +41,14 @@ from typing import Callable
 import numpy as np
 import torch
 
-from shadowkv_tpu_torch.kernels.gather import gather_chunks
+from shadowkv_tpu_torch.kernels.gather import gather_chunks, gather_v_rows
 from shadowkv_tpu_torch.kernels.reconstruct import sparse_refresh
 
 # (wrapper, counter attribute) of the kernels a decode step launches
 COUNTERS = (
     (sparse_refresh, "launches"), (sparse_refresh, "host_launches"),
     (gather_chunks, "launches"), (gather_chunks, "host_launches"),
+    (gather_v_rows, "launches"),
 )
 
 

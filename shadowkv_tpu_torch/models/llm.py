@@ -88,9 +88,10 @@ class LLM:
     sparse defaults budget 2048, rank 160, chunk 8), plus ``device``.
     ``minference`` True or 'vs' selects the per-head vertical + slash
     prefill, 'stream' the sink + window prefill. ``approx_topk`` is
-    accepted for the JAX flag: the port's top-k is always exact, which is
-    what ``False`` asks for and what JAX computes on the CPU, so ``True``
-    raises."""
+    accepted for the JAX flag and ignored: JAX takes ``approx_max_k`` only
+    off the CPU, and XLA's approximate top-k is exact outside the TPU, so
+    the port runs its exact top-k either way and the reference's
+    ``--approx_topk 1`` command lines run unchanged."""
 
     def __init__(
         self,
@@ -125,10 +126,6 @@ class LLM:
                 raise NotImplementedError(
                     f"{name}={n}: the port runs on one device; dp/tp/sp/pp "
                     "are not ported yet (ROADMAP.md §1 'Parallelism')")
-        if approx_topk:
-            raise NotImplementedError(
-                "approx_topk=True is the TPU's approx_max_k; the port's "
-                "top-k is exact (approx_topk=False or None)")
         weight_quant = weight_quant or "none"
         if weight_quant not in ("none", "int8"):
             raise ValueError(f"unknown weight_quant {weight_quant!r}")

@@ -60,43 +60,7 @@ from shadowkv_tpu_torch.core.sampling import sample_token
 from shadowkv_tpu_torch.models.engine import Engine
 from shadowkv_tpu_torch.models.params import init_synthetic_params
 from shadowkv_tpu_torch.models.registry import llama31_8b
-
-
-def _busy_seconds(prof, windows=None) -> float:
-    """Union of the device kernels' [start, end) intervals, in seconds;
-    with ``windows`` ([(start, end)] in the profiler's microseconds), only
-    the parts inside them."""
-    spans = sorted(
-        (e.time_range.start, e.time_range.end)
-        for e in prof.events()
-        if e.device_type == torch.autograd.DeviceType.CUDA
-        and not getattr(e, "is_user_annotation", False)
-    )
-    if windows is not None:
-        spans = sorted((max(s, a), min(e, b)) for s, e in spans
-                       for a, b in windows if s < b and e > a)
-    busy, cur_s, cur_e = 0.0, None, None
-    for s, e in spans:
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        busy += cur_e - cur_s
-    return busy * 1e-6  # profiler times are microseconds
-
-
-def _top(prof, n: int = 12) -> list[dict]:
-    rows = []
-    for a in prof.key_averages():
-        dev_us = getattr(a, "self_device_time_total", 0.0)
-        if dev_us > 0:
-            rows.append({"name": a.key[:80], "calls": a.count,
-                         "device_ms": dev_us / 1e3})
-    rows.sort(key=lambda r: -r["device_ms"])
-    return rows[:n]
+from shadowkv_tpu_torch.utils.profiling import busy_seconds, top_kernels
 
 
 # mode -> (cache mode, decode runtime settings)
@@ -171,7 +135,7 @@ def profile_serve(eng, args, meta: dict) -> None:
     windows = [(e.time_range.start, e.time_range.end) for e in prof.events()
                if e.name == "serve_decode_chunk"
                and e.device_type == torch.autograd.DeviceType.CPU]
-    busy = _busy_seconds(prof, windows)
+    busy = busy_seconds(prof, windows)
     chunks = sum(chunk_walls)
     span = sum(b - a for a, b in windows) * 1e-6
     print(json.dumps({
@@ -182,7 +146,7 @@ def profile_serve(eng, args, meta: dict) -> None:
         "bookkeeping_ms_per_chunk": (st.wall_seconds - st.admission_seconds
                                      - chunks) / max(1, st.chunks) * 1e3,
         "chunk_walls_s": chunk_walls,
-        "chunk_busy_s": [_busy_seconds(prof, [w]) for w in windows],
+        "chunk_busy_s": [busy_seconds(prof, [w]) for w in windows],
         "chunk_device_busy_s": busy,
         "chunk_idle_share": 1.0 - busy / span if span > 0 else None,
         "decode_steps": st.decode_steps, "chunks": st.chunks,
@@ -219,7 +183,7 @@ def _kernel_ms(prof) -> dict:
 
 def _report(prof, wall: float, label: str, extra: dict, out_dir: Path,
             steps: int | None = None) -> None:
-    busy = _busy_seconds(prof)
+    busy = busy_seconds(prof)
     if steps:
         extra = dict(extra, steps=steps, ms_per_step=wall / steps * 1e3,
                      device_busy_ms_per_step=busy / steps * 1e3)
@@ -231,7 +195,7 @@ def _report(prof, wall: float, label: str, extra: dict, out_dir: Path,
     print(json.dumps({
         "window": label, "wall_s": wall, "device_busy_s": busy,
         "idle_share": 1.0 - busy / wall if wall > 0 else None,
-        "kernels": _kernel_ms(prof), "top": _top(prof), **extra,
+        "kernels": _kernel_ms(prof), "top": top_kernels(prof), **extra,
     }), flush=True)
 
 

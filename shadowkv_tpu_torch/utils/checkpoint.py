@@ -10,7 +10,8 @@ Format: one uncompressed ``.npz`` holding every array field of the port's
 ``ShadowCache`` (``ShadowCache.FIELDS``; bfloat16 stored as an int16 view,
 numpy having no bfloat16), ``gen_len`` (0-d, or [B] per-slot depths), and a
 ``__meta__`` JSON header: the ``ShadowLayout``, each entry's dtype, the
-format version and whether the V store was in host memory. The port lays
+format version, whether the V store was in host memory and the writing
+engine's V placement (``variant``). The port lays
 its stores out in its own way (ROADMAP.md "Layouts"), so the format has its
 own version and does not read the JAX package's files.
 
@@ -50,8 +51,12 @@ def _decode(a: np.ndarray, name: str) -> torch.Tensor:
     return t.view(torch.bfloat16) if name == "bfloat16" else t
 
 
-def save_shadow_state(cache: ShadowCache, path: str) -> None:
-    """Write a prefilled (or mid-generation) ShadowCache to ``path``."""
+def save_shadow_state(cache: ShadowCache, path: str,
+                      variant: str = "hbm") -> None:
+    """Write a prefilled (or mid-generation) ShadowCache to ``path``.
+    ``variant`` records which V placement wrote it (as JAX's header does:
+    'hbm', 'host' for the kernels' pinned store, 'io_callback' for the
+    HostVStore path); any variant loads into any other."""
     entries: dict[str, np.ndarray] = {}
     dtypes: dict[str, str] = {}
     for name in _ENTRIES:
@@ -63,6 +68,7 @@ def save_shadow_state(cache: ShadowCache, path: str) -> None:
         "layout": dataclasses.asdict(cache.layout),
         "dtypes": dtypes,
         "v_on_host": cache.v_on_host,
+        "variant": variant,
     }
     entries["__meta__"] = np.frombuffer(json.dumps(meta).encode(),
                                         dtype=np.uint8)

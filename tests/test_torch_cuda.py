@@ -17,8 +17,11 @@ memory. The compiled decode step (CUDA graphs) on a toy bf16 engine: for
 each decode path, steps through the graph give the eager steps' tokens and
 bit-equal cache state; kernel launches are counted through replays;
 sampling inside the graph draws new numbers at every replay; 'auto'
-captures both paths. int8 weight quantization (``core/wquant.py``) on the
-card equals the host's bit for bit."""
+captures both paths; the HostVStore path (miss-only V gather from the
+pinned store) and the segmented decode attention are among the paths;
+``utils/profiling.program_table`` gives one row per replayed graph. int8
+weight quantization (``core/wquant.py``) on the card equals the host's bit
+for bit."""
 
 from __future__ import annotations
 
@@ -35,7 +38,12 @@ from shadowkv_tpu_torch.core.minference import (
 )
 from shadowkv_tpu_torch.core.quant import quantize_store
 from shadowkv_tpu_torch.core.selection import assign_slots_stable, compact_misses
-from shadowkv_tpu_torch.kernels.gather import gather_chunks, gather_chunks_plain
+from shadowkv_tpu_torch.kernels.gather import (
+    gather_chunks,
+    gather_chunks_plain,
+    gather_v_rows,
+    gather_v_rows_plain,
+)
 from shadowkv_tpu_torch.kernels.prefill_attention import (
     causal_prefill_splash,
     sparse_prefill_splash,
@@ -418,6 +426,28 @@ def test_gather_kernel_matches_plain(gen, quant, host_v):
             assert got.is_cuda and torch.equal(got, want)
 
 
+@pytest.mark.parametrize("host_v", [False, True])
+def test_gather_v_rows_matches_plain(gen, host_v):
+    """The miss-only V gather (the HostVStore path): the rows of every slot
+    that missed bit-equal to the plain version's, about half of the slots
+    staying (their rows are unspecified)."""
+    ids, _, v, _, _ = _gather_inputs(gen, False)
+    stay = torch.rand(ids.shape, device="cuda", generator=gen) < 0.5
+    ref = gather_v_rows_plain(1, ids, stay, v, chunk_size=16)
+    v_in = v.cpu().pin_memory() if host_v else v
+    before = gather_v_rows.launches
+    out = gather_v_rows(1, ids, stay, v_in, chunk_size=16)
+    torch.cuda.synchronize()
+    assert gather_v_rows.launches == before + 1
+    assert out.shape == ids.shape + (16, 128) and out.is_cuda
+    miss = ~stay
+    assert torch.equal(out[miss], ref[miss]) and miss.any() and stay.any()
+    with pytest.raises(ValueError, match="pinned"):
+        gather_v_rows(1, ids, stay, v.cpu(), chunk_size=16)
+    with pytest.raises(ValueError, match="bool"):
+        gather_v_rows(1, ids, stay.int(), v_in, chunk_size=16)
+
+
 def test_host_store_must_be_pinned_and_the_rest_on_the_card(gen):
     ids, u, v, u_sc, v_sc = _gather_inputs(gen, True)
     with pytest.raises(ValueError, match="pinned"):
@@ -504,11 +534,17 @@ GRAPH_PATHS = {
     "offload-ring": ("shadow_offload", dict(ring_gather=True),
                      ("launches", "host_launches")),
     "full": ("full", dict(), ()),
+    # the HostVStore path (bf16 stores: kv_quant 'none')
+    "offload-host": ("shadow_offload", dict(use_pallas=None), ("launches",)),
+    "xla-gather-segmented": ("shadow", dict(decode_segmented=True), ()),
+    "ring-segmented": ("shadow", dict(ring_gather=True,
+                                      decode_segmented=True), ("launches",)),
 }
+BF16_STORE_PATHS = ("offload-host",)
 GRAPH_STEPS = 6
 
 
-def _toy_engine(mode, **rt_kw):
+def _toy_engine(mode, kv_quant="int8", **rt_kw):
     import numpy as np
 
     from shadowkv_tpu_torch.config import CacheConfig, RuntimeConfig
@@ -522,14 +558,22 @@ def _toy_engine(mode, **rt_kw):
         cfg, torch.Generator(device="cuda").manual_seed(0), scale=0.2,
         device="cuda")
     cc = CacheConfig(mode=mode, max_length=544, sparse_budget=128, rank=64,
-                     chunk_size=16, kv_quant="int8", outlier_chunks=4,
+                     chunk_size=16, kv_quant=kv_quant, outlier_chunks=4,
                      gen_capacity=32)
     eng = Engine(cfg, cc, RuntimeConfig(**rt_kw), params, device="cuda")
     ids = np.random.RandomState(0).randint(1, cfg.vocab_size, (2, 512))
     return eng, ids
 
 
+def _path_engine(path):
+    mode, rt_kw, _ = GRAPH_PATHS[path]
+    quant = "none" if path in BF16_STORE_PATHS else "int8"
+    return _toy_engine(mode, kv_quant=quant, **rt_kw)
+
+
 def _decode_kernel(path):
+    if path in BF16_STORE_PATHS:
+        return gather_v_rows
     return sparse_refresh if GRAPH_PATHS[path][1].get("use_pallas") \
         else gather_chunks
 
@@ -542,8 +586,8 @@ def test_graph_steps_equal_eager_steps(gen, path):
     same inputs, so the same tokens and bit-equal cache state."""
     import dataclasses
 
-    mode, rt_kw, _ = GRAPH_PATHS[path]
-    eng, ids = _toy_engine(mode, **rt_kw)
+    mode = GRAPH_PATHS[path][0]
+    eng, ids = _path_engine(path)
     logits, cache = eng.prefill(ids)
     tok = logits[:, -1].argmax(-1).int()
     names = ("k_buf", "v_buf", "cached_ids", "gen_len") if mode != "full" \
@@ -567,8 +611,8 @@ def test_graph_steps_equal_eager_steps(gen, path):
 def test_launch_counts_through_replays(gen, path):
     """batch_generate's decode kernel launches counted through the graph's
     replays: once per layer and step, host-V launches likewise."""
-    mode, rt_kw, attrs = GRAPH_PATHS[path]
-    eng, ids = _toy_engine(mode, **rt_kw)
+    attrs = GRAPH_PATHS[path][2]
+    eng, ids = _path_engine(path)
     fn = _decode_kernel(path)
     saved = {a: getattr(fn, a) for a in attrs}
     for a in attrs:
@@ -625,6 +669,26 @@ def test_auto_captures_both_paths(gen):
     assert eng._kernel_now and eng._auto_switches >= 1
     layers = eng.model.num_layers
     assert launched % layers == 0 and layers <= launched < layers * 8
+
+
+def test_program_table_has_one_row_per_replayed_graph(gen, tmp_path):
+    """``utils/profiling.program_table`` over a trace of GRAPH_STEPS
+    replays of one captured decode step: one row, GRAPH_STEPS calls, the
+    device time of the kernels those replays ran."""
+    from shadowkv_tpu_torch.utils import profiling
+
+    eng, ids = _toy_engine("shadow", use_pallas=True)
+    logits, cache = eng.prefill(ids)
+    tok = logits[:, -1].argmax(-1).int()
+    zeros = torch.zeros(GRAPH_STEPS, 2, dtype=torch.int32, device="cuda")
+    # the eager step, the capture and the first replays
+    tok, _ = eng.decode_chunk(cache, tok, zeros, zeros.bool())
+    with profiling.trace(str(tmp_path)):
+        eng.decode_chunk(cache, tok, zeros, zeros.bool())
+    rows = profiling.program_table(str(tmp_path))
+    assert len(eng._steps._graphs) == 1
+    assert len(rows) == 1 and rows[0]["count"] == GRAPH_STEPS
+    assert rows[0]["ms"] > 0
 
 
 @pytest.mark.parametrize("shape, axis", [((3, 512, 384), -2), ((1000, 256), -1)])

@@ -217,7 +217,8 @@ def test_evaluator_archive_and_resume_match_jax(tmp_path):
 _WORKER = textwrap.dedent("""
     import os, sys
     sys.path.insert(0, {repo!r})
-    from shadowkv_tpu_torch.eval.evaluator import Evaluator, init_dist
+    from shadowkv_tpu_torch.eval.evaluator import (
+        Evaluator, close_dist, init_dist)
     dist = init_dist()
     assert dist.is_distributed and dist.world_size == 2
     ev = Evaluator(dist)
@@ -229,6 +230,7 @@ _WORKER = textwrap.dedent("""
         # weighted mean: (2*1.0 + 3*0.5) / 5 = 0.7
         assert table and "0.7000" in table, table
         print("TABLE_OK")
+    close_dist(dist)
 """)
 
 

@@ -67,6 +67,7 @@ def test_port_files_exist():
         "shadowkv_tpu_torch/config.py",
         "shadowkv_tpu_torch/kernels/reconstruct.py",
         "shadowkv_tpu_torch/kernels/gather.py",
+        "shadowkv_tpu_torch/utils/profiling.py",
         "shadowkv_tpu_torch/kernels/prefill_attention.py",
         "shadowkv_tpu_torch/kernels/vs_tile.py",
         "shadowkv_tpu_torch/kernels/vs_sparse.py",
@@ -141,27 +142,66 @@ def test_engine_cuda_without_gpu_raises():
 @pytest.mark.parametrize(
     "cache_kw, rt_kw",
     [
-        # the JAX HostVStore io_callback path (bf16 offload, no kernel)
-        (dict(mode="shadow_offload"), dict()),
+        # an int8 offloaded store with neither decode kernel
+        (dict(mode="shadow_offload", kv_quant="int8"), dict()),
         (dict(mode="shadow"), dict(sp=2)),
+        # the segmented offload prefill needs ring_gather
         (dict(mode="shadow_offload"),
          dict(use_pallas=True, offload_prefill_segments=2)),
         (dict(mode="full"), dict(tp=2)),
-        (dict(mode="full"), dict(prefill_pattern="vs", vs_sim="clustered")),
+        (dict(mode="full"), dict(prefill_pattern="vs", vs_sim="uniform")),
         (dict(mode="full"), dict(pp=2)),
-        (dict(mode="shadow"), dict(decode_segmented=True)),
+        # ... and shadow_offload
+        (dict(mode="shadow"),
+         dict(ring_gather=True, offload_prefill_segments=2)),
     ],
 )
 def test_unserved_settings_are_rejected(cache_kw, rt_kw):
-    """Unported values of served fields raise NotImplementedError naming
-    the ROADMAP item; fields of unported paths (parallelism) do not exist,
-    so passing one is a TypeError."""
+    """Fields of the unported path (parallelism) do not exist, so passing
+    one is a TypeError; combinations the JAX engine rejects raise
+    ValueError."""
     served = {f.name for f in dataclasses.fields(RuntimeConfig)}
     if not set(rt_kw) <= served:
         with pytest.raises(TypeError):
             RuntimeConfig(**rt_kw)
         return
     cfg, params = _toy_engine_args()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError):
         Engine(cfg, CacheConfig(max_length=64, **cache_kw),
                RuntimeConfig(**rt_kw), params, device="cpu")
+
+
+@pytest.mark.parametrize(
+    "cache_kw, rt_kw",
+    [
+        (dict(mode="shadow_offload"), dict()),  # the HostVStore path
+        (dict(mode="shadow_offload", kv_quant="int8"),
+         dict(ring_gather=True, offload_prefill_segments=2)),
+        (dict(mode="full"), dict(prefill_pattern="vs", vs_sim="clustered")),
+        (dict(mode="shadow"), dict(decode_segmented=True)),
+        (dict(mode="shadow"), dict(use_pallas=True, decode_segmented=True)),
+    ],
+)
+def test_single_device_settings_are_served(cache_kw, rt_kw):
+    """Every single-device setting of the JAX package builds an engine; a
+    segment count that does not divide the layers is refused."""
+    cfg, params = _toy_engine_args()
+    eng = Engine(cfg, CacheConfig(max_length=64, **cache_kw),
+                 RuntimeConfig(**rt_kw), params, device="cpu")
+    assert eng.decode_segmented == bool(rt_kw.get("decode_segmented"))
+    assert eng.host_store == (cache_kw["mode"] == "shadow_offload"
+                              and not rt_kw.get("ring_gather"))
+    if rt_kw.get("offload_prefill_segments"):
+        with pytest.raises(ValueError, match="divide"):
+            Engine(cfg, CacheConfig(max_length=64, **cache_kw),
+                   RuntimeConfig(**dict(rt_kw, offload_prefill_segments=3)),
+                   params, device="cpu")
+
+
+def test_no_not_implemented_left_but_parallelism():
+    """The port's only ``NotImplementedError`` names parallelism."""
+    hits = [p for p in _port_files() if "NotImplementedError" in p.read_text()]
+    assert [p.relative_to(ROOT).as_posix() for p in hits] == [
+        "shadowkv_tpu_torch/models/llm.py"]
+    text = (ROOT / "shadowkv_tpu_torch/models/llm.py").read_text()
+    assert text.count("NotImplementedError") == 1 and "Parallelism" in text

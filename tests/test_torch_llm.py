@@ -98,8 +98,9 @@ def test_llm_matches_jax(tiny_dir, mode):
 
 def test_synthetic_token_ids_and_refusals(monkeypatch):
     """No checkpoint and no local tokenizer: int8 synthetic weights from
-    the seeded generator, token ids in and out; mesh axes and the TPU's
-    approximate top-k are refused."""
+    the seeded generator, token ids in and out; mesh axes are refused, and
+    ``approx_topk=True`` (exact off the TPU, as in JAX) gives the tokens of
+    ``approx_topk=False``."""
     from shadowkv_tpu_torch.core.wquant import quantize_params
     from shadowkv_tpu_torch.models import llm as llm_mod
     from shadowkv_tpu_torch.models.params import init_synthetic_params
@@ -121,8 +122,9 @@ def test_synthetic_token_ids_and_refusals(monkeypatch):
         llm.encode("text")
     with pytest.raises(NotImplementedError, match="Parallelism"):
         TLLM("toy", tp=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="approx"):
-        TLLM("toy", approx_topk=True, device="cpu")
+    approx = TLLM("toy", attn_mode="shadowkv", max_length=512, device="cpu",
+                  weight_quant="int8", approx_topk=True, **SHADOW)
+    assert np.array_equal(approx.generate(ids, gen_len=4), out)
 
 
 def test_tokenizer_is_local_only(tiny_dir, tmp_path, monkeypatch):

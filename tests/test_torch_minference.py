@@ -312,3 +312,53 @@ def test_flat_heads_rows_are_contiguous(b):
         rows.reshape(b, 4, 64, 24)[:, :, :40].numpy(),
         q.transpose(1, 2).numpy())
     assert not rows.reshape(b, 4, 64, 24)[:, :, 40:].any()
+
+
+def jax_sim_draws(b, hm, s, salt=0, device=None):
+    """JAX's draws of ``sim_vs_scores`` (``fold_in(PRNGKey(0), salt)`` split
+    three ways), as the port's ``sim_vs_draws`` triple."""
+    kv, ks, ku = jax.random.split(
+        jax.random.fold_in(jax.random.PRNGKey(0), int(salt)), 3)
+    noise = jax.random.normal(ks, (b, hm, s))
+    hot = jax.random.randint(kv, (b, hm, 512), 0, s)
+    uniform = jax.random.uniform(ku, (b, hm, s))
+    return tuple(_t(x).to(device) for x in (noise, hot, uniform))
+
+
+@pytest.mark.parametrize("salt, s", [(0, 512), (3, 300)])
+def test_sim_scores_match_jax(salt, s):
+    """Given JAX's draws, the simulated scores equal JAX's bit for bit,
+    the forced +inf rows of the estimates (first 30 verticals, nearest
+    100 slashes) included."""
+    q, k, _ = _qkv(salt, 2, s, 4, 2)
+    jv, js = jmi.estimate_vertical_slash(jnp.asarray(q), jnp.asarray(k))
+    j_vt, j_sl = jmi.sim_vs_scores("clustered", jv, js, salt=salt)
+    t_vt, t_sl = tmi.sim_vs_scores("clustered", _t(jv), _t(js), salt=salt,
+                                   draws=jax_sim_draws(2, 4, s, salt))
+    np.testing.assert_array_equal(t_vt.numpy(), np.asarray(j_vt))
+    np.testing.assert_array_equal(t_sl.numpy(), np.asarray(j_sl))
+    assert np.isinf(t_vt.numpy()[..., :30]).all()
+    assert np.isinf(t_sl.numpy()[..., :100]).all()
+    assert np.isfinite(t_vt.numpy()[..., 30:]).all()
+    with pytest.raises(ValueError, match="clustered"):
+        tmi.sim_vs_scores("uniform", _t(jv), _t(js))
+
+
+def test_sim_draws_are_seeded_by_salt():
+    """The port's own draws: one generator per salt, reproducible, in
+    range; the scores they give keep the forced rows."""
+    a = tmi.sim_vs_draws(1, 2, 256, salt=5)
+    b = tmi.sim_vs_draws(1, 2, 256, salt=5)
+    c = tmi.sim_vs_draws(1, 2, 256, salt=6)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert not torch.equal(a[0], c[0])
+    noise, hot, uniform = a
+    assert noise.dtype == uniform.dtype == torch.float32
+    assert hot.shape == (1, 2, tmi.SIM_HOT) and 0 <= hot.min() <= hot.max() < 256
+    assert 0 <= uniform.min() and uniform.max() < 1
+    est = torch.zeros(1, 2, 256)
+    est[..., :30] = torch.inf
+    vt, sl = tmi.sim_vs_scores("clustered", est, est.clone(), salt=5)
+    assert torch.isinf(vt[..., :30]).all() and torch.isinf(sl[..., :30]).all()
+    # slashes decay from the diagonal: the far half scores below the near
+    assert sl[..., 30:128].mean() > sl[..., 128:].mean()

@@ -17,8 +17,10 @@ flips a chunk selection at a score near-tie (a gap of 5e-4 of the
 score, the stream's smallest; uid 2's tokens then part at its step 2).
 Other prompt seeds give JAX's tokens with int8 too (ROADMAP §3).
 Unquantized U carries only the f32 rounding of U·SV.
-Offload runs with the fused refresh and with the ring gather (the port has
-no io_callback path); the mesh cases have no counterpart in the port.
+Offload runs with the fused refresh and with the ring gather here; the
+HostVStore (io_callback) path is served against JAX's batcher in
+``test_torch_offload_host.py``; the mesh cases have no counterpart in the
+port.
 """
 
 from __future__ import annotations

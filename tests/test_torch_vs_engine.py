@@ -94,3 +94,36 @@ def test_vs_settings_are_checked(models):
         TEngine(tcfg, cc, TRuntime(prefill_pattern="vs",
                                    minference_patterns=ROW[:2]),
                 tparams, device="cpu")
+
+
+@pytest.mark.parametrize("impl", ["tile", "walk"])
+def test_vs_sim_engine_matches_jax(models, monkeypatch, impl):
+    """``vs_sim="clustered"`` (the benchmark-only score simulation) with
+    JAX's draws handed to the port (each layer salts its draws with its
+    index): JAX's prefill logits and greedy tokens."""
+    from shadowkv_tpu_torch.core import minference as tmi
+    from test_torch_minference import jax_sim_draws
+
+    monkeypatch.setattr(tmi, "sim_vs_draws", jax_sim_draws)
+    compare(models, "full", vs_impl=impl, vs_sim="clustered",
+            minference_patterns=ROW, **VS)
+
+
+def test_vs_sim_engine_runs(models):
+    """With the port's own draws: a shadow engine prefills through the
+    simulated patterns and decodes; the simulation changes the prefill
+    (50 slashes, inside the forced nearest 100, so the verticals differ)."""
+    tcfg, tparams, ids = models[2], models[3], models[-1]
+    out = {}
+    for sim in (None, "clustered"):
+        eng = TEngine(tcfg, TCache(mode="shadow", max_length=PROMPT + 32,
+                                   sparse_budget=128, rank=32, chunk_size=16,
+                                   outlier_chunks=4, gen_capacity=32),
+                      TRuntime(use_pallas=True, vs_sim=sim,
+                               **dict(VS, vs_slash_size=50)), tparams,
+                      device="cpu")
+        logits, _ = eng.prefill(ids)
+        toks, _ = eng.generate(ids, gen_len=4)
+        assert toks.shape == (ids.shape[0], 4) and torch.isfinite(logits).all()
+        out[sim] = logits
+    assert float((out["clustered"] - out[None]).abs().max()) > 1e-4
