@@ -29,6 +29,7 @@ to the CPU):
    B 1 / S 4104 (ragged tile) and at the main path's shape, B 2 / S 32768,
    H 32 / KV 8, with a per-row tolerance that is shown to reject a skipped
    KV tile; timed at the main path's shape, with SDPA as a yardstick only.
+   B's query-offset form is checked beside it (phase 17).
    B and C are one Hopper kernel, F and G two more on the same tile-plan
    loop (wgmma, TMA K/V ring): each timing line gives its TFLOP/s, its
    SASS evidence (phase 4) and the tile plan's visited and masked tiles
@@ -171,6 +172,31 @@ to the CPU):
      arrays, the prefill logits equal an ``Engine``'s over those arrays,
      and the int8 load equals ``quantize_params`` of the bf16 one; load
      seconds and GB/s.
+17. Parallelism (``shadowkv_tpu_torch/parallel/``). Kernel B's query-offset
+   form (the sequence-parallel prefill's attention) against its plain
+   version at S_q 16384 rows at key offset 16384 of T_k 32768, B 2, per
+   row as B (the bound rejects the rows attended 128 keys early); timed,
+   with SDPA under the explicit offset mask as the library yardstick
+   (run beside kernel B's check). Kernel A at the tp=2 shard's shapes (4
+   KV heads). ``tp1-nccl``: a 1-rank NCCL group through the
+   tensor-parallel code path (all-reduces and the logits' all-gather on
+   the group) at full width and depth, prompt 8192 x 2, 32 greedy tokens,
+   fused refresh, the decode step captured as one CUDA graph with the
+   collectives inside: tokens equal to the single-device engine's, A and
+   B counted, tok/s beside the single device's. Then four 2-rank gloo
+   phases, two processes of this script (``--parallel-rank``) sharing the
+   card with eager decode, prompt 4096 x 2, 32 greedy tokens: tp2 (32
+   layers, fused refresh: A and B on 16 heads / 4 KV heads per rank), dp2
+   (8 layers, ring gather: D and B on one row each), sp2 (8 layers:
+   B's offset form on 2048 query rows each) and pp2 (32 layers, 16 per
+   stage, two microbatches). Each against the single-device engine at
+   the same config: layer 0 in f32 on each rank's shard within 1e-5 of
+   the single device's (a planted fault: the all-reduce left out, the
+   rows 64 keys off, another shard's rows, must fail it), teacher-forced
+   logits within 0.3 of the largest (one rank's o_proj and MLP zeroed must
+   fail it), the launches of every rank's kernels exact, the greedy
+   tokens with their first divergence step. Two ranks share one card:
+   their tok/s claims no scaling.
 
 The line before the card line is a JSON object with every kernel's
 numbers; the last line is ``{"ok": true, "device": {...}}``.
@@ -344,12 +370,15 @@ def check_refresh(torch, cfg, lay, layer: int = 31) -> dict:
     return entry
 
 
-def check_refresh_host(torch, cfg, lay, link: float, layer: int = 31) -> dict:
+def check_refresh_host(torch, cfg, lay, link: float, layer: int = 31,
+                       layers: int = 64) -> dict:
     """Kernel A with the V store pinned in host memory: the int8 inputs and
     miss mix of ``check_refresh``, held to A's tolerances against the plain version (which
     reads the same bytes from a device copy); timed at that mix and at
-    40 % missed slots, cycling over the 32 layers so no launch finds its V
-    rows in L2. The device store is timed the same way beside it."""
+    40 % missed slots, cycling over ``layers`` stacked layers (64: one pass
+    reads 168 MB of V rows over the link at the mixed-heads mix, 3.4x the
+    L2, so no launch finds its V rows there). The device store is timed the
+    same way beside it."""
     from shadowkv_tpu_torch.core.rope import inv_freq_full_neox
     from shadowkv_tpu_torch.kernels.reconstruct import (
         sparse_refresh, sparse_refresh_plain,
@@ -361,7 +390,7 @@ def check_refresh_host(torch, cfg, lay, link: float, layer: int = 31) -> dict:
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
     inv = inv_freq_full_neox(cfg).to(DEVICE)
-    t = refresh_inputs(cfg, lay, BATCH, cfg.num_layers, True, gen)
+    t = refresh_inputs(cfg, lay, BATCH, layers, True, gen)
     v_host = pinned_copy(torch, t["v_full"])
     kw = dict(chunk_size=lay.chunk_size, sparse_start=lay.sparse_start,
               rope_dim=cfg.head_dim, rope_style="neox",
@@ -401,7 +430,7 @@ def check_refresh_host(torch, cfg, lay, link: float, layer: int = 31) -> dict:
             f"{times[label]['host']:.4f} (bound {b_ms:.4f}, {b_by}: {host_b} B "
             f"over the link at {link / 1e9:.2f} GB/s, {nbytes - host_b} B in "
             f"device memory), device V {times[label]['device']:.4f} (bound "
-            f"{dev_b_ms:.4f}); both cold L2, cycling over {cfg.num_layers} "
+            f"{dev_b_ms:.4f}); both cold L2, cycling over {layers} "
             f"layers; plain_ms {plain_ms:.4f}")
         if entry is None:
             entry = dict(
@@ -422,14 +451,18 @@ def check_refresh_host(torch, cfg, lay, link: float, layer: int = 31) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def check_gather(torch, cfg, lay, link: float, layers: int = 8):
+def check_gather(torch, cfg, lay, link: float, layers: int = 32,
+                 batch: int = BATCH, timed: bool = True):
     """Kernel D against its plain version at the slice's per-layer shapes
     (B 2, 8 KV heads, 128 of 2040 chunks of 16 rows, rank 160) on int8
     stores, with V on the card and pinned in host memory, and on bf16
     stores; bit-equal. Timed on the int8 stores cycling over ``layers``
-    stacked layers (cold L2), with two ``index_select`` calls that gather
+    stacked layers (32: one pass gathers 300 MB of rows, 6x the L2, so no
+    launch finds its rows there), with two ``index_select`` calls that gather
     the same U and V rows as the yardstick of the device case. Returns
-    (entry D, entry D with host V)."""
+    (entry D, entry D with host V); ``timed=False`` only checks, at
+    ``batch`` rows and ``cfg``'s KV heads (a rank's shard), and returns
+    None."""
     from shadowkv_tpu_torch.core.quant import quantize_store
     from shadowkv_tpu_torch.kernels.gather import (
         gather_chunks, gather_chunks_plain,
@@ -441,19 +474,20 @@ def check_gather(torch, cfg, lay, link: float, layers: int = 8):
     n_rows, rank, c = lay.chunks * cs, lay.rank, lay.chunks
     entries = {}
     for quant in (True, False):
-        u = torch.randn(layers, BATCH, n_rows, rank, device=DEVICE,
+        n_l = layers if quant and timed else 2  # the others only check
+        u = torch.randn(n_l, batch, n_rows, rank, device=DEVICE,
                         generator=gen, dtype=torch.bfloat16)
-        v = torch.randn(layers, BATCH, kh, n_rows, dh, device=DEVICE,
+        v = torch.randn(n_l, batch, kh, n_rows, dh, device=DEVICE,
                         generator=gen, dtype=torch.bfloat16)
         u_sc = v_sc = None
         if quant:
             u, u_sc = quantize_store(u)
             v, v_sc = quantize_store(v)
         ids = torch.stack([torch.randperm(c, device=DEVICE, generator=gen)[:s]
-                           for _ in range(BATCH * kh)]).reshape(
-                               BATCH, kh, s).to(torch.int32)
+                           for _ in range(batch * kh)]).reshape(
+                               batch, kh, s).to(torch.int32)
         v_host = pinned_copy(torch, v)
-        layer = layers - 1
+        layer = n_l - 1
         ref = gather_chunks_plain(layer, ids, u, v, u_sc, v_sc, chunk_size=cs)
         for place, v_in in (("device", v), ("host", v_host)):
             out = gather_chunks(layer, ids, u, v_in, u_sc, v_sc, chunk_size=cs)
@@ -465,7 +499,7 @@ def check_gather(torch, cfg, lay, link: float, layers: int = 8):
             if not same:
                 raise AssertionError(f"gather {label}: kernel disagrees with "
                                      "its plain version")
-        if not quant:
+        if not (quant and timed):
             del u, v, v_host, ref, out
             continue
         plain_ms = device_ms(cycle_layers(lambda lyr: gather_chunks_plain(
@@ -473,8 +507,8 @@ def check_gather(torch, cfg, lay, link: float, layers: int = 8):
         # The yardstick: index_select of the same U rows and V rows (not
         # their scales) from the flattened stores.
         rows = (ids.long()[..., None] * cs + torch.arange(cs, device=DEVICE))
-        rows = rows.reshape(BATCH, kh, s * cs)
-        bi = torch.arange(BATCH, device=DEVICE)[:, None, None]
+        rows = rows.reshape(batch, kh, s * cs)
+        bi = torch.arange(batch, device=DEVICE)[:, None, None]
         ki = torch.arange(kh, device=DEVICE)[None, :, None]
         u_idx = (bi * n_rows + rows).reshape(-1)
         v_idx = ((bi * kh + ki) * n_rows + rows).reshape(-1)
@@ -482,7 +516,7 @@ def check_gather(torch, cfg, lay, link: float, layers: int = 8):
         lib_ms = device_ms(cycle_layers(lambda lyr: (
             torch.index_select(u_flat[lyr], 0, u_idx),
             torch.index_select(v_flat[lyr], 0, v_idx)), layers), reps=64)
-        n_tok = BATCH * kh * s * cs
+        n_tok = batch * kh * s * cs
         u_b, v_b, sc_b = n_tok * rank, n_tok * dh, n_tok * 2 * 2
         for place, v_in in (("device", v), ("host", v_host)):
             ms = device_ms(cycle_layers(lambda lyr: gather_chunks(
@@ -507,7 +541,8 @@ def check_gather(torch, cfg, lay, link: float, layers: int = 8):
             )
         del u, v, v_host, ref, out, u_flat, v_flat
         torch.cuda.empty_cache()
-    return entries["device"], entries["host"]
+    if timed:
+        return entries["device"], entries["host"]
 
 
 # ---------------------------------------------------------------------------
@@ -1424,6 +1459,7 @@ OFFLOAD_TWINS = {"offload-fused": "shadow", "offload-ring": "shadow-ring"}
 def _counters():
     from shadowkv_tpu_torch.kernels.gather import gather_chunks, gather_v_rows
     from shadowkv_tpu_torch.kernels.prefill_attention import (
+        causal_prefill_offset,
         causal_prefill_splash,
         sparse_prefill_splash,
     )
@@ -1432,6 +1468,7 @@ def _counters():
     from shadowkv_tpu_torch.kernels.vs_tile import vs_tile_attention
 
     return {
+        "prefill_attention_offset": (causal_prefill_offset, "launches"),
         "sparse_refresh": (sparse_refresh, "launches"),
         "sparse_refresh_host_v": (sparse_refresh, "host_launches"),
         "prefill_attention": (causal_prefill_splash, "launches"),
@@ -2335,13 +2372,14 @@ def check_offload_twins(torch, runs: dict) -> None:
 # ---------------------------------------------------------------------------
 
 
-def check_gather_v_rows(torch, cfg, lay, link: float, layers: int = 8) -> dict:
+def check_gather_v_rows(torch, cfg, lay, link: float, layers: int = 32) -> dict:
     """``gather_v_rows`` (the HostVStore path's miss-only V gather) against
     its plain version at the slice's per-layer shapes (B 2, 8 KV heads,
     128 of 2040 chunks of 16 rows, bf16 V pinned on the host) with a forced
     stay mask that skips about half of the slots: bit-equal on the missed
-    slots. Timed cycling over ``layers`` stacked layers (cold L2; the rows
-    come over the link); bound: the missed rows' bytes over the link rate
+    slots. Timed cycling over ``layers`` stacked layers (32: one pass reads
+    136 MB of missed rows, 2.7x the L2, so none is found there and every
+    row comes over the link); bound: the missed rows' bytes over the link rate
     this run measured (written once to the card)."""
     from shadowkv_tpu_torch.kernels.gather import (
         gather_v_rows,
@@ -2721,6 +2759,690 @@ def run_settings(torch, cfg, params, runs: dict) -> dict:
     return new
 
 
+# ---------------------------------------------------------------------------
+# Parallelism (parallel/): kernel B's offset form, tp1-nccl, 2-rank gloo
+# ---------------------------------------------------------------------------
+
+
+OFFSET_SQ, OFFSET_TK = 16384, 32768  # one sp rank's rows of a 32K prompt
+
+
+def check_prefill_offset(torch, cfg) -> dict:
+    """Kernel B's query-offset form (the sequence-parallel prefill's
+    attention) against its plain version at S_q 16384 rows at key positions
+    [16384, 32768) of T_k 32768, B 2, H 32 / KV 8, per row as B; timed,
+    with SDPA under the explicit [S_q, T_k] offset mask as the library
+    yardstick. The bound counts the active pairs only."""
+    import torch.nn.functional as F
+
+    from shadowkv_tpu_torch.core.attention import causal_prefill_attention
+    from shadowkv_tpu_torch.kernels.prefill_attention import (
+        causal_prefill_offset,
+        prefill_tile_plan,
+    )
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 11)
+    h, kh, dh, b = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, BATCH
+    s_q, t_k = OFFSET_SQ, OFFSET_TK
+    off = t_k - s_q
+    q = torch.randn(b, s_q, h, dh, device=DEVICE, generator=gen,
+                    dtype=torch.bfloat16)
+    k = torch.randn(b, t_k, kh, dh, device=DEVICE, generator=gen,
+                    dtype=torch.bfloat16)
+    v = torch.randn(b, t_k, kh, dh, device=DEVICE, generator=gen,
+                    dtype=torch.bfloat16)
+    ref, plain_ms = _timed(
+        torch, lambda: causal_prefill_attention(q, k, v, offset=off))
+    out = causal_prefill_offset(q, k, v, off)
+    torch.cuda.synchronize()
+    err = float((out.float() - ref.float()).abs().max())
+    rel = row_rel_err(torch, out, ref)
+    # the same bound must reject the rows attended 128 keys early
+    early = causal_prefill_attention(q[:, :512], k, v, offset=off - 128)
+    bad = row_rel_err(torch, out[:, :512], early)
+    log(f"[prefill-attn offset B={b} S_q={s_q} T_k={t_k} offset={off}] "
+        f"max_abs_err {err:.3e}; per-row relative {rel:.3e} (tol "
+        f"{ATTN_ROW_TOL:.3e}); the rows 128 keys early read {bad:.3e} "
+        f"(rejected: {bad > ATTN_ROW_TOL})")
+    if not (rel <= ATTN_ROW_TOL < bad):
+        raise AssertionError("prefill attention offset: kernel disagrees "
+                             "with its plain version, or the bound misses "
+                             "a wrong offset")
+    del ref, early
+    ms = time_ms(torch, lambda: causal_prefill_offset(q, k, v, off), reps=3,
+                 warmup=1)
+    mask = (torch.arange(t_k, device=DEVICE)[None, :]
+            <= off + torch.arange(s_q, device=DEVICE)[:, None])
+    qh = q.transpose(1, 2)
+    kr = k.transpose(1, 2).repeat_interleave(h // kh, dim=1)
+    vr = v.transpose(1, 2).repeat_interleave(h // kh, dim=1)
+    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qh, kr, vr, attn_mask=mask), reps=3, warmup=1)
+    del qh, kr, vr, mask
+    pairs = b * h * (s_q * off + s_q * (s_q + 1) // 2)
+    ops = 2 * 2 * dh * pairs
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
+    bnd, by = bound(nbytes, ops)
+    plans = prefill_tile_plan(t_k, offset=off, q_len=s_q)
+    visited = sum(len(p.full) + len(p.masked) for p in plans)
+    log(f"[prefill-attn offset] kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
+        f"sdpa_mask_ms {lib_ms:.4f} bound_ms {bnd:.4f} ({by}; "
+        f"{ops / ms / 1e9:.1f} TFLOP/s; {pairs} active pairs; {visited} "
+        f"tiles visited per (b, h) of {len(plans) * (-(-t_k // 128))})")
+    del q, k, v, out
+    torch.cuda.empty_cache()
+    return dict(
+        name="prefill_attention_offset", route="cuda",
+        source="shadowkv_tpu_torch/csrc/prefill_attention.cu",
+        replaces="shadowkv_tpu/core/attention.py:501",
+        launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bnd,
+        bound_by=by, library_ms=lib_ms)
+
+
+PAR_PROMPT = 8192  # tp1-nccl
+GLOO_PROMPT = 4096  # the 2-rank gloo phases: their prefill sums go by host
+PAR_GEN = 32
+PAR_CACHE = dict(mode="shadow", max_length=PAR_PROMPT, sparse_budget=2048,
+                 rank=160, chunk_size=16, kv_quant="int8", gen_capacity=256)
+# label -> (layers, mesh sizes, cache settings over PAR_CACHE, runtime
+# settings). Each rank
+# launches B (sp: its offset form) once per local layer per prefill, and
+# its decode kernel (decode_kernel: A, D, A-host, E or gather_v_rows) once
+# per local layer per decode step.
+PAR_PHASES = {
+    "tp2-gloo": (32, dict(tp=2), {}, dict(use_pallas=True)),
+    "dp2-gloo": (8, dict(dp=2), {}, dict(ring_gather=True)),
+    "sp2-gloo": (8, dict(sp=2), {}, dict()),
+    "pp2-gloo": (32, dict(pp=2), {}, dict()),
+    "dp2-offload-ring-gloo": (8, dict(dp=2), dict(mode="shadow_offload"),
+                              dict(ring_gather=True)),
+    "tp2-offload-fused-gloo": (8, dict(tp=2), dict(mode="shadow_offload"),
+                               dict(use_pallas=True)),
+    # JAX's HostVStore path (offload-host in run_settings: bf16 V)
+    "tp2-offload-host-gloo": (8, dict(tp=2), dict(mode="shadow_offload",
+                                                  kv_quant="none"), dict()),
+}
+# Layer 0 of a rank's path in f32 (its shard of the weights cast to f32,
+# the same seeded input rows, plain attention) against the single-device
+# layer, relative to the largest |output|: f32 sums in another order. The
+# planted fault (tp: the o_proj / MLP all-reduce left out; sp: the rows
+# attended 64 keys early; dp: another shard's rows) must read above it.
+# pp stages run whole layers of the single-device code: no such check.
+PAR_F32_TOL = 1e-5
+PAR_F32_ROWS = 1024
+# Teacher-forced logits of the bf16 model against the single-device engine,
+# relative to the largest |logit|: sums in another order round otherwise,
+# and 32 layers of synthetic weights amplify one rounding into several
+# percent (one ulp on layer 0's attention output moves them 5.95-7.61 %,
+# check_segmented_steps' noise floor; tp phases read their own floor, the
+# single device with each o_proj and MLP product taken as two bf16
+# half-sums, _half_sums_tail), so this bound only catches a broken path;
+# the f32 layer check and the tp cache checks below are the fine guards.
+# The planted fault (one rank's wo and w_down zeroed in every local layer)
+# must read above it. A tp phase is also held within PAR_CONTROL_RATIO
+# times its own half-sums control, and every planted tp fault must read
+# above that.
+PAR_LOGIT_TOL = 0.3
+PAR_CONTROL_RATIO = 1.5
+# tp cache checks: U (and its int8 scale) bit-equal across the tp ranks;
+# with int8 stores, layer 0's V and landmark scales (computed from layer 0's K and V, whose
+# inputs are the same on every rank) against the single device's head
+# slice, relative to its largest value, within two bf16 ulps of a row's
+# max; the same scales rolled by one head must read above it. The planted
+# faults read against PAR_LOGIT_TOL over PAR_FAULT_STEPS teacher-forced
+# steps: "svd-local" (the tp sketch SVD without its sums over tp: a rank's
+# own factors, which the U check must reject) and "scales-rolled" (rank
+# 1's V scales rolled by one head after the prefill).
+PAR_SCALE_TOL = 2.0**-7
+PAR_FAULT_STEPS = 8
+
+
+def _par_config(cfg, layers: int):
+    import dataclasses
+
+    return dataclasses.replace(cfg, num_layers=layers)
+
+
+def _par_params(torch, cfg, layers: int):
+    """The slice's seeded weights, cut to their first ``layers`` layers."""
+    from shadowkv_tpu_torch.core.layers import LayerParams
+    from shadowkv_tpu_torch.models.params import init_synthetic_params
+
+    p = init_synthetic_params(
+        cfg, torch.Generator(device=DEVICE).manual_seed(SEED), device=DEVICE)
+    if layers == cfg.num_layers:
+        return p
+    return p._replace(layers=LayerParams(*(
+        None if x is None else x[:layers].clone() for x in p.layers)))
+
+
+def _forced_logits(torch, eng, ids, tokens, steps: int = PAR_GEN - 1,
+                   after_prefill=None):
+    """Prefill logits [B, V] and the logits of ``steps`` decode steps fed
+    ``tokens`` [B, PAR_GEN] (teacher forcing), f32 on the host, and the
+    cache; ``after_prefill(cache)`` may change the cache first."""
+    lg, cache = eng.prefill(ids)
+    if after_prefill is not None:
+        after_prefill(cache)
+    out = [lg[:, -1].float().cpu()]
+    for i in range(steps):
+        tok = torch.as_tensor(tokens[:, i], dtype=torch.int32, device=DEVICE)
+        _, step = eng.decode_step(cache, tok)
+        out.append(step.float().cpu())
+    return torch.stack(out), cache  # [steps + 1, B, V]
+
+
+def _half_sums_tail(lp, model, x, ctx, tp=None):
+    """``forward._layer_tail`` on one device with the o_proj and MLP
+    products each taken as two half-sums in the model dtype (the first and
+    second halves of the heads and of the ffn) and added: the sums a tp=2
+    all-reduce forms."""
+    import torch
+    import torch.nn.functional as F
+
+    from shadowkv_tpu_torch.core.layers import rms_norm
+
+    def halves(a, w):
+        n = a.shape[-1] // 2
+        return a[..., :n] @ w[:n] + a[..., n:] @ w[n:]
+
+    b, s = ctx.shape[:2]
+    x = x + halves(ctx.reshape(b, s, -1), lp.wo)
+    h = rms_norm(x, lp.mlp_norm, model.rms_norm_eps)
+    gate, up = torch.chunk(h @ lp.w_gate_up, 2, dim=-1)
+    return x + halves(F.silu(gate.float()).to(x.dtype) * up, lp.w_down)
+
+
+def _half_sums_control(torch, cfg, params, cache_kw, rt_kw, ids, tokens):
+    """The tp=2 noise floor of the teacher-forced logits: the single-device
+    engine (eager steps) with ``_half_sums_tail``, [steps + 1, B, V]."""
+    from shadowkv_tpu_torch.models import forward
+
+    eng = _par_engine(torch, cfg, params, {}, rt_kw, cache_kw, eager=True)
+    real = forward._layer_tail
+    forward._layer_tail = _half_sums_tail
+    try:
+        logits, _ = _forced_logits(torch, eng, ids, tokens)
+    finally:
+        forward._layer_tail = real
+    del eng
+    _release(torch)
+    return logits.numpy()
+
+
+def _f32_layer(torch, cfg, params, mesh, axes: dict):
+    """(relative error, planted fault's) of layer 0 of this rank's path in
+    f32 against the single-device layer on the same input; see
+    PAR_F32_TOL. pp stages: (None, None)."""
+    import dataclasses
+
+    from shadowkv_tpu_torch.core.attention import causal_prefill_attention
+    from shadowkv_tpu_torch.core.layers import LayerParams
+    from shadowkv_tpu_torch.core.rope import compute_cos_sin
+    from shadowkv_tpu_torch.models import forward as fw
+    from shadowkv_tpu_torch.parallel import mesh as mesh_lib
+
+    if axes.get("pp"):
+        return None, None
+    one = params._replace(layers=LayerParams(*(
+        None if t is None else t[:1] for t in params.layers)))
+    cfg1 = dataclasses.replace(cfg, num_layers=1, dtype=torch.float32)
+    local = mesh_lib.local_model(cfg1, mesh)
+    sh = mesh_lib.shard_params(one, dataclasses.replace(cfg, num_layers=1),
+                               mesh)
+
+    def f32(p):
+        return LayerParams(*(None if t is None else t[0].float()
+                             for t in p.layers))
+
+    s = PAR_F32_ROWS
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 41)
+    x = torch.randn(BATCH, s, cfg.hidden_size, device=DEVICE, generator=gen)
+    cos, sin = compute_cos_sin(cfg1, s, dtype=torch.float32, device=DEVICE)
+
+    def layer(model, lp, x, cos, sin, tp=None, sp=None, off=0):
+        q, k, _, v = fw._layer_qkv(model, lp, x, cos, sin)
+        if sp is not None:
+            k = mesh_lib.all_gather(k, sp, dim=1)
+            v = mesh_lib.all_gather(v, sp, dim=1)
+        ctx = causal_prefill_attention(q, k, v, offset=off)
+        return fw._layer_tail(lp, model, x, ctx, tp)
+
+    ref = layer(cfg1, f32(one), x, cos, sin)
+    lp = f32(sh)
+    if axes.get("tp"):
+        got = layer(local, lp, x, cos, sin, tp=mesh.tp_group)
+        bad = layer(local, lp, x, cos, sin)  # the all-reduces left out
+    elif axes.get("sp"):
+        n = s // mesh.sp
+        off = mesh.coords["sp"] * n
+        rows = slice(off, off + n)
+        xl, c, sn = x[:, rows], cos[rows], sin[rows]
+        sp_g = mesh.groups["sp"]
+        got = layer(local, lp, xl, c, sn, sp=sp_g, off=off)
+        # rank 0's rows cannot start earlier: they start 64 keys later
+        bad = layer(local, lp, xl, c, sn, sp=sp_g,
+                    off=off - 64 if off >= 64 else off + 64)
+        ref = ref[:, rows]
+    else:  # dp: this shard's rows
+        rows = mesh.prefill_rows(BATCH)
+        got = layer(local, lp, x[rows], cos, sin)
+        other = slice((rows.stop % BATCH), (rows.stop % BATCH) + 1)
+        bad = layer(local, lp, x[other], cos, sin)
+        ref = ref[rows]
+    scale = float(ref.abs().max())
+    return (float((got - ref).abs().max()) / scale,
+            float((bad - ref).abs().max()) / scale)
+
+
+SCALES = ("v_scale", "lm_scale")
+
+
+def _u_equal(torch, cache, mesh) -> bool:
+    """Whether U and its scale are bit-equal on every tp rank."""
+    from shadowkv_tpu_torch.parallel import mesh as mesh_lib
+
+    same = True
+    for t in (x for x in (cache.u, cache.u_scale) if x is not None):
+        every = mesh_lib.all_gather(t[None].contiguous(), mesh.tp_group,
+                                    dim=0)
+        same &= all(torch.equal(every[0], x) for x in every[1:])
+    return same
+
+
+def _scale_errs(torch, cache, mesh, ref) -> tuple[dict, dict]:
+    """Layer 0's V and landmark scales of this rank against the head slice
+    of the single device's (``ref``), relative to its largest value; and
+    the same with this rank's scales rolled by one head."""
+    heads = mesh.head_slice(mesh.tp * cache.sv.shape[2])
+    got, rolled = {}, {}
+    for name in (n for n in SCALES if getattr(cache, n) is not None):
+        want = torch.as_tensor(ref[name])[:, heads]
+        mine = getattr(cache, name)[0].float().cpu()
+        top = float(want.abs().max())
+        got[name] = float((mine - want).abs().max()) / top
+        rolled[name] = float((mine.roll(1, dims=1) - want).abs().max()) / top
+    return got, rolled
+
+
+def _tp_faults(torch, eng, ids, tokens, mesh, rank: int) -> dict:
+    """The planted tp faults (PAR_SCALE_TOL's note): per fault, the
+    teacher-forced logits [PAR_FAULT_STEPS + 1, B, V] and, for svd-local,
+    whether U stayed bit-equal across the tp ranks."""
+    import shadowkv_tpu_torch.cache.shadow as shadow_mod
+
+    real = shadow_mod.lowrank_kv_factors
+    t = mesh.coords["tp"]
+
+    def svd_local(k, rank_, kh, dh, dtype=None, oversample=32, omega=None,
+                  tp=None):
+        d = kh * dh
+        if omega is not None:  # this rank's rows of the global sketch
+            omega = omega[t * d:(t + 1) * d]
+        return real(k, rank_, kh, dh, dtype=dtype, oversample=oversample,
+                    omega=omega)
+
+    out = {}
+    shadow_mod.lowrank_kv_factors = svd_local
+    try:
+        logits, cache = _forced_logits(torch, eng, ids, tokens,
+                                       PAR_FAULT_STEPS)
+    finally:
+        shadow_mod.lowrank_kv_factors = real
+    out["svd-local"] = (logits, _u_equal(torch, cache, mesh))
+
+    def roll_scales(cache):
+        if rank == 1:
+            cache.v_scale.copy_(cache.v_scale.roll(1, dims=2))
+
+    if eng.cache_cfg.kv_quant == "int8":  # bf16 stores have no scales
+        logits, _ = _forced_logits(torch, eng, ids, tokens, PAR_FAULT_STEPS,
+                                   roll_scales)
+        out["scales-rolled"] = (logits, None)
+    return out
+
+
+def _par_engine(torch, cfg, params, axes: dict, rt_kw: dict,
+                cache_kw: dict | None = None, mesh=None, eager: bool = False):
+    from shadowkv_tpu_torch.config import CacheConfig, RuntimeConfig
+    from shadowkv_tpu_torch.models.engine import Engine
+
+    return Engine(cfg, CacheConfig(**dict(PAR_CACHE, **(cache_kw or {}))),
+                  RuntimeConfig(**rt_kw, **axes, eager_decode=eager),
+                  params, device=DEVICE, mesh=mesh)
+
+
+def _run_generate(torch, eng, ids):
+    out, st = eng.generate(ids, gen_len=PAR_GEN)
+    return out, st.prefill_seconds, st.decode_tokens_per_second
+
+
+def _diverge(a, b) -> int | None:
+    """The first decode step whose greedy tokens differ, or None."""
+    import numpy as np
+
+    d = np.nonzero((np.asarray(a) != np.asarray(b)).any(axis=0))[0]
+    return None if d.size == 0 else int(d[0])
+
+
+def parallel_rank(label: str, rank: int, port: int, work: str) -> int:
+    """One rank of a 2-rank gloo phase on the card (``chip_smoke.py
+    --parallel-rank``): the phase's engine on this rank's shard with eager
+    decode, a greedy run (counts reset just before it and read just after),
+    teacher-forced logits on the single-device engine's tokens, under tp
+    the cache checks and the planted tp faults, and the planted fault's
+    prefill logits; rank 0 writes them."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from shadowkv_tpu_torch.kernels import build
+    from shadowkv_tpu_torch.models.registry import llama31_8b
+
+    from shadowkv_tpu_torch.parallel import mesh as mesh_lib
+
+    torch.cuda.set_device(0)
+    build.library()  # built by the parent
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=2)
+    try:
+        layers, axes, cache_kw, rt_kw = PAR_PHASES[label]
+        full = llama31_8b("meta-llama/Llama-3.1-8B-Instruct",
+                          dtype=torch.bfloat16)
+        cfg = _par_config(full, layers)
+        params = _par_params(torch, full, layers)
+        mesh = (mesh_lib.build_mesh_pp(axes["pp"]) if axes.get("pp")
+                else mesh_lib.build_mesh(axes.get("dp", 1), axes.get("tp", 1),
+                                         axes.get("sp", 1)))
+        f32_rel, f32_fault = _f32_layer(torch, cfg, params, mesh, axes)
+        eng = _par_engine(torch, cfg, params, axes, rt_kw, cache_kw,
+                          mesh=mesh, eager=True)
+        del params
+        _release(torch)
+        ref = np.load(os.path.join(work, "ref.npz"))
+        ids, ref_tokens = ref["ids"], ref["tokens"]
+        counters = _counters()
+        _reset_counts(counters)
+        out, prefill_s, tok_s = _run_generate(torch, eng, ids)
+        counts = _read_counts(counters)
+        forced, cache = _forced_logits(torch, eng, ids, ref_tokens)
+        info = dict(f32=f32_rel, f32_fault=f32_fault)
+        arrays = {}
+        if axes.get("tp"):
+            info["u_equal"] = _u_equal(torch, cache, mesh)
+            info["scales"], info["scales_rolled"] = _scale_errs(
+                torch, cache, mesh, ref)
+        del cache
+        _release(torch)
+        if axes.get("tp"):
+            for name, (lg, u_eq) in _tp_faults(torch, eng, ids, ref_tokens,
+                                               mesh, rank).items():
+                arrays[name] = lg.numpy()
+                info[f"{name} u_equal"] = u_eq
+        # planted fault: one rank's o_proj and MLP outputs lost in every
+        # local layer (dropped partial sums)
+        if rank == (0 if axes.get("pp") else 1):
+            eng.params.layers.wo.zero_()
+            eng.params.layers.w_down.zero_()
+        lg, _ = eng.prefill(ids)
+        fault = lg[:, -1].float().cpu()
+        info.update(counts=counts,
+                    peak=torch.cuda.max_memory_allocated() / 2**30)
+        every = [None, None]
+        dist.all_gather_object(every, info)
+        if rank == 0:
+            np.savez(os.path.join(work, "rank0.npz"), tokens=out,
+                     forced=forced.numpy(), fault=fault.numpy(),
+                     prefill_s=prefill_s, tok_s=tok_s,
+                     info=json.dumps(every), **arrays)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _spawn_ranks(label: str, work: str, timeout: float = 600.0) -> None:
+    """Two processes of this script for a gloo phase, both on cuda:0;
+    stopped before this returns."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--parallel-rank", label,
+         str(r), str(port), work]) for r in range(2)]
+    try:
+        for p in procs:
+            p.wait(timeout=timeout)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode for p in procs):
+        raise AssertionError(f"{label}: a rank failed "
+                             f"({[p.returncode for p in procs]})")
+
+
+def _rel_steps(a, b):
+    """max |a - b| / max |b| per step ([steps, B, V] arrays)."""
+    import numpy as np
+
+    return [float(np.abs(x - y).max() / np.abs(y).max())
+            for x, y in zip(a, b)]
+
+
+def run_tp1_nccl(torch, cfg, params) -> dict:
+    """``tp1-nccl``: a 1-rank NCCL group through the tensor-parallel code
+    path (every o_proj / MLP all-reduce and the logits' all-gather run on
+    the group), decode captured as one CUDA graph with the collectives
+    inside, at full width and depth, prompt PAR_PROMPT x 2, PAR_GEN greedy
+    tokens, fused refresh; its tokens must equal the single-device
+    engine's, A counted through the replays."""
+    import numpy as np
+    import socket
+
+    import torch.distributed as dist
+
+    from shadowkv_tpu_torch.parallel import mesh as mesh_lib
+
+    ids = np.random.default_rng(SEED + 21).integers(
+        0, cfg.vocab_size, (BATCH, PAR_PROMPT))
+    rt_kw = dict(use_pallas=True)
+    counters = _counters()
+    eng = _par_engine(torch, cfg, params, {}, rt_kw)
+    ref, _, ref_tok_s = _run_generate(torch, eng, ids)
+    ref2, _, ref_tok_s2 = _run_generate(torch, eng, ids)
+    del eng
+    _release(torch)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        mesh = mesh_lib.build_mesh(1, 1, 1)
+        eng = _par_engine(torch, cfg, params, {}, rt_kw, mesh=mesh)
+        assert eng.tp is not None  # the collectives run
+        _reset_counts(counters)
+        out, prefill_s, tok_s = _run_generate(torch, eng, ids)
+        counts = _read_counts(counters)
+        captures = eng._steps.captures
+        out2, _, tok_s2 = _run_generate(torch, eng, ids)
+        del eng
+        _release(torch)
+    finally:
+        dist.destroy_process_group()
+    n_steps = PAR_GEN - 1
+    _expect("tp1-nccl", counts, prefill_attention=cfg.num_layers,
+            sparse_refresh=cfg.num_layers * n_steps)
+    log(f"[tp1-nccl] 1-rank NCCL group, {cfg.num_layers} layers, "
+        f"{PAR_PROMPT} x {BATCH}: tokens equal single-device "
+        f"{np.array_equal(out, ref) and np.array_equal(out2, ref2)}; graph "
+        f"captures {captures}; decode tok/s {tok_s:.2f}, {tok_s2:.2f} "
+        f"against single-device {ref_tok_s:.2f}, {ref_tok_s2:.2f}; "
+        f"prefill_s {prefill_s:.3f}; launches {counts}")
+    if not (np.array_equal(out, ref) and np.array_equal(out2, ref2)):
+        raise AssertionError("tp1-nccl: tokens differ from the single-device "
+                             "engine's")
+    if captures < 1:
+        raise AssertionError("tp1-nccl: the decode step was not captured")
+    return dict(tok_s=[tok_s, tok_s2], ref_tok_s=[ref_tok_s, ref_tok_s2])
+
+
+def run_parallel_phases(torch, cfg) -> dict:
+    """The 2-rank gloo phases (two processes on this one card, eager
+    decode): per phase the single-device engine here first (greedy tokens,
+    teacher-forced logits; under tp its layer-0 scales and the half-sums
+    control), then the ranks; their logits within PAR_LOGIT_TOL of the
+    single device's, the planted fault above it, the f32 layer and the tp
+    cache checks within their bounds with their faults above, the launches
+    of each rank's kernels exact, the greedy tokens with the first
+    divergence step. Two ranks share one card: their tok/s says nothing of
+    scaling."""
+    import numpy as np
+
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "shadowkv_tpu_torch", "build", "parallel")
+    out = {}
+    for label, (layers, axes, cache_kw, rt_kw) in PAR_PHASES.items():
+        t0 = time.perf_counter()
+        shutil.rmtree(work, ignore_errors=True)
+        os.makedirs(work)
+        lcfg = _par_config(cfg, layers)
+        params = _par_params(torch, cfg, layers)
+        eng = _par_engine(torch, lcfg, params, {}, rt_kw, cache_kw)
+        ids = np.random.default_rng(SEED + 31).integers(
+            0, cfg.vocab_size, (BATCH, GLOO_PROMPT))
+        ref, _, ref_tok_s = _run_generate(torch, eng, ids)
+        ref_logits, cache = _forced_logits(torch, eng, ids, ref)
+        ref_logits = ref_logits.numpy()
+        scales = {n: getattr(cache, n)[0].float().cpu().numpy()
+                  for n in SCALES if getattr(cache, n) is not None}
+        del eng, cache
+        _release(torch)
+        control = None
+        if axes.get("tp"):
+            control = _half_sums_control(torch, lcfg, params, cache_kw,
+                                         rt_kw, ids, ref)
+        del params
+        _release(torch)
+        np.savez(os.path.join(work, "ref.npz"), ids=ids, tokens=ref,
+                 **scales)
+        _spawn_ranks(label, work)
+        got = np.load(os.path.join(work, "rank0.npz"))
+        info = json.loads(str(got["info"]))
+        rel = _rel_steps(got["forced"], ref_logits)
+        fault = float(np.abs(got["fault"] - ref_logits[0]).max()
+                      / np.abs(ref_logits[0]).max())
+        div = _diverge(got["tokens"], ref)
+        per_rank = layers // axes.get("pp", 1)
+        # B: once per local layer per prefill (sp: the offset form; pp:
+        # per microbatch, two of one row each); the decode kernel once per
+        # local layer per step
+        prefill_name = ("prefill_attention_offset" if axes.get("sp")
+                        else "prefill_attention")
+        want = {prefill_name: per_rank * (2 if axes.get("pp") else 1)}
+        mode = cache_kw.get("mode", PAR_CACHE["mode"])
+        step_name = decode_kernel(mode, rt_kw)
+        if step_name:
+            want[step_name] = per_rank * (PAR_GEN - 1)
+            if mode == "shadow_offload" and step_name != "gather_v_rows":
+                want[step_name + "_host_v"] = want[step_name]
+        for r, rinfo in enumerate(info):
+            _expect(f"{label} rank {r}", rinfo["counts"], **want)
+        launches = {k: sum(ri["counts"][k] for ri in info) for k in want}
+        f32 = [ri["f32"] for ri in info]
+        f32_fault = [ri["f32_fault"] for ri in info]
+        f32_text = ("n/a (pp stages run whole single-device layers)"
+                    if axes.get("pp") else f"{f32} (tol {PAR_F32_TOL}; "
+                    f"planted fault {f32_fault})")
+        tp_text = ""
+        if axes.get("tp"):
+            n_f = PAR_FAULT_STEPS + 1
+            names = [n for n in ("svd-local", "scales-rolled")
+                     if n in got.files]
+            faults = {n: max(_rel_steps(got[n], ref_logits[:n_f]))
+                      for n in names}
+            near = {n: max(_rel_steps(got[n], control[:n_f])) for n in names}
+            floor = max(_rel_steps(control, ref_logits))
+            tp_text = (
+                f"; half-sums control (tp=2 noise floor) {floor:.4e} (bound "
+                f"{PAR_CONTROL_RATIO} x: {PAR_CONTROL_RATIO * floor:.4e}), "
+                f"the ranks "
+                f"against it {max(_rel_steps(got['forced'], control)):.4e} "
+                f"(faults against it {near}); U "
+                f"bit-equal across the tp ranks "
+                f"{[ri['u_equal'] for ri in info]} (svd-local fault: "
+                f"{[ri['svd-local u_equal'] for ri in info]}); layer 0 "
+                f"scales against the single device's head slice "
+                f"{[ri['scales'] for ri in info]} (tol {PAR_SCALE_TOL}; rolled "
+                f"by one head {[ri['scales_rolled'] for ri in info]}); planted "
+                f"tp faults' logits over {PAR_FAULT_STEPS} steps "
+                + ", ".join(f"{n} {v:.4e} (above {PAR_LOGIT_TOL}: "
+                            f"{v > PAR_LOGIT_TOL}; above the control bound: "
+                            f"{v > PAR_CONTROL_RATIO * floor})"
+                            for n, v in faults.items()))
+        log(f"[{label}] {layers} layers, {cache_kw}, {rt_kw}, {GLOO_PROMPT} x "
+            f"{BATCH}, mesh {axes}: f32 layer 0 rel err per rank {f32_text}; "
+            f"teacher-forced logits rel err max {max(rel):.4e} (prefill "
+            f"{rel[0]:.4e}; tol {PAR_LOGIT_TOL}); planted fault {fault:.4e} "
+            f"(rejected: {fault > PAR_LOGIT_TOL}){tp_text}; greedy tokens "
+            f"equal {div is None} (first divergence step {div}); launches "
+            f"per rank {[ri['counts'] for ri in info]} (sum {launches}); "
+            f"peak GiB per rank {[round(ri['peak'], 2) for ri in info]}; "
+            f"2-rank prefill_s {float(got['prefill_s']):.3f} decode tok/s "
+            f"{float(got['tok_s']):.2f} against single-device "
+            f"{ref_tok_s:.2f} (both ranks on one card: no scaling claim); "
+            f"phase {time.perf_counter() - t0:.1f} s")
+        if not (max(rel) <= PAR_LOGIT_TOL < fault):
+            raise AssertionError(f"{label}: logits off the single-device "
+                                 "engine's, or the bound misses the fault")
+        if not axes.get("pp") and not all(
+                e <= PAR_F32_TOL < b for e, b in zip(f32, f32_fault)):
+            raise AssertionError(f"{label}: the f32 layer is off the single "
+                                 "device's, or the bound misses the fault")
+        if axes.get("tp") and not (
+                max(rel) <= PAR_CONTROL_RATIO * floor < min(faults.values())):
+            raise AssertionError(
+                f"{label}: logits beyond {PAR_CONTROL_RATIO} x the half-sums "
+                "control, or a planted tp fault within it")
+        if axes.get("tp") and not all(
+                ri["u_equal"] and not ri["svd-local u_equal"]
+                and all(ri["scales"][n] <= PAR_SCALE_TOL
+                        < ri["scales_rolled"][n] for n in ri["scales"])
+                for ri in info):
+            raise AssertionError(f"{label}: U differs across the tp ranks or "
+                                 "a rank's scales are off the single "
+                                 "device's head slice, or a check misses "
+                                 "its fault")
+        out[label] = dict(rel=max(rel), fault=fault, diverge=div, f32=f32,
+                          launches=launches, tok_s=float(got["tok_s"]),
+                          ref_tok_s=ref_tok_s)
+    shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+def check_shard_kernels(torch, cfg, lay, link: float) -> None:
+    """A, D, E, A-host and gather_v_rows against their plain versions at
+    the shapes a 2-rank mesh gives them: the tp=2 head slice (B 2, 16 heads
+    / 4 KV heads) for all five, and the dp=2 shard (B 1, 8 KV heads) for D
+    and E, which the dp phases run."""
+    import dataclasses
+
+    half = dataclasses.replace(cfg, num_heads=cfg.num_heads // 2,
+                               num_kv_heads=cfg.num_kv_heads // 2)
+    log("[shard shapes: tp=2 head slice, B 2, 16 heads / 4 KV heads]")
+    check_refresh(torch, half, lay)
+    check_refresh_host(torch, half, lay, link, layers=128)  # 1.3 MB a layer
+    check_gather(torch, half, lay, link, timed=False)
+    check_gather_v_rows(torch, half, lay, link, layers=64)  # 2 MB a layer
+    log("[shard shapes: dp=2 shard, B 1, 8 KV heads]")
+    check_gather(torch, cfg, lay, link, batch=1, timed=False)
+
+
 def main() -> int:
     # The flex_attention yardstick compiles in this process (no compile
     # workers to stop) into the checkout's gitignored build directory.
@@ -2766,6 +3488,7 @@ def main() -> int:
     entries["sparse_refresh_host_v"] = check_refresh_host(torch, cfg, lay, link)
     entries["prefill_attention"] = check_prefill_attention(
         torch, cfg, evidence["B, C"])
+    entries["prefill_attention_offset"] = check_prefill_offset(torch, cfg)
     entries["sparse_prefill_attention"] = check_sparse_prefill(
         torch, cfg, evidence["B, C"])
     entries["gather_chunks"], entries["gather_chunks_host_v"] = check_gather(
@@ -2792,8 +3515,11 @@ def main() -> int:
     run_auto(torch, cfg, params)
     check_toy_serving(torch)
     serve = run_serving(torch, cfg, params)
+    tp1 = run_tp1_nccl(torch, cfg, params)
     del params  # each LLM of the entry-points phase holds its own weights
     _release(torch)
+    check_shard_kernels(torch, cfg, lay, link)
+    par = run_parallel_phases(torch, cfg)
     entry_points = run_entry_points(torch, cfg, runs["shadow"])
     # Each kernel's launches come from the run of the path that uses it.
     home = {"sparse_refresh": "shadow", "prefill_attention": "shadow",
@@ -2804,6 +3530,9 @@ def main() -> int:
             "vs_tile_attention": "vs-tile", "vs_sparse_attention": "vs-walk",
             "gather_v_rows": "offload-host"}
     for name, entry in entries.items():
+        if name == "prefill_attention_offset":  # both ranks of sp2-gloo
+            entry["launches"] = par["sp2-gloo"]["launches"][name]
+            continue
         entry["launches"] = runs[home[name]]["launches"][name]
     log("[summary] prefill_s " + ", ".join(
         f"{k} {r['prefill_s']:.3f}" for k, r in runs.items())
@@ -2830,6 +3559,12 @@ def main() -> int:
         f" s (host V {c['load_s_offload']:.2f} s) against prefill_s "
         f"{c['prefill_s']:.2f}; HF load {h['load_s_none']:.2f} s "
         f"({h['load_gb_s_none']:.2f} GB/s); phase {entry_points['seconds']:.1f} s")
+    log("[summary] parallel: tp1-nccl decode tok/s "
+        f"{tp1['tok_s']} against single-device {tp1['ref_tok_s']}; " + ", ".join(
+            f"{k} logits rel {r['rel']:.4e} (fault {r['fault']:.4e}), first "
+            f"divergence {r['diverge']}, 2-rank tok/s {r['tok_s']:.2f} "
+            f"(single {r['ref_tok_s']:.2f})" for k, r in par.items())
+        + f"; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(entries.values())}))
     print(facts["smi"])
     print(json.dumps({"ok": True, "device": {
@@ -2839,4 +3574,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 6 and sys.argv[1] == "--parallel-rank":
+        sys.exit(parallel_rank(sys.argv[2], int(sys.argv[3]),
+                               int(sys.argv[4]), sys.argv[5]))
     sys.exit(main())

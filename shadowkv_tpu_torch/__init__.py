@@ -3,7 +3,8 @@
 A port of ``shadowkv_tpu`` (the JAX/Pallas package beside it, which stays the
 reference). Module names mirror the JAX package so each counterpart is easy
 to find: ``config``, ``core/``, ``cache/``, ``kernels/``, ``models/``
-(``llm.py`` is the user's entry point), ``serving.py``, ``utils/`` (context
+(``llm.py`` is the user's entry point), ``serving.py``, ``parallel/``
+(dp, tp, sp and pp, one process per rank), ``utils/`` (context
 checkpoints), ``data/``, ``eval/`` and ``entry/`` (``e2e``, ``eval_acc``).
 Differences of idiom:
 

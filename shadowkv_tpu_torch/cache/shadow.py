@@ -203,11 +203,19 @@ def shadow_prefill_layer(
     v: torch.Tensor,  # [B, S, K, Dh]
     q_last: torch.Tensor,  # [B, 1, H, Dh] last prefill query (roped)
     omega: torch.Tensor | None = None,  # low-rank sketch (core/lowrank.py)
+    tp=None,  # tensor-parallel group: k/v/q hold this rank's heads
 ) -> dict:
     """One layer's shadow-cache slices at prefill: low-rank factors of
     pre-RoPE K, landmarks/outliers of post-RoPE K, int8 stores, and the
     compact buffer seeded with the EXACT post-RoPE K/V of the last prefill
-    query's selection (not a reconstruction)."""
+    query's selection (not a reconstruction).
+
+    Under tp only the factorization talks to the other ranks (its sums run
+    over ``tp``); landmarks, outliers, the seed selection and every store
+    are per KV head, and the int8 scales of V and of the landmarks sit per
+    head in their own tensors, so they stay local and need no head offset
+    (JAX passes ``head_offset`` to its refresh because its scales are packed
+    per global head in U's tail lanes)."""
     b, s, kh, dh = v.shape
     lo = layout
     cs = lo.chunk_size
@@ -215,7 +223,7 @@ def shadow_prefill_layer(
 
     u, sv = lowrank_kv_factors(
         k_pre_rope.reshape(b, s, kh * dh), lo.rank, kh, dh,
-        dtype=model.dtype, omega=omega,
+        dtype=model.dtype, omega=omega, tp=tp,
     )
     u = u[:, :ctx]  # decode only reconstructs context chunks
 

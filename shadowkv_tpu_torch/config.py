@@ -33,14 +33,22 @@ fields the JAX package has for the paths this port serves:
 int8 ``QTensor`` leaves (``core/wquant.py``); as in JAX it is
 informational, the params decide. ``approx_topk`` is no field: XLA's
 approximate top-k is exact off the TPU, and the port's top-k is always
-exact, so ``LLM`` accepts the flag and ignores it. Fields of the path the
-port does not serve yet (parallelism: dp, tp, sp, pp) are left out, so
-passing one is a ``TypeError``. The JAX rules that assert are
-``ValueError`` here: ``use_pallas`` and ``ring_gather`` exclude each
-other, an int8 offloaded store needs one of them, ``use_pallas="auto"``
+exact, so ``LLM`` accepts the flag and ignores it. The JAX rules that
+assert are ``ValueError`` here: ``use_pallas`` and ``ring_gather`` exclude
+each other, an int8 offloaded store needs one of them, ``use_pallas="auto"``
 serves the ``"shadow"`` mode without ``ring_gather`` only, and the
 segmented offload prefill needs ``shadow_offload`` with ``ring_gather``
 (the engine checks the layer count).
+
+Parallelism (``parallel/``): ``dp``, ``tp``, ``sp`` and ``pp`` with the JAX
+engine's composition rules (``engine.py:149-216``): sp serves
+``mode="shadow"`` on the XLA decode path; pp needs ``mode="shadow"`` and
+the XLA decode path, composes with dp or with tp but not both and never
+with sp, and pp x tp serves ``kv_quant="none"``; the engine checks that tp
+divides the KV heads and pp the layers. ``eager_decode`` (port-own) runs
+every decode step eagerly on the card instead of through its CUDA graph:
+a gloo group's collectives cannot be captured, so a gloo mesh on the card
+needs it.
 """
 
 from __future__ import annotations
@@ -233,6 +241,59 @@ class RuntimeConfig:
     # per-output-channel QTensor leaves, core/wquant.py). Informational,
     # as in JAX: the params' leaves decide; LLM and the loaders set both.
     weight_quant: str = "none"
+    # Parallelism (parallel/mesh.py): data, tensor, sequence and pipeline
+    # ranks of one model replica; one process per rank.
+    dp: int = 1
+    tp: int = 1
+    sp: int = 1
+    pp: int = 1
+    # Decode steps run eagerly on the card (no CUDA graph); a gloo mesh on
+    # the card needs it. A CPU engine always steps eagerly.
+    eager_decode: bool = False
+
+    @property
+    def mesh_size(self) -> int:
+        return self.dp * self.tp * self.sp * self.pp
+
+    def check_parallel(self, cache: CacheConfig) -> None:
+        """The JAX engine's composition rules of dp/tp/sp/pp
+        (``ValueError``)."""
+        for name in ("dp", "tp", "sp", "pp"):
+            if getattr(self, name) < 1:
+                raise ValueError(f"{name} must be >= 1")
+        kernel = bool(self.ring_gather or self.use_pallas)
+        if self.pp > 1:
+            if self.sp > 1:
+                raise ValueError("pp x sp unsupported")
+            if self.tp > 1 and self.dp > 1:
+                raise ValueError(
+                    "pp composes with EITHER dp OR tp; a 3-axis pp x dp x tp "
+                    "mesh is unsupported")
+            if cache.mode != "shadow":
+                raise ValueError("pp > 1 supports cache mode 'shadow' only")
+            if kernel:
+                raise ValueError("pp > 1 runs the XLA decode path (no "
+                                 "use_pallas, no ring_gather)")
+            if self.tp > 1 and cache.kv_quant != "none":
+                raise ValueError("pp x tp serves kv_quant='none'")
+        if self.sp > 1:
+            if cache.mode != "shadow":
+                raise ValueError("sp > 1 supports cache mode 'shadow' only")
+            if kernel:
+                raise ValueError("sp > 1 runs the XLA decode path (no "
+                                 "use_pallas, no ring_gather)")
+        if self.mesh_size > 1 and self.offload_prefill_segments > 1:
+            raise ValueError("the segmented offload prefill serves one rank")
+        if self.mesh_size > 1 and self.vs_sim is not None:
+            raise ValueError("vs_sim draws per global head and layer; it "
+                             "serves one rank only")
+        if (self.pp > 1 and self.prefill_pattern == "vs"
+                and self.minference_layer_patterns is not None):
+            raise ValueError("per-layer MInference tables are not supported "
+                             "under pp")
+        if self.sp > 1 and self.prefill_pattern not in ("dense",
+                                                        "dense-splash"):
+            raise ValueError("the sequence-parallel prefill is dense")
 
     def check_served(self, cache: CacheConfig) -> None:
         """Raise ``ValueError`` for unknown values and for combinations the
@@ -256,6 +317,7 @@ class RuntimeConfig:
             raise ValueError(
                 f"unknown debug_hit_layout {self.debug_hit_layout!r}"
             )
+        self.check_parallel(cache)
         if self.offload_prefill_segments < 1:
             raise ValueError("offload_prefill_segments must be >= 1")
         if self.offload_prefill_segments > 1 and not (

@@ -48,11 +48,15 @@ def causal_prefill_attention(
     v: torch.Tensor,
     scale: float | None = None,
     block_q: int = 512,
+    offset: int | None = None,
 ) -> torch.Tensor:
     """Blockwise causal self-attention (query blocks of ``block_q`` keep the
-    score temporaries at [B, H, block_q, T]); q occupies the last S of the
-    T key positions."""
-    return _blockwise(q, k, v, scale, block_q, None, 0)
+    score temporaries at [B, H, block_q, T]). Query row i sits at key
+    position ``offset + i``; by default q occupies the last S of the T key
+    positions (``offset = T - S``). An explicit offset is the
+    sequence-parallel form (JAX ``sp_causal_prefill_attention``): S local
+    query rows at a global offset against all T >= offset + S keys."""
+    return _blockwise(q, k, v, scale, block_q, None, 0, offset)
 
 
 def sparse_prefill_attention(
@@ -70,10 +74,13 @@ def sparse_prefill_attention(
     return _blockwise(q, k, v, scale, block_q, window, sink)
 
 
-def _blockwise(q, k, v, scale, block_q, window, sink):
+def _blockwise(q, k, v, scale, block_q, window, sink, offset=None):
     b, s, h, dh = q.shape
     t = k.shape[1]
-    offset = t - s
+    offset = t - s if offset is None else offset
+    if offset < 0 or offset + s > t:
+        raise ValueError(f"query rows [{offset}, {offset + s}) outside the "
+                         f"{t} keys")
     pos_k = torch.arange(t, device=q.device)
     outs = []
     for q0 in range(0, s, block_q):

@@ -7,7 +7,11 @@ The draw is ``torch.multinomial``'s own one-sample method written out:
 argmax of ``probs / q`` with ``q ~ Exp(1)``. It takes the same numbers from
 the generator and gives the same token, without the host reads that
 ``multinomial`` makes to check its input, so the step can be captured in a
-CUDA graph (the graph then advances the generator on every replay)."""
+CUDA graph (the graph then advances the generator on every replay).
+
+A data-parallel rank holds some rows of the batch: ``rows=(first,
+batch)`` draws the whole batch's numbers and keeps its own, so the ranks
+together sample what one device samples from the same generator."""
 
 from __future__ import annotations
 
@@ -44,12 +48,19 @@ def sample_token(
     temperature: float = 0.0,
     top_k: int = 50,
     top_p: float = 0.9,
+    rows: tuple[int, int] | None = None,
 ) -> torch.Tensor:
-    """Next token ids [B] (int32) from logits [B, V]."""
+    """Next token ids [B] (int32) from logits [B, V]; ``rows=(first,
+    batch)``: these are rows [first, first + B) of a batch of ``batch``."""
     logits = logits.float()
     if temperature == 0.0:
         return torch.argmax(logits, dim=-1).to(torch.int32)
     logits = top_k_top_p_filter(logits / temperature, top_k=top_k, top_p=top_p)
     probs = torch.softmax(logits, dim=-1)
-    q = torch.empty_like(probs).exponential_(1.0, generator=generator)
+    if rows is None:
+        q = torch.empty_like(probs).exponential_(1.0, generator=generator)
+    else:
+        first, batch = rows
+        q = probs.new_empty((batch, probs.shape[-1])).exponential_(
+            1.0, generator=generator)[first:first + probs.shape[0]]
     return torch.argmax(probs / q, dim=-1).to(torch.int32)

@@ -42,6 +42,15 @@
 // Ragged sequences (S < 64, S not a multiple of 128, a window or sink off
 // a tile edge) take the same kernel: TMA zero-fills the rows past seq, the
 // mask drops their keys, and the epilogue writes only rows below seq.
+//
+// The query-offset form of B (shadowkv_prefill_attention_offset) replaces
+// the blockwise attention of sp_causal_prefill_attention
+// (shadowkv_tpu/core/attention.py:501): S_q query rows that sit at key
+// positions [offset, offset + S_q) of T_k >= offset + S_q keys, the local
+// rows of one sequence-parallel rank against the gathered K/V. The plan
+// and the mask count in key positions (q0 and q1 carry the offset), the
+// query map and the output in local rows: a query block at local row r0
+// visits the key tiles up to (offset + r0 + 127) / 128 and skips the rest.
 
 #include "flash_sm90.cuh"
 
@@ -59,9 +68,10 @@ struct WindowPlan {
   const CUtensorMap* v;
   int kv_head;
   int batch;
-  int q0;
-  int q1;
-  int seq;
+  int q0;      // key position of the block's first query row
+  int q1;      // key position of its last row below S_q
+  int offset;  // key position of local query row 0
+  int seq;     // keys (T_k)
   int window;
   int sink;
   int n_sink;
@@ -99,8 +109,10 @@ struct WindowPlan {
     const int k1 = k0 + kTileRows - 1;
     return k1 <= q0 && (k1 < sink || q1 - max(k0, sink) < window);
   }
+  // qp is a local query row; its key position is qp + offset.
   __device__ void mask(int i, float (&s)[64], int qp) const {
     const int k0 = tile(i) * kTileRows;
+    qp += offset;
     sm90::mask_rows(s, Row{qp, k0, seq, window, sink},
                     Row{qp + 8, k0, seq, window, sink});
   }
@@ -110,18 +122,21 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
 prefill_attention_kernel(const __grid_constant__ CUtensorMap q_map,
                          const __grid_constant__ CUtensorMap k_map,
                          const __grid_constant__ CUtensorMap v_map,
-                         __nv_bfloat16* __restrict__ out, int seq, int heads,
-                         int kv_heads, float scale_log2, int window, int sink) {
+                         __nv_bfloat16* __restrict__ out, int s_q, int seq,
+                         int offset, int heads, int kv_heads, float scale_log2,
+                         int window, int sink) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const int h = blockIdx.x;
   const int b = blockIdx.y;
+  const int r0 = (gridDim.z - 1 - blockIdx.z) * kTileRows;  // local row
   WindowPlan plan;
   plan.k = &k_map;
   plan.v = &v_map;
   plan.kv_head = h / (heads / kv_heads);
   plan.batch = b;
-  plan.q0 = (gridDim.z - 1 - blockIdx.z) * kTileRows;
-  plan.q1 = min(seq, plan.q0 + kTileRows) - 1;
+  plan.q0 = offset + r0;
+  plan.q1 = offset + min(s_q, r0 + kTileRows) - 1;
+  plan.offset = offset;
   plan.seq = seq;
   plan.window = window;
   plan.sink = sink;
@@ -136,22 +151,23 @@ prefill_attention_kernel(const __grid_constant__ CUtensorMap q_map,
                          x <= 0 ? 0 : (x + kTileRows - 1) / kTileRows);
   }
   const size_t row_stride = (size_t)heads * kD;
-  sm90::attend(plan, sm90::loop_base(smem_raw), &q_map, h, plan.q0, b,
-               scale_log2,
-               out + ((size_t)b * seq + plan.q0) * row_stride + (size_t)h * kD,
-               row_stride, seq - plan.q0);
+  sm90::attend(plan, sm90::loop_base(smem_raw), &q_map, h, r0, b, scale_log2,
+               out + ((size_t)b * s_q + r0) * row_stride + (size_t)h * kD,
+               row_stride, s_q - r0);
 }
 
+// s_q query rows at key positions [offset, offset + s_q) of seq keys.
 int launch(const void* q, const void* k, const void* v, void* out, int batch,
-           int seq, int heads, int kv_heads, int head_dim, float scale,
-           int window, int sink, void* stream) {
-  const int q_blocks = (seq + kTileRows - 1) / kTileRows;
-  if (head_dim != kD || kv_heads <= 0 || heads % kv_heads != 0 || seq <= 0 ||
-      batch <= 0 || batch > 65535 || q_blocks > 65535) {
+           int s_q, int seq, int offset, int heads, int kv_heads, int head_dim,
+           float scale, int window, int sink, void* stream) {
+  const int q_blocks = (s_q + kTileRows - 1) / kTileRows;
+  if (head_dim != kD || kv_heads <= 0 || heads % kv_heads != 0 || s_q <= 0 ||
+      offset < 0 || offset + s_q > seq || batch <= 0 || batch > 65535 ||
+      q_blocks > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   CUtensorMap q_map, k_map, v_map;
-  cudaError_t err = sm90::encode_rows(&q_map, q, batch, seq, heads);
+  cudaError_t err = sm90::encode_rows(&q_map, q, batch, s_q, heads);
   if (err == cudaSuccess) {
     err = sm90::encode_rows(&k_map, k, batch, seq, kv_heads);
   }
@@ -168,8 +184,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch,
   const float scale_log2 = scale * 1.4426950408889634f;
   prefill_attention_kernel<<<grid, sm90::kThreads, sm90::kLoopSmemBytes,
                              static_cast<cudaStream_t>(stream)>>>(
-      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out), seq, heads,
-      kv_heads, scale_log2, window, sink);
+      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out), s_q, seq, offset,
+      heads, kv_heads, scale_log2, window, sink);
   return (int)cudaGetLastError();
 }
 
@@ -180,8 +196,18 @@ extern "C" int shadowkv_prefill_attention(const void* q, const void* k,
                                           int seq, int heads, int kv_heads,
                                           int head_dim, float scale,
                                           void* stream) {
-  return launch(q, k, v, out, batch, seq, heads, kv_heads, head_dim, scale,
-                seq, 0, stream);
+  return launch(q, k, v, out, batch, seq, seq, 0, heads, kv_heads, head_dim,
+                scale, seq, 0, stream);
+}
+
+// q [batch, s_q, heads, 128] at key positions [offset, offset + s_q) of k/v
+// [batch, t_k, kv_heads, 128]: kernel B with a query offset.
+extern "C" int shadowkv_prefill_attention_offset(
+    const void* q, const void* k, const void* v, void* out, int batch, int s_q,
+    int t_k, int offset, int heads, int kv_heads, int head_dim, float scale,
+    void* stream) {
+  return launch(q, k, v, out, batch, s_q, t_k, offset, heads, kv_heads,
+                head_dim, scale, t_k, 0, stream);
 }
 
 // window and sink are clamped to [0, seq] by the caller.
@@ -190,6 +216,6 @@ extern "C" int shadowkv_sparse_prefill_attention(
     int heads, int kv_heads, int head_dim, float scale, int window, int sink,
     void* stream) {
   if (window < 0 || sink < 0) return (int)cudaErrorInvalidValue;
-  return launch(q, k, v, out, batch, seq, heads, kv_heads, head_dim, scale,
-                window, sink, stream);
+  return launch(q, k, v, out, batch, seq, seq, 0, heads, kv_heads, head_dim,
+                scale, window, sink, stream);
 }

@@ -104,13 +104,20 @@ def measure(
     datalen: Optional[str] = None,
     seed: int = 0,
     runs: Optional[dict] = None,
+    dp: int = 1,
+    tp: int = 1,
+    sp: int = 1,
+    pp: int = 1,
 ) -> dict:
     """The full-attention baseline on ``baseline_rows`` [Bb, S], then
     ShadowKV on ``shadow_rows`` [Bs, S] (chunk 8, the XLA-gather branch:
     ``LLM``'s defaults), each through ``LLM.batch_generate`` and freed
     before the next. Returns JAX e2e's JSON object; ``runs``, when given,
     receives each run's ``LLM.stats``, tokens and configs under
-    'baseline' and 'shadowkv'."""
+    'baseline' and 'shadowkv'. ``dp/tp/sp/pp`` run this process as one
+    rank of the model's mesh (the process group initialised by the
+    caller, as ``main`` does under ``torchrun``); the baseline serves dp
+    and tp only, so sp and pp raise."""
     from shadowkv_tpu_torch.models.llm import LLM
 
     rates = {}
@@ -123,7 +130,7 @@ def measure(
                   max_length=rows.shape[1] + gen_len + EXTRA_LEN,
                   attn_mode=mode, sparse_budget=sparse_budget, rank=rank,
                   model_dir=model_dir, weight_quant=weight_quant,
-                  device=device)
+                  device=device, **_axes(mode, dp, tp, sp, pp))
         out, rates[key] = llm.batch_generate(
             rows, gen_len=gen_len, temperature=temperature, benchmark=True,
             seed=seed)
@@ -146,6 +153,15 @@ def measure(
     }
 
 
+def _axes(mode: str, dp: int, tp: int, sp: int, pp: int) -> dict:
+    """The LLM's mesh arguments of a run. The full-attention baseline
+    serves dp and tp only (JAX's rules), so e2e, which runs it, does too."""
+    if mode == "full" and (sp > 1 or pp > 1):
+        raise ValueError("the full-attention baseline serves dp and tp only; "
+                         "measure sp and pp with the shadow run alone")
+    return dict(dp=dp, tp=tp, sp=sp, pp=pp)
+
+
 def parse_args(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--model_name", type=str,
@@ -159,6 +175,11 @@ def parse_args(argv=None):
     p.add_argument("--weight_quant", type=str, default="none",
                    choices=["none", "int8"])
     p.add_argument("--device", type=str, default="cuda")
+    # one process per rank (torchrun --nproc-per-node dp*tp*sp*pp)
+    p.add_argument("--dp", type=int, default=1)
+    p.add_argument("--tp", type=int, default=1)
+    p.add_argument("--sp", type=int, default=1)
+    p.add_argument("--pp", type=int, default=1)
     return p.parse_args(argv)
 
 
@@ -187,13 +208,21 @@ def main(argv=None):
     if not all(len(r) == min_len for r in rows):
         raise SystemExit("qa_2 prompts shorter than the target length")
     rows = np.stack(rows)
-    result = measure(
-        args.model_name, rows[:bsz["baseline"]], rows[:bsz["shadowkv"]],
-        cfg["sparse_budget"], gen_len=args.gen_len, temperature=0.6,
-        model_dir=args.model_dir, weight_quant=args.weight_quant,
-        device=args.device, datalen=args.datalen,
-    )
-    print(json.dumps(result))
+    from shadowkv_tpu_torch.eval.evaluator import close_dist, init_dist
+
+    dist = init_dist()
+    try:
+        result = measure(
+            args.model_name, rows[:bsz["baseline"]], rows[:bsz["shadowkv"]],
+            cfg["sparse_budget"], gen_len=args.gen_len, temperature=0.6,
+            model_dir=args.model_dir, weight_quant=args.weight_quant,
+            device=args.device, datalen=args.datalen, dp=args.dp,
+            tp=args.tp, sp=args.sp, pp=args.pp,
+        )
+    finally:
+        close_dist(dist)
+    if dist.master_process:
+        print(json.dumps(result))
     return result
 
 

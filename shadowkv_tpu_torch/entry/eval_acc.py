@@ -105,6 +105,10 @@ def main(argv=None):
     )
 
     dist = init_dist()
+    dist.model_ranks = args.dp * args.tp * args.sp * args.pp
+    if dist.world_size % dist.model_ranks:
+        raise ValueError(f"world size {dist.world_size} is not a multiple "
+                         f"of dp*tp*sp*pp = {dist.model_ranks}")
     try:
         _evaluate(args, dist, Evaluator(dist))
     finally:
@@ -116,6 +120,15 @@ def _evaluate(args, dist, evaluator):
     from shadowkv_tpu_torch.data.dataset import Dataset
     from shadowkv_tpu_torch.models.llm import LLM
 
+    mesh = None
+    if dist.model_ranks > 1:
+        # this replica's ranks (the evaluator's data parallelism over
+        # replicas stays)
+        from shadowkv_tpu_torch.parallel import mesh as mesh_lib
+
+        mesh = (mesh_lib.build_mesh_pp(args.pp, args.tp, args.dp)
+                if args.pp > 1
+                else mesh_lib.build_mesh(args.dp, args.tp, args.sp))
     llm = LLM(
         model_name=args.model_name,
         batch_size=args.batch_size,
@@ -141,6 +154,7 @@ def _evaluate(args, dist, evaluator):
             else {"0": False, "1": True, "auto": "auto"}[args.use_pallas]
         ),
         device=args.device,
+        mesh=mesh,
     )
     if dist.master_process:
         llm.print_kv_stats()
@@ -148,7 +162,7 @@ def _evaluate(args, dist, evaluator):
     for name in args.dataset_name:
         dataset = Dataset(
             name, llm.tokenizer, args.datalen, args.num_samples,
-            dist.rank, dist.world_size, bucket=args.bucket,
+            dist.replica, dist.replicas, bucket=args.bucket,
         )
         variant = ""
         if args.minference:

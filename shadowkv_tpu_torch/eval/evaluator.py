@@ -31,6 +31,23 @@ class DistConfig:
     rank: int
     world_size: int
     master_process: bool
+    # Ranks of one model replica (dp * tp * sp * pp of the LLM): the
+    # dataset shards over replicas, and one rank of each writes and counts.
+    model_ranks: int = 1
+
+    @property
+    def replica(self) -> int:
+        return self.rank // self.model_ranks
+
+    @property
+    def replicas(self) -> int:
+        return self.world_size // self.model_ranks
+
+    @property
+    def writer(self) -> bool:
+        """The replica's first rank: it writes the archive and its samples
+        count in the summary."""
+        return self.rank % self.model_ranks == 0
 
 
 def init_dist(backend: Optional[str] = None) -> DistConfig:
@@ -125,7 +142,8 @@ class Evaluator:
                 file=sys.stderr,
             )
         if not dataset.is_sharded:
-            dataset.shard(self.dist.rank, self.dist.world_size)
+            dataset.shard(self.dist.replica, self.dist.replicas)
+        writer = self.dist.writer
 
         bsz = llm.batch_size
         scores: list[float] = []
@@ -145,15 +163,16 @@ class Evaluator:
                     scores.extend(step_correct)
                     intact.append(line.rstrip("\n"))
                     start_step += 1
-            with open(output_path, "w", encoding="utf8") as f:
-                f.writelines(l + "\n" for l in intact)
+            if writer:
+                with open(output_path, "w", encoding="utf8") as f:
+                    f.writelines(l + "\n" for l in intact)
             if self.dist.master_process and start_step:
                 print(
                     f"  [resume] {start_step}/{steps} steps restored "
                     f"from {output_path}",
                     file=sys.stderr,
                 )
-        else:
+        elif writer:
             open(output_path, "w").close()
         t_start = time.time()
         for i in range(start_step, steps):
@@ -189,8 +208,9 @@ class Evaluator:
                     context_length=dataset.ctx_len[i * bsz : (i + 1) * bsz],
                     depth_percent=dataset.depth_pct[i * bsz : (i + 1) * bsz],
                 )
-            with open(output_path, "a", encoding="utf8") as f:
-                f.write(json.dumps(record, ensure_ascii=False) + "\n")
+            if writer:
+                with open(output_path, "a", encoding="utf8") as f:
+                    f.write(json.dumps(record, ensure_ascii=False) + "\n")
             if self.dist.master_process:
                 done = (i + 1) * bsz
                 rate = (time.time() - t_start) / (
@@ -221,7 +241,7 @@ class Evaluator:
             [[s["samples"], s["score"] * s["samples"]]
              for s in self.all_stats],
             np.float64,
-        )
+        ) * float(self.dist.writer)  # one rank per replica counts
         gathered = _allgather_rows(rows, self.dist)  # [W, n_stats, 2]
         if not self.dist.master_process:
             return None

@@ -47,6 +47,9 @@ _SIGNATURES = {
     "shadowkv_prefill_attention": (
         [_P] * 4 + [_I] * 5 + [ctypes.c_float, _P], _I
     ),
+    "shadowkv_prefill_attention_offset": (
+        [_P] * 4 + [_I] * 7 + [ctypes.c_float, _P], _I
+    ),
     "shadowkv_sparse_prefill_attention": (
         [_P] * 4 + [_I] * 5 + [ctypes.c_float] + [_I] * 2 + [_P], _I
     ),

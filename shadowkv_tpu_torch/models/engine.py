@@ -1,5 +1,5 @@
 """The inference engine: prefill + autoregressive decode loops
-(counterpart of ``shadowkv_tpu/models/engine.py``, single device, no mesh).
+(counterpart of ``shadowkv_tpu/models/engine.py``).
 
 The engine runs on ``device="cuda"`` unless the caller passes another
 device; asking for CUDA on a machine without one raises, it never falls
@@ -55,6 +55,20 @@ Context checkpoints (``save_state`` / ``load_state``,
 ``utils/checkpoint.py``) write the live shadow cache to one file and load
 it as the engine's live cache, V on the card or in the host store
 whichever way it was saved; ``generate(cont=True)`` then continues it.
+
+Parallelism (``RuntimeConfig.dp/tp/sp/pp``, ``parallel/``): one engine per
+rank, one process per rank, each holding its shard of the weights, the
+cache and the batch (``parallel/mesh.py``), with the JAX engine's
+composition rules. The engine's interface stays the whole batch's: prefill
+takes every prompt row and returns every row's logits, ``generate`` returns
+every row's tokens, and the slot operations take global slot indices; each
+rank works on its own rows and heads and the rows meet by all-gathers over
+the batch shards. Each rank samples its rows from the whole batch's draws
+(``core/sampling.py``), so a dp run samples what one device samples. On the
+card a decode step and its collectives are one CUDA graph under NCCL; a
+gloo mesh on the card needs ``eager_decode`` (its collectives run on the
+host), and the pp pipeline always steps eagerly. Context checkpoints and
+shared-prefix snapshots across dp shards serve one rank only.
 """
 
 from __future__ import annotations
@@ -73,6 +87,8 @@ from shadowkv_tpu_torch.core.layers import ModelParams
 from shadowkv_tpu_torch.core.sampling import sample_token
 from shadowkv_tpu_torch.models import forward
 from shadowkv_tpu_torch.models.graphs import StepGraphs
+from shadowkv_tpu_torch.parallel import mesh as mesh_lib
+from shadowkv_tpu_torch.parallel import pipeline
 from shadowkv_tpu_torch.utils import checkpoint
 
 
@@ -100,8 +116,25 @@ def _resolve_device(device) -> torch.device:
     return device
 
 
+def _slice_patterns(rt: RuntimeConfig, mesh) -> RuntimeConfig:
+    """This rank's query heads of the MInference pattern tables."""
+    if rt.prefill_pattern != "vs" or mesh.tp == 1:
+        return rt
+
+    def cut(table):
+        return None if table is None else tuple(table)[mesh.head_slice(
+            len(table))]
+
+    layers = rt.minference_layer_patterns
+    return dataclasses.replace(
+        rt, minference_patterns=cut(rt.minference_patterns),
+        minference_layer_patterns=(None if layers is None
+                                   else tuple(cut(t) for t in layers)))
+
+
 class Engine:
-    """Single-device inference engine over one model + cache config."""
+    """Inference engine over one model + cache config: on one device, or
+    on this rank's shard of a rank mesh."""
 
     def __init__(
         self,
@@ -111,9 +144,15 @@ class Engine:
         params: ModelParams,
         device="cuda",
         sketch: torch.Tensor | None = None,
+        mesh: "mesh_lib.RankMesh | None" = None,
     ):
         """``sketch`` optionally fixes the low-rank Gaussian sketch
-        (core/lowrank.py); by default it is drawn from a seeded generator."""
+        (core/lowrank.py; the whole model's under tp); by default it is
+        drawn from a seeded generator. With ``rt.dp/tp/sp/pp`` above 1 the
+        engine builds its rank mesh from the initialised process group,
+        unless ``mesh`` gives it (of the same sizes; a 1-rank mesh runs the
+        tensor-parallel code path on one rank). ``params`` are the whole
+        model's; each rank keeps its shard (``mesh_lib.shard_params``)."""
         self.device = _resolve_device(device)
         cache_cfg.check_served()
         rt.check_served(cache_cfg)
@@ -121,6 +160,31 @@ class Engine:
         self.model = model
         self.cache_cfg = cache_cfg
         self.rt = rt
+        mesh_lib.check_divisible(model, rt.tp, rt.pp)
+        if mesh is None and rt.mesh_size > 1:
+            mesh = (mesh_lib.build_mesh_pp(rt.pp, rt.tp, rt.dp) if rt.pp > 1
+                    else mesh_lib.build_mesh(rt.dp, rt.tp, rt.sp))
+        self.mesh = mesh
+        self.local = model  # this rank's config (heads, ffn, layers)
+        self.tp = None  # the tensor-parallel group the forward sums over
+        self._rt_local = rt
+        if mesh is not None:
+            if (mesh.dp, mesh.tp, mesh.sp, mesh.pp) != (rt.dp, rt.tp, rt.sp,
+                                                        rt.pp):
+                raise ValueError(
+                    f"mesh (dp {mesh.dp}, tp {mesh.tp}, sp {mesh.sp}, pp "
+                    f"{mesh.pp}) does not match the RuntimeConfig")
+            if (self.device.type == "cuda" and mesh.backend == "gloo"
+                    and not rt.eager_decode and rt.pp == 1):
+                raise ValueError(
+                    "a gloo group's collectives cannot be captured in the "
+                    "decode step's CUDA graph: use NCCL, or ask for eager "
+                    "steps with RuntimeConfig(eager_decode=True)")
+            params = mesh_lib.shard_params(params, model, mesh)
+            self.local = mesh_lib.local_model(model, mesh)
+            if mesh.tp > 1 or mesh.size == 1:
+                self.tp = mesh.tp_group
+            self._rt_local = _slice_patterns(rt, mesh)
         self.params = params.to(self.device)
         self.sketch = sketch
         # bf16 tables when the model runs bf16 (as the JAX engine builds
@@ -169,10 +233,40 @@ class Engine:
         self._hit_ema = None
         self._hit_prev_ids = None
         self._hit_counter = 0
+        self._batch = 0  # the live cache's whole batch
 
     @property
     def is_shadow(self) -> bool:
         return self.cache_cfg.is_shadow
+
+    # -- the rank's rows ------------------------------------------------------
+
+    def _sharded_batch(self) -> bool:
+        return self.mesh is not None and self.mesh.batch_shards > 1
+
+    def _rows(self, batch: int) -> slice:
+        """This rank's decode rows of a batch of ``batch``."""
+        if self.mesh is None:
+            return slice(0, batch)
+        return self.mesh.batch_rows(batch)
+
+    def _sample_rows(self):
+        """``sample_token``'s ``rows`` for the live batch, or None."""
+        if not self._sharded_batch():
+            return None
+        return (self._rows(self._batch).start, self._batch)
+
+    def _gather(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """Every rank's rows of ``x`` (batch along ``dim``), in batch
+        order."""
+        if not self._sharded_batch():
+            return x
+        return mesh_lib.all_gather(x, self.mesh.batch_group, dim=dim)
+
+    def _local_slot(self, slot: int) -> int | None:
+        """This rank's row of global slot ``slot``, or None."""
+        rows = self._rows(self._batch)
+        return slot - rows.start if rows.start <= slot < rows.stop else None
 
     # -- prefill ------------------------------------------------------------
 
@@ -196,31 +290,48 @@ class Engine:
         # cache, before the new one is allocated.
         self._cache = None
         self._steps = None
+        mesh, model, rt = self.mesh, self.local, self._rt_local
+        self._batch = b
+        b_dec = self._rows(b).stop - self._rows(b).start
+        if mesh is not None:
+            # this rank's prefill rows (its dp shard)
+            input_ids = input_ids[mesh.prefill_rows(b)]
         parts = []
         if self.is_shadow:
             layout = ShadowLayout.build(self.cache_cfg, s)
-            cache = ShadowCache.init(self.model, layout, b, self.device,
+            cache = ShadowCache.init(model, layout, b_dec, self.device,
                                      v_on_host=self.v_on_host)
             self._host_axis = "layer" if segmented else "batch"
-            for b0 in range(0, b, t):
-                parts.append(forward.prefill_shadow_into(
-                    self.model, self.params, cache, input_ids[b0:b0 + t],
-                    self.cos_table, self.sin_table, b0, self.sketch, self.rt,
-                ))
+            if self.rt.pp > 1:
+                parts.append(pipeline.prefill_shadow_pp(
+                    model, self.params, cache, input_ids, self.cos_table,
+                    self.sin_table, mesh, self.sketch, rt))
+            elif self.rt.sp > 1:
+                parts.append(forward.prefill_shadow_sp(
+                    model, self.params, cache, input_ids, self.cos_table,
+                    self.sin_table, mesh, self.sketch))
+            else:
+                for b0 in range(0, input_ids.shape[0], t):
+                    parts.append(forward.prefill_shadow_into(
+                        model, self.params, cache, input_ids[b0:b0 + t],
+                        self.cos_table, self.sin_table, b0, self.sketch, rt,
+                        self.tp,
+                    ))
         else:
-            cache = FullCache.init(self.model, self.cache_cfg, b, self.device)
-            for b0 in range(0, b, t):
+            cache = FullCache.init(model, self.cache_cfg, b_dec, self.device)
+            for b0 in range(0, b_dec, t):
                 parts.append(forward.prefill_full(
-                    self.model, self.params, cache, input_ids[b0:b0 + t],
-                    self.cos_table, self.sin_table, b0, self.rt,
+                    model, self.params, cache, input_ids[b0:b0 + t],
+                    self.cos_table, self.sin_table, b0, rt, self.tp,
                 ))
         self._cache = cache
         if self.is_shadow:
             depth, limit = 0, self.cache_cfg.gen_capacity
         else:
             depth, limit = s, self.cache_cfg.max_length
-        self._steps = StepGraphs(cache, b, depth, limit, self.device)
-        return torch.cat(parts, dim=0), cache
+        self._steps = StepGraphs(cache, b_dec, depth, limit, self.device,
+                                 eager=self.rt.eager_decode or self.rt.pp > 1)
+        return self._gather(torch.cat(parts, dim=0)), cache
 
     # -- decode -------------------------------------------------------------
 
@@ -234,21 +345,26 @@ class Engine:
         return self._forward_step(cache, tokens)
 
     def _forward_step(self, cache, tokens: torch.Tensor) -> torch.Tensor:
-        """The decode forward of one step, which the compiled step runs for
-        its first step and its capture."""
+        """The decode forward of one step (this rank's rows), which the
+        compiled step runs for its first step and its capture."""
+        if self.rt.pp > 1:
+            return pipeline.decode_shadow_pp(
+                self.local, self.params, cache, tokens, self.cos_table,
+                self.sin_table, self.inv_freq_full, self.mesh,
+                hysteresis=self.rt.selection_hysteresis)
         if self.is_shadow:
             return forward.decode_shadow(
-                self.model, self.params, cache, tokens, self.cos_table,
+                self.local, self.params, cache, tokens, self.cos_table,
                 self.sin_table, self.inv_freq_full,
                 hysteresis=self.rt.selection_hysteresis,
                 use_kernel=self._kernel_now, ring=self.ring_gather,
                 debug_hit_rate=self._debug_hit_rate,
                 debug_hit_layout=self.rt.debug_hit_layout,
-                segmented=self.decode_segmented,
+                segmented=self.decode_segmented, tp=self.tp,
             )
         return forward.decode_full(
-            self.model, self.params, cache, tokens, self.cos_table,
-            self.sin_table,
+            self.local, self.params, cache, tokens, self.cos_table,
+            self.sin_table, tp=self.tp,
         )
 
     def _steps_for(self, cache) -> StepGraphs:
@@ -266,10 +382,11 @@ class Engine:
         rate afterwards, on the device."""
         sampled = sample_args[0] != 0.0
         key = (self._kernel_now, sample_args, gen if sampled else None)
+        rows = self._sample_rows()
 
         def body():
             logits = self._forward_step(steps.cache, steps.tok[:, None])[:, -1]
-            steps.record(sample_token(logits, gen, *sample_args))
+            steps.record(sample_token(logits, gen, *sample_args, rows=rows))
             return logits
 
         logits = steps.step(key, body, gen if sampled else None)
@@ -312,7 +429,7 @@ class Engine:
             frac = (self._hit_prev_ids == cache.cached_ids).float().mean()
             self._hit_prev_ids = None
             if self.pallas_auto:
-                frac = float(frac)
+                frac = float(self._mesh_mean(frac))
             ema = self._hit_ema
             self._hit_ema = frac if ema is None else 0.5 * ema + 0.5 * frac
             self._hit_samples.append(frac)
@@ -326,6 +443,19 @@ class Engine:
             if want != self._kernel_now:
                 self._kernel_now = want
                 self._auto_switches += 1
+
+    def _mesh_mean(self, frac: torch.Tensor) -> torch.Tensor:
+        """The hit rate over every rank's rows and heads, so that the ranks
+        of a mesh take one decode path (as JAX's global sample does)."""
+        mesh = self.mesh
+        if mesh is None:
+            return frac
+        x = frac.reshape(1).clone()
+        if mesh.tp > 1:
+            x = mesh_lib.all_reduce(x, mesh.tp_group) / mesh.tp
+        if mesh.batch_shards > 1:
+            x = mesh_lib.all_reduce(x, mesh.batch_group) / mesh.batch_shards
+        return x[0]
 
     def _auto_reset(self) -> None:
         """After ``batch_generate``'s warmup (JAX ``_auto_reset``)."""
@@ -386,7 +516,8 @@ class Engine:
         else:
             self._check_capacity(s, gen_len)
             logits, cache = self.prefill(input_ids)
-            head, off = sample_token(logits[:, -1], gen, *sample_args), 0
+            head = sample_token(logits[:, -1], gen, *sample_args)
+            head, off = head[self._rows(b)], 0
             steps = self._steps_for(cache)
             steps.begin(head)
         self._sync()
@@ -404,7 +535,7 @@ class Engine:
         stats.decode_seconds = time.perf_counter() - t0
         stats.decode_tokens = b * n
         result = torch.cat([head[:, None], steps.hist[off:off + n].T], dim=1)
-        result = result.cpu().numpy()
+        result = self._gather(result).cpu().numpy()
         if stop_ids:
             result = _truncate_at_stop(result, stop_ids)
         return result, stats
@@ -424,15 +555,18 @@ class Engine:
             region = "gen_capacity" if self.is_shadow else "max_length"
             raise ValueError(f"continuation overflows the cache: {used} > "
                              f"{region} {steps.limit}")
-        prompt = torch.as_tensor(np.asarray(input_ids),
+        prompt = torch.as_tensor(np.asarray(input_ids)[self._rows(b)],
                                  dtype=torch.int32).to(self.device)
+        if self.rt.pp > 1:
+            chunk = 1  # pp decode steps one token at a time (JAX :1504)
         multi = s - s % chunk if chunk > 1 else 0
         logits = None
         for t in range(0, multi, chunk):
             logits = self._decode(cache, prompt[:, t:t + chunk])
         rest = prompt[:, multi:]
         if rest.shape[1] == 0:
-            head = sample_token(logits[:, -1], gen, *sample_args)
+            head = sample_token(logits[:, -1], gen, *sample_args,
+                                rows=self._sample_rows())
             steps.begin(head)
             return steps, head, 0
         forced = rest[:, 1:].T
@@ -471,7 +605,7 @@ class Engine:
         stats.prefill_tokens = b * s
 
         steps = self._steps_for(cache)
-        steps.begin(tokens)
+        steps.begin(tokens[self._rows(b)])
         for i in range(warmup_steps):
             if self.pallas_auto and warmup_steps >= 2:
                 self._kernel_now = i % 2 == 1
@@ -486,7 +620,7 @@ class Engine:
         stats.decode_seconds = time.perf_counter() - t0
         stats.decode_tokens = b * gen_len
         out = steps.hist[warmup_steps:warmup_steps + gen_len].T
-        return out.cpu().numpy(), stats
+        return self._gather(out).cpu().numpy(), stats
 
     def decode_step(
         self,
@@ -499,13 +633,14 @@ class Engine:
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """One compiled decode step on ``cache`` fed ``tokens`` [B]; returns
         (next tokens [B], logits [B, V]), both buffers that the next step
-        overwrites. No host sync."""
+        overwrites (on a mesh, the gathered rows of every rank). No host
+        sync."""
         steps = self._steps_for(cache)
-        steps.begin(tokens)
+        steps.begin(tokens[self._rows(self._batch)])
         gen = self._generator() if generator is None else generator
         logits = self._step(steps, (temperature, top_k, top_p), gen,
                             observe=False)
-        return steps.tok, logits
+        return self._gather(steps.tok), self._gather(logits)
 
     def decode_chunk(
         self,
@@ -526,12 +661,16 @@ class Engine:
         samples no hit rate, so ``"auto"`` holds its path through it."""
         k = forced_val.shape[0]
         steps = self._steps_for(cache)
-        steps.begin(tokens, forced_val, forced_on)
+        rows = self._rows(self._batch)
+        steps.begin(tokens[rows], forced_val[:, rows], forced_on[:, rows])
         gen = self._generator() if generator is None else generator
         sample_args = (temperature, top_k, top_p)
         for _ in range(k):
             self._step(steps, sample_args, gen, observe=False)
-        return steps.tok.clone(), steps.hist[:k].cpu()
+        if not self._sharded_batch():
+            return steps.tok.clone(), steps.hist[:k].cpu()
+        hist = self._gather(steps.hist[:k], dim=1)
+        return hist[k - 1].clone(), hist.cpu()
 
     # -- slot operations (continuous batching, serving.py) -------------------
 
@@ -544,12 +683,16 @@ class Engine:
     def reset_slot_depth(self, slot: int, need: int) -> None:
         """An admission into ``slot``: its depth to 0, in place, and the
         number of decode steps its request needs (the capacity check's
-        end for that slot)."""
-        self._steps_for(self._cache).reset_slot(slot, need)
+        end for that slot); on a mesh, by the rank that holds the slot."""
+        steps = self._steps_for(self._cache)
+        local = self._local_slot(slot)
+        if local is not None:
+            steps.reset_slot(local, need)
 
     def clamp_idle_depths(self, active, steps: int) -> None:
         """Pin the depth of each slot that ``active`` [B] marks idle low
         enough for ``steps`` more steps (JAX serving's idle-slot clamp)."""
+        active = np.asarray(active, bool)[self._rows(self._batch)]
         self._steps_for(self._cache).clamp_idle(active, steps)
 
     def admit_slot(self, cache, ids_row, slot: int):
@@ -558,10 +701,15 @@ class Engine:
         are untouched. Every field is written in place, and with V in host
         memory each layer's V rows go straight into the slot's rows of the
         pinned store, so neither mode needs a one-slot cache. A store from
-        a segmented offload prefill refuses, as JAX's does. Returns
-        (last-token logits [1, 1, V], cache)."""
+        a segmented offload prefill refuses, as JAX's does. On a mesh the
+        dp shard that holds ``slot`` prefills it, with its tp ranks, and
+        its logits reach every rank. Returns (last-token logits [1, 1, V],
+        cache)."""
         if not self.is_shadow:
             raise ValueError("slot admission serves the shadow cache modes")
+        if self.rt.sp > 1 or self.rt.pp > 1:
+            raise ValueError("slot admission prefills one slot; the sp and "
+                             "pp prefills are whole-batch")
         self._steps_for(cache)
         if self._host_axis != "batch":
             raise ValueError(
@@ -570,10 +718,20 @@ class Engine:
                 "offload_prefill_segments=1")
         ids = torch.as_tensor(np.asarray(ids_row)[None],
                               dtype=torch.long).to(self.device)
-        lg = forward.prefill_shadow_into(
-            self.model, self.params, cache, ids, self.cos_table,
-            self.sin_table, slot, self.sketch, self.rt,
-        )
+        local = self._local_slot(slot)
+        if local is None:  # another dp shard holds the slot
+            lg = torch.empty(1, 1, self.model.vocab_size,
+                             dtype=torch.float32, device=self.device)
+        else:
+            lg = forward.prefill_shadow_into(
+                self.local, self.params, cache, ids, self.cos_table,
+                self.sin_table, local, self.sketch, self._rt_local, self.tp,
+            )
+        if self._sharded_batch():
+            lg = mesh_lib.broadcast(
+                lg.contiguous(),
+                self.mesh.owner_of_row(slot, self._batch),
+                self.mesh.batch_group)
         return lg, cache
 
     def _extract_slot(self, cache, b0: int) -> ShadowCache:
@@ -582,6 +740,8 @@ class Engine:
         a shared-prefix snapshot. A host V store's rows are not copied
         here (``host_slot_rows`` does that); the snapshot holds a zero-row
         placeholder for them, as JAX's does."""
+        self._one_rank("shared-prefix snapshots across dp shards")
+
         def take(t):
             return None if t is None else t[:, b0:b0 + 1].clone()
 
@@ -603,6 +763,7 @@ class Engine:
         the V store, which stays where it is (a host store takes its rows
         through ``set_host_slot_rows``); ``gen_len`` is left to the
         caller."""
+        self._one_rank("shared-prefix snapshots across dp shards")
         names = [n for n in ShadowCache.FIELDS if n != "v_full"]
         for name in names + (["v_full"] if with_v else []):
             dst = getattr(cache, name)
@@ -614,6 +775,14 @@ class Engine:
         """``_merge_slots`` with the V store (a cache whose V is on the
         card; JAX ``merge_slots_v_fn``)."""
         return self._merge_slots(cache, small, b0, with_v=True)
+
+    def _one_rank(self, what: str, batch_only: bool = True) -> None:
+        """Raise for ``what`` on a mesh that shards the batch (or, with
+        ``batch_only=False``, on any mesh)."""
+        if self._sharded_batch() or (self.mesh is not None
+                                     and not batch_only):
+            raise ValueError(f"{what} serve one rank (a snapshot or a file "
+                             "would hold one shard of the cache)")
 
     def _host_store(self) -> torch.Tensor:
         if not self.v_on_host or self._cache is None:
@@ -641,6 +810,7 @@ class Engine:
         to ``path``; ``load_state`` in this or another engine resumes it."""
         if not self.is_shadow:
             raise ValueError("save_state serves the shadow cache modes")
+        self._one_rank("context checkpoints", batch_only=False)
         if self._cache is None:
             raise ValueError("save_state needs a prefilled cache: call "
                              "prefill() or generate() first")
@@ -661,6 +831,7 @@ class Engine:
         slots' host-side depths are rebuilt from the loaded ``gen_len``."""
         if not self.is_shadow:
             raise ValueError("load_state serves the shadow cache modes")
+        self._one_rank("context checkpoints", batch_only=False)
         self._cache = None
         self._steps = None
         cache = checkpoint.load_shadow_state(
@@ -726,7 +897,7 @@ class Engine:
         out["device_bytes"] = sum(bytes_by_field.values())
         out["host_bytes"] = host_bytes
         if self.is_shadow:
-            m = self.model
+            m = self.local  # this rank's shard of the cache
             cached = int(cache.kv_len.max())
             bytes_per = 4 if m.dtype == torch.float32 else 2
             full_equiv = (2 * m.num_layers * cache.k_buf.shape[1]

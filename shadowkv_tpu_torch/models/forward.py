@@ -25,6 +25,13 @@ every kernel is its plain version. The JAX engine runs ``"stream"`` as
 dense causal attention on the CPU (its splash branch needs an
 accelerator); the port's CPU path is kernel C's plain version, so it
 applies the window there too.
+
+Parallel ranks (``parallel/mesh.py``) run these functions on their shard
+with a head-scaled config: ``tp`` (a process group) makes ``_layer_tail``
+all-reduce the o_proj and MLP partial sums and ``_finalize`` all-gather the
+vocabulary slices of the logits (JAX ``forward.py`` :176-191, where GSPMD
+inserts the same sums). ``prefill_shadow_sp`` is the sequence-parallel
+shadow prefill (JAX ``prefill_shadow(sp_mesh=...)``, :324-395).
 """
 
 from __future__ import annotations
@@ -54,9 +61,11 @@ from shadowkv_tpu_torch.core.layers import (
     swiglu_mlp,
 )
 from shadowkv_tpu_torch.kernels.prefill_attention import (
+    causal_prefill_offset,
     causal_prefill_splash,
     sparse_prefill_splash,
 )
+from shadowkv_tpu_torch.parallel import mesh as mesh_lib
 
 _DENSE = RuntimeConfig()
 
@@ -71,19 +80,33 @@ def _layer_qkv(model: ModelConfig, lp: LayerParams, x, cos, sin):
     return q_r, k_r, k, v
 
 
-def _layer_tail(lp: LayerParams, model: ModelConfig, x, ctx):
-    x = x + o_proj(ctx, lp)
+def _layer_tail(lp: LayerParams, model: ModelConfig, x, ctx, tp=None):
+    """Post-attention tail; under ``tp`` wo and w_down hold input rows, so
+    their products are partial sums that one all-reduce each joins before
+    the (replicated) residual stream."""
+    o = o_proj(ctx, lp)
+    if tp is not None:
+        o = mesh_lib.all_reduce(o, tp)
+    x = x + o
     h = rms_norm(x, lp.mlp_norm, model.rms_norm_eps)
-    return x + swiglu_mlp(h, lp)
+    m = swiglu_mlp(h, lp)
+    if tp is not None:
+        m = mesh_lib.all_reduce(m, tp)
+    return x + m
 
 
-def _finalize(model: ModelConfig, params: ModelParams, x) -> torch.Tensor:
+def _finalize(model: ModelConfig, params: ModelParams, x,
+              tp=None) -> torch.Tensor:
     """Last-position logits [B, 1, V] in f32 (the product is taken in the
     model dtype: on bf16 models the logits carry one bf16 rounding, where
     JAX asks XLA for an f32 product; an int8 lm_head's scale multiplies in
-    f32)."""
+    f32). Under ``tp`` the lm_head holds a vocabulary slice and the slices
+    are all-gathered."""
     x = rms_norm(x[:, -1:], params.final_norm, model.rms_norm_eps)
-    return wquant.mat(x, params.lm_head, out_dtype=torch.float32)
+    logits = wquant.mat(x, params.lm_head, out_dtype=torch.float32)
+    if tp is not None:
+        logits = mesh_lib.all_gather(logits, tp, dim=-1)
+    return logits
 
 
 def _tables(cos_table, sin_table, n: int):
@@ -154,6 +177,7 @@ def prefill_full(
     sin_table: torch.Tensor,
     batch_start: int = 0,
     rt: RuntimeConfig = _DENSE,
+    tp=None,
 ) -> torch.Tensor:
     """Prefill of a sub-batch into ``cache`` rows
     [batch_start, batch_start + Bsub); returns last-token logits."""
@@ -167,9 +191,9 @@ def prefill_full(
         cache.k[layer, bs, :, :s] = k_r.transpose(1, 2)
         cache.v[layer, bs, :, :s] = v.transpose(1, 2)
         ctx = prefill_attention(rt, layer, q, k_r.contiguous(), v.contiguous())
-        x = _layer_tail(lp, model, x, ctx)
+        x = _layer_tail(lp, model, x, ctx, tp)
     cache.length.fill_(s)
-    return _finalize(model, params, x)
+    return _finalize(model, params, x, tp)
 
 
 def decode_full(
@@ -179,6 +203,7 @@ def decode_full(
     tokens: torch.Tensor,  # [B, Qn]
     cos_table: torch.Tensor,
     sin_table: torch.Tensor,
+    tp=None,
 ) -> torch.Tensor:
     b, qn = tokens.shape
     x = wquant.take_rows(params.embed, tokens, model.dtype)
@@ -195,9 +220,9 @@ def decode_full(
         # masked to exactly zero weight, as the JAX full decode does: the
         # shapes stay those of every other step.
         ctx = decode_attention_hm(q, cache.k[layer], cache.v[layer], new_len)
-        x = _layer_tail(lp, model, x, ctx)
+        x = _layer_tail(lp, model, x, ctx, tp)
     cache.length.add_(qn)
-    return _finalize(model, params, x)
+    return _finalize(model, params, x, tp)
 
 
 # --------------------------------------------------------------------------
@@ -216,6 +241,7 @@ def shadow_prefill_body(
     batch_start: int,
     omega: torch.Tensor | None = None,
     rt: RuntimeConfig = _DENSE,
+    tp=None,
 ) -> torch.Tensor:
     """One prefill layer (JAX ``make_shadow_prefill_body``): QKV + RoPE,
     the layer's shadow-cache slices written into ``cache`` at (layer,
@@ -224,13 +250,13 @@ def shadow_prefill_body(
     card, so the layer's V rows are on the card only while it runs."""
     q, k_r, k_pre, v = _layer_qkv(model, lp, x, cos, sin)
     slices = shadow_prefill_layer(
-        model, cache.layout, k_pre, k_r, v, q[:, -1:], omega=omega
+        model, cache.layout, k_pre, k_r, v, q[:, -1:], omega=omega, tp=tp
     )
     bs = slice(batch_start, batch_start + x.shape[0])
     for name, val in slices.items():
         getattr(cache, name)[layer, bs] = val
     ctx = prefill_attention(rt, layer, q, k_r.contiguous(), v.contiguous())
-    return _layer_tail(lp, model, x, ctx)
+    return _layer_tail(lp, model, x, ctx, tp)
 
 
 def prefill_shadow_into(
@@ -243,6 +269,7 @@ def prefill_shadow_into(
     batch_start: int = 0,
     omega: torch.Tensor | None = None,
     rt: RuntimeConfig = _DENSE,
+    tp=None,
 ) -> torch.Tensor:
     """Sub-batch shadow prefill writing into the preallocated full-batch
     cache at ``batch_start``; returns last-token logits [Bsub, 1, V]."""
@@ -254,9 +281,9 @@ def prefill_shadow_into(
     for layer in range(model.num_layers):
         x = shadow_prefill_body(
             model, cache, layer, params.layer(layer), x, cos, sin,
-            batch_start, omega, rt,
+            batch_start, omega, rt, tp,
         )
-    return _finalize(model, params, x)
+    return _finalize(model, params, x, tp)
 
 
 def decode_shadow(
@@ -273,6 +300,7 @@ def decode_shadow(
     debug_hit_rate: float | None = None,
     debug_hit_layout: str = "scatter",
     segmented: bool = False,
+    tp=None,
 ) -> torch.Tensor:
     """One sparse decode step over all layers; advances ``cache.gen_len``
     in place.
@@ -298,6 +326,62 @@ def decode_shadow(
             ctx = decode_attention_segments(q, k_view, valid_len)
         else:
             ctx = decode_attention_hm(q, k_view, v_view, valid_len)
-        x = _layer_tail(lp, model, x, ctx)
+        x = _layer_tail(lp, model, x, ctx, tp)
     cache.gen_len.add_(qn)
-    return _finalize(model, params, x)
+    return _finalize(model, params, x, tp)
+
+
+def prefill_shadow_sp(
+    model: ModelConfig,
+    params: ModelParams,
+    cache: ShadowCache,
+    input_ids: torch.Tensor,  # [B_dp, S]: this dp shard's sequences
+    cos_table: torch.Tensor,
+    sin_table: torch.Tensor,
+    mesh,
+    omega: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """The sequence-parallel shadow prefill (JAX ``prefill_shadow`` with an
+    'sp' mesh, :324-395) of one rank: it embeds and projects its S/sp query
+    rows, all-gathers K/V over sp and attends its rows at their global
+    offset against all of them (kernel B's offset form), then runs the
+    tail. Decode shards the batch over (dp, sp), so the rank builds the
+    shadow cache of the B_dp/sp sequences it will decode, ``cache``'s
+    batch, from the gathered pre-RoPE K, post-RoPE K and V of those
+    sequences (the direct form of JAX's resharding, the same per-sequence
+    function). Returns the last-token logits of those sequences."""
+    b, s = input_ids.shape
+    sp, si = mesh.sp, mesh.coords["sp"]
+    if s != cache.layout.prefill_len:
+        raise ValueError("prompt length does not match the cache layout")
+    if s % sp:
+        raise ValueError(f"sp={sp} must divide the prompt length {s}")
+    if b % sp:
+        raise ValueError(f"batch {b} must divide over sp={sp}")
+    sp_g, tp = mesh.groups["sp"], mesh.tp_group
+    s_loc, b_dec = s // sp, b // sp
+    off = si * s_loc
+    mine = slice(si * b_dec, (si + 1) * b_dec)
+    x = wquant.take_rows(params.embed, input_ids[:, off:off + s_loc],
+                         model.dtype)
+    cos, sin = cos_table[off:off + s_loc], sin_table[off:off + s_loc]
+    for layer in range(model.num_layers):
+        lp = params.layer(layer)
+        q, k_r, k_pre, v = _layer_qkv(model, lp, x, cos, sin)
+        k_all = mesh_lib.all_gather(k_r, sp_g, dim=1)
+        v_all = mesh_lib.all_gather(v, sp_g, dim=1)
+        k_pre_all = mesh_lib.all_gather(k_pre, sp_g, dim=1)[mine]
+        q_last = mesh_lib.all_gather(q[:, -1:], sp_g, dim=1)[:, -1:]
+        slices = shadow_prefill_layer(
+            model, cache.layout, k_pre_all, k_all[mine], v_all[mine],
+            q_last[mine], omega=omega, tp=tp,
+        )
+        for name, val in slices.items():
+            getattr(cache, name)[layer] = val
+        ctx = causal_prefill_offset(q, k_all, v_all, off)
+        x = _layer_tail(lp, model, x, ctx, tp)
+    # The last token's hidden state lives on the last sp rank.
+    logits = _finalize(model, params, x, tp)
+    logits = mesh_lib.broadcast(logits.contiguous(),
+                                mesh.group_ranks["sp"][-1], sp_g)
+    return logits[mine]

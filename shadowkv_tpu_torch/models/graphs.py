@@ -26,7 +26,9 @@ buffers, so ``use_pallas="auto"`` switches path between two replays. The
 first step of a path runs eagerly, as a real step that moves the cache (a
 capture records the work and runs none of it); the path is captured right
 after it, and every later step replays the graph. On a CPU engine nothing
-is captured: the same step function runs eagerly on the same buffers.
+is captured: the same step function runs eagerly on the same buffers, as
+it does on the card when the engine asks for eager steps (a gloo mesh,
+whose collectives cannot be captured, and the pp pipeline).
 A capture or replay that fails raises; nothing falls back to eager steps.
 
 The kernel wrappers count their launches in Python, which a replay does
@@ -88,9 +90,12 @@ class StepGraphs:
     is written only in place, and a step raises if the cache holds another
     one (a graph would read a dead buffer)."""
 
-    def __init__(self, cache, batch: int, depth, limit: int, device):
+    def __init__(self, cache, batch: int, depth, limit: int, device,
+                 eager: bool = False):
         """``depth``: the slots' present depth, one for all or [B] (a
-        loaded checkpoint's ``gen_len``)."""
+        loaded checkpoint's ``gen_len``); ``eager`` runs every step eagerly
+        on the card too."""
+        self.eager = eager
         self.cache = cache
         self.position = _position(cache)
         self.depth = np.full(batch, depth, dtype=np.int64)
@@ -203,7 +208,7 @@ class StepGraphs:
             raise ValueError(f"a run of more than {self.rows} steps")
         self.take(1)
         self.run += 1
-        if self.device.type != "cuda":
+        if self.device.type != "cuda" or self.eager:
             return body()
         entry = self._graphs.get(key)
         if entry is None:

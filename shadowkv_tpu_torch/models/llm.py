@@ -120,12 +120,26 @@ class LLM:
         use_pallas=None,
         selection_hysteresis: float = 0.0,
         device="cuda",
+        mesh=None,
     ):
-        for name, n in dict(dp=dp, tp=tp, sp=sp, pp=pp).items():
-            if n != 1:
-                raise NotImplementedError(
-                    f"{name}={n}: the port runs on one device; dp/tp/sp/pp "
-                    "are not ported yet (ROADMAP.md §1 'Parallelism')")
+        """``dp/tp/sp/pp`` above 1 run this process as one rank of the
+        model's mesh (``parallel/mesh.py``): the process group must be
+        initialised (``torchrun``; ``eval/evaluator.py::init_dist``) with a
+        world size of dp * tp * sp * pp, unless ``mesh`` gives this rank's
+        mesh within a larger world (data-parallel replicas of the
+        evaluator). On the card a mesh's backend is NCCL: the decode step
+        is captured with its collectives."""
+        n_ranks = dp * tp * sp * pp
+        if mesh is None and n_ranks > 1:
+            import torch.distributed as dist
+
+            world = (dist.get_world_size()
+                     if dist.is_available() and dist.is_initialized() else 1)
+            if world != n_ranks:
+                raise ValueError(
+                    f"dp*tp*sp*pp = {n_ranks} ranks, but the world size is "
+                    f"{world} (launch one process per rank, e.g. torchrun "
+                    f"--nproc-per-node {n_ranks})")
         weight_quant = weight_quant or "none"
         if weight_quant not in ("none", "int8"):
             raise ValueError(f"unknown weight_quant {weight_quant!r}")
@@ -167,10 +181,13 @@ class LLM:
             prefill_sub_batch=prefill_sub_batch, prefill_pattern=pattern,
             weight_quant=weight_quant, track_hit_rate=track_hit_rate,
             use_pallas=use_pallas,
-            selection_hysteresis=selection_hysteresis, **stream_kw,
+            selection_hysteresis=selection_hysteresis,
+            dp=dp, tp=tp, sp=sp, pp=pp,
+            **stream_kw,
         )
         self.engine = Engine(self.config, self.cache_cfg, rt, params,
-                             device=self.device)
+                             device=self.device, mesh=mesh)
+        del params  # the engine holds this rank's shard
         self.stop_ids = self._resolve_stop_ids()
         self.stats: Optional[GenerationStats] = None  # of the last call
 

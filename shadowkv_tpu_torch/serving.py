@@ -26,8 +26,15 @@ host sync, the idle-slot depth clamp, the bookkeeping replayed in step
 order after each chunk, and admission time booked behind a device sync.
 Sampling draws from the engine's ``torch.Generator`` seeded with ``seed``
 (JAX splits a PRNG key), so sampled tokens differ from JAX's; greedy ones
-do not. The port has no mesh, so JAX's sp/pp refusals have no counterpart
-here.
+do not.
+
+Over a (dp, tp) mesh every rank runs this same host-side schedule on the
+whole batch: the engine's slot operations take global slots, the dp shard
+that holds a slot prefills an admission with its tp ranks and broadcasts
+its logits, and every rank samples the whole batch from the same
+generator. sp and pp meshes are refused, as in JAX, and shared-prefix
+snapshots serve meshes that do not shard the batch (a snapshot stays on
+its rank).
 """
 
 from __future__ import annotations
@@ -110,6 +117,17 @@ class ContinuousBatcher:
         if engine.cache_cfg.mode not in ("shadow", "shadow_offload"):
             raise ValueError("continuous batching serves the shadow cache "
                              "modes")
+        if engine.rt.sp > 1:
+            raise ValueError(
+                "continuous batching over an sp mesh is unsupported: "
+                "admission prefills one slot, but the sequence-parallel "
+                "prefill is whole-batch with the cache batch-sharded over "
+                "(dp, sp)")
+        if engine.rt.pp > 1:
+            raise ValueError(
+                "continuous batching over a pp mesh is unsupported: "
+                "admission prefills one slot, but the pp prefill is a "
+                "whole-batch pipeline")
         self.engine = engine
         self.slots = slots
         self.sample_args = (temperature, top_k, top_p)

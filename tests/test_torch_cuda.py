@@ -8,7 +8,9 @@ int8 V rows exact; gathered chunks
 bit-equal (the gather moves bytes only); attention outputs within 2^-6 of
 each row's largest value, per (b, s, h) row, since the output's scale falls
 with the row index (bf16 probabilities and one bf16 rounding give a few
-2^-9); the sparse prefill kernels (C, F, G) are held to the same per-row
+2^-9), also for B's query-offset form (the sequence-parallel prefill's
+attention), where the bound rejects the same rows placed 64 keys early;
+the sparse prefill kernels (C, F, G) are held to the same per-row
 bound on the rows below ``seq_len``, also at head_dim 96 and 64 (zero-padded
 to 128 by the wrappers). The attention kernels (B, C, F, G)
 give one batch row alone the same bits as that row inside a batch. The
@@ -45,6 +47,7 @@ from shadowkv_tpu_torch.kernels.gather import (
     gather_v_rows_plain,
 )
 from shadowkv_tpu_torch.kernels.prefill_attention import (
+    causal_prefill_offset,
     causal_prefill_splash,
     sparse_prefill_splash,
 )
@@ -202,6 +205,30 @@ def test_prefill_attention_kernel_matches_plain(gen, s, g):
     torch.cuda.synchronize()
     assert causal_prefill_splash.launches == before + 1
     assert _row_rel_err(out, ref) <= 2.0**-6
+
+
+@pytest.mark.parametrize("s_q, t_k, offset, g", [
+    (128, 256, 128, 4), (100, 300, 150, 2), (256, 1000, 744, 8),
+    (72, 72, 0, 1), (1, 129, 128, 4), (200, 1000, 300, 4), (64, 4104, 4040, 2),
+])
+def test_prefill_attention_offset_kernel_matches_plain(gen, s_q, t_k, offset,
+                                                       g):
+    """Kernel B's offset form: S_q rows at key positions [offset, offset +
+    S_q) of T_k keys, per-row bound as B; the bound rejects the rows
+    attended 64 positions early (a wrong offset)."""
+    kh, dh = 2, 128
+    q = torch.randn(2, s_q, kh * g, dh, device="cuda", generator=gen).bfloat16()
+    k = torch.randn(2, t_k, kh, dh, device="cuda", generator=gen).bfloat16()
+    v = torch.randn(2, t_k, kh, dh, device="cuda", generator=gen).bfloat16()
+    ref = causal_prefill_attention(q, k, v, offset=offset)
+    before = causal_prefill_offset.launches
+    out = causal_prefill_offset(q, k, v, offset)
+    torch.cuda.synchronize()
+    assert causal_prefill_offset.launches == before + 1
+    assert _row_rel_err(out, ref) <= 2.0**-6
+    if offset >= 64:
+        early = causal_prefill_attention(q, k, v, offset=offset - 64)
+        assert _row_rel_err(out, early) > 2.0**-6
 
 
 @pytest.mark.parametrize("s, g, window, sink", [

@@ -157,9 +157,9 @@ def test_engine_cuda_without_gpu_raises():
     ],
 )
 def test_unserved_settings_are_rejected(cache_kw, rt_kw):
-    """Fields of the unported path (parallelism) do not exist, so passing
-    one is a TypeError; combinations the JAX engine rejects raise
-    ValueError."""
+    """A field the port lacks would be a TypeError; combinations the JAX
+    engine rejects raise ValueError (pp over the full cache), and so does
+    a tp mesh in a process with no process group to build it from."""
     served = {f.name for f in dataclasses.fields(RuntimeConfig)}
     if not set(rt_kw) <= served:
         with pytest.raises(TypeError):
@@ -199,9 +199,9 @@ def test_single_device_settings_are_served(cache_kw, rt_kw):
 
 
 def test_no_not_implemented_left_but_parallelism():
-    """The port's only ``NotImplementedError`` names parallelism."""
+    """No ``NotImplementedError`` is left in the port: parallelism, its
+    last one, is ported (``parallel/``), so ``LLM`` takes dp/tp/sp/pp."""
     hits = [p for p in _port_files() if "NotImplementedError" in p.read_text()]
-    assert [p.relative_to(ROOT).as_posix() for p in hits] == [
-        "shadowkv_tpu_torch/models/llm.py"]
+    assert hits == []
     text = (ROOT / "shadowkv_tpu_torch/models/llm.py").read_text()
-    assert text.count("NotImplementedError") == 1 and "Parallelism" in text
+    assert "dp=dp, tp=tp, sp=sp, pp=pp" in text

@@ -98,8 +98,8 @@ def test_llm_matches_jax(tiny_dir, mode):
 
 def test_synthetic_token_ids_and_refusals(monkeypatch):
     """No checkpoint and no local tokenizer: int8 synthetic weights from
-    the seeded generator, token ids in and out; mesh axes are refused, and
-    ``approx_topk=True`` (exact off the TPU, as in JAX) gives the tokens of
+    the seeded generator, token ids in and out; mesh axes without as many
+    ranks in the process group are refused, and ``approx_topk=True`` (exact off the TPU, as in JAX) gives the tokens of
     ``approx_topk=False``."""
     from shadowkv_tpu_torch.core.wquant import quantize_params
     from shadowkv_tpu_torch.models import llm as llm_mod
@@ -120,7 +120,7 @@ def test_synthetic_token_ids_and_refusals(monkeypatch):
     assert isinstance(out, np.ndarray) and out.shape == (1, 4)
     with pytest.raises(ValueError, match="tokenizer"):
         llm.encode("text")
-    with pytest.raises(NotImplementedError, match="Parallelism"):
+    with pytest.raises(ValueError, match="world size is 1"):
         TLLM("toy", tp=2, device="cpu")
     approx = TLLM("toy", attn_mode="shadowkv", max_length=512, device="cpu",
                   weight_quant="int8", approx_topk=True, **SHADOW)
