@@ -183,19 +183,37 @@ to the CPU):
    the group) at full width and depth, prompt 8192 x 2, 32 greedy tokens,
    fused refresh, the decode step captured as one CUDA graph with the
    collectives inside: tokens equal to the single-device engine's, A and
-   B counted, tok/s beside the single device's. Then four 2-rank gloo
-   phases, two processes of this script (``--parallel-rank``) sharing the
-   card with eager decode, prompt 4096 x 2, 32 greedy tokens: tp2 (32
+   B counted, tok/s beside the single device's. Then 2-rank gloo
+   phases, run by one pair of processes of this script
+   (``--parallel-rank``) sharing the card with eager decode, prompt 4096 x 2, 32 greedy tokens: tp2 (16
    layers, fused refresh: A and B on 16 heads / 4 KV heads per rank), dp2
    (8 layers, ring gather: D and B on one row each), sp2 (8 layers:
-   B's offset form on 2048 query rows each) and pp2 (32 layers, 16 per
-   stage, two microbatches). Each against the single-device engine at
-   the same config: layer 0 in f32 on each rank's shard within 1e-5 of
-   the single device's (a planted fault: the all-reduce left out, the
-   rows 64 keys off, another shard's rows, must fail it), teacher-forced
-   logits within 0.3 of the largest (one rank's o_proj and MLP zeroed must
-   fail it), the launches of every rank's kernels exact, the greedy
-   tokens with their first divergence step. Two ranks share one card:
+   B's offset form on 2048 query rows each), pp2 (16 layers, 8 per
+   stage, two microbatches), with V on the host dp2 ring (E), tp2 fused
+   (A-host) and tp2 HostVStore (``gather_v_rows``), and on a rank's 16
+   query heads the sparse prefills C (window 1024, sink 64), F and G
+   (``vs_sim="clustered"``, 128 verticals and 768 slashes: each rank's
+   draws bit-equal to its head slice of the single device's), 8 layers
+   each. Each against the single-device engine at the same config: layer
+   0 in f32 on each rank's shard, with the phase's prefill attention,
+   within 1e-5 of the single device's (a planted fault: the all-reduce
+   left out, the rows 64 keys off, another shard's rows, must fail it),
+   teacher-forced logits within 0.3 of the largest (one rank's o_proj and
+   MLP zeroed must fail it) and, under tp, within 1.5 x the half-sums
+   floor of the rank-shapes control (every GEMM at a rank's shapes), the
+   launches of every rank's kernels exact, the greedy tokens with their
+   first divergence step. Context checkpoints on tp2 (8 layers, fused, V
+   on the card and on the host): the tp2 resume equal to the unbroken tp2
+   run, a single-device file resumed on tp2 and the tp2 file resumed on
+   one device within 1.5 x the half-sums floor of the single device (the
+   file with its tp halves swapped must fail it), with V on the host the
+   loaded store pinned and never on the card; save and load seconds, the
+   file's GiB. Shared-prefix snapshots over dp2 (8 layers, 2 slots a
+   shard): two restores cross the shards, one each way, and every
+   request's tokens equal the single-device batcher's at a rank's batch
+   shape; ms per restore across and within a shard. Before the phases
+   C, F and G are held to their plain versions at the tp=2 head slice of
+   that prefill and timed against their bounds. Two ranks share one card:
    their tok/s claims no scaling.
 
 The line before the card line is a JSON object with every kernel's
@@ -204,6 +222,7 @@ numbers; the last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -1027,14 +1046,15 @@ def _vs_flag_sets(torch, gen, q, k, s: int):
     return sets
 
 
-def _vs_inputs(torch, vert, sl, s: int):
-    """F's vertical ids [BH, 1000] and band flags, G's block metadata and
-    column flags, from scores at the JAX default sizes (as
-    minference_prefill(_tile) with every head vertical_and_slash)."""
+def _vs_inputs(torch, vert, sl, s: int, sizes: dict = VS):
+    """F's vertical ids [BH, vertical size] and band flags, G's block
+    metadata and column flags, from scores at ``sizes`` (the JAX defaults;
+    as minference_prefill(_tile) with every head vertical_and_slash)."""
     from shadowkv_tpu_torch.core import minference as mi
 
-    vsz, ssz = mi.topk_sizes(VS["vs_vertical_size"], VS["vs_slash_size"], s)
-    block = VS["vs_block"]
+    vsz, ssz = mi.topk_sizes(sizes["vs_vertical_size"],
+                             sizes["vs_slash_size"], s)
+    block = sizes["vs_block"]
     v_idx, s_top = mi.top_k(vert, vsz), mi.top_k(sl, ssz)
     col, dflag = mi.vs_flags(v_idx, s_top, s // block, block)
     return v_idx, dflag, mi.meta_from_flags(col, dflag), col
@@ -2849,11 +2869,15 @@ PAR_CACHE = dict(mode="shadow", max_length=PAR_PROMPT, sparse_budget=2048,
 # launches B (sp: its offset form) once per local layer per prefill, and
 # its decode kernel (decode_kernel: A, D, A-host, E or gather_v_rows) once
 # per local layer per decode step.
+# The vs sizes of the gloo phases: the JAX defaults scaled to the 4096-token
+# prompt (at 4096 the default 6144 slashes would keep every diagonal: a
+# dense prefill)
+VS_GLOO = dict(vs_vertical_size=128, vs_slash_size=768, vs_block=128)
 PAR_PHASES = {
-    "tp2-gloo": (32, dict(tp=2), {}, dict(use_pallas=True)),
+    "tp2-gloo": (16, dict(tp=2), {}, dict(use_pallas=True)),
     "dp2-gloo": (8, dict(dp=2), {}, dict(ring_gather=True)),
     "sp2-gloo": (8, dict(sp=2), {}, dict()),
-    "pp2-gloo": (32, dict(pp=2), {}, dict()),
+    "pp2-gloo": (16, dict(pp=2), {}, dict()),
     "dp2-offload-ring-gloo": (8, dict(dp=2), dict(mode="shadow_offload"),
                               dict(ring_gather=True)),
     "tp2-offload-fused-gloo": (8, dict(tp=2), dict(mode="shadow_offload"),
@@ -2861,7 +2885,30 @@ PAR_PHASES = {
     # JAX's HostVStore path (offload-host in run_settings: bf16 V)
     "tp2-offload-host-gloo": (8, dict(tp=2), dict(mode="shadow_offload",
                                                   kv_quant="none"), dict()),
+    # context checkpoints on a mesh (_context_phase)
+    "tp2-context-gloo": (8, dict(tp=2), {}, dict(use_pallas=True)),
+    "tp2-offload-fused-context-gloo": (8, dict(tp=2),
+                                       dict(mode="shadow_offload"),
+                                       dict(use_pallas=True)),
+    # shared-prefix snapshots restored across dp shards (_serve_phase)
+    "dp2-serve-ctx-gloo": (8, dict(dp=2), {}, dict(use_pallas=True,
+                                                   prefill_sub_batch=1)),
+    # the sparse prefills on a rank's 16 query heads: C, and F / G under
+    # vs_sim (each rank its slice of one device's draws)
+    "tp2-stream-gloo": (8, dict(tp=2), {}, dict(
+        use_pallas=True, prefill_pattern="stream", stream_window=1024,
+        stream_sink=64)),
+    "tp2-vs-sim-gloo": (8, dict(tp=2), {}, dict(
+        use_pallas=True, prefill_pattern="vs", vs_impl="tile",
+        vs_sim="clustered", **VS_GLOO)),
+    "tp2-vs-walk-sim-gloo": (8, dict(tp=2), {}, dict(
+        use_pallas=True, prefill_pattern="vs", vs_impl="walk",
+        vs_sim="clustered", **VS_GLOO)),
 }
+# phases that are not a greedy run against the single device's
+# (_generate_phase): label -> (main-side function, rank-side function),
+# filled in below their definitions
+PAR_KIND: dict = {}
 # Layer 0 of a rank's path in f32 (its shard of the weights cast to f32,
 # the same seeded input rows, plain attention) against the single-device
 # layer, relative to the largest |output|: f32 sums in another order. The
@@ -2879,9 +2926,15 @@ PAR_F32_ROWS = 1024
 # half-sums, _half_sums_tail), so this bound only catches a broken path;
 # the f32 layer check and the tp cache checks below are the fine guards.
 # The planted fault (one rank's wo and w_down zeroed in every local layer)
-# must read above it. A tp phase is also held within PAR_CONTROL_RATIO
-# times its own half-sums control, and every planted tp fault must read
-# above that.
+# must read above it. A tp phase is also held to the rank-shapes control,
+# the single device with every GEMM at a tp=2 rank's shapes (column halves
+# of wqkv, w_gate_up and the lm_head, row-half sums of wo and w_down:
+# _rank_shapes_mat), which rounds as the ranks do: the ranks within
+# PAR_CONTROL_RATIO times the half-sums floor of it, and every planted tp
+# fault above that. (Against the single device itself a rounding of the
+# column halves can flip a chunk selection that the half sums do not:
+# tp2-stream-gloo read 0.1197 at step 4, the rank-shapes control 0.1195
+# there, the half-sums floor 0.0388.)
 PAR_LOGIT_TOL = 0.3
 PAR_CONTROL_RATIO = 1.5
 # tp cache checks: U (and its int8 scale) bit-equal across the tp ranks;
@@ -2953,7 +3006,8 @@ def _half_sums_tail(lp, model, x, ctx, tp=None):
     return x + halves(F.silu(gate.float()).to(x.dtype) * up, lp.w_down)
 
 
-def _half_sums_control(torch, cfg, params, cache_kw, rt_kw, ids, tokens):
+def _half_sums_control(torch, cfg, params, cache_kw, rt_kw, ids, tokens,
+                       steps: int = PAR_GEN - 1):
     """The tp=2 noise floor of the teacher-forced logits: the single-device
     engine (eager steps) with ``_half_sums_tail``, [steps + 1, B, V]."""
     from shadowkv_tpu_torch.models import forward
@@ -2962,7 +3016,7 @@ def _half_sums_control(torch, cfg, params, cache_kw, rt_kw, ids, tokens):
     real = forward._layer_tail
     forward._layer_tail = _half_sums_tail
     try:
-        logits, _ = _forced_logits(torch, eng, ids, tokens)
+        logits, _ = _forced_logits(torch, eng, ids, tokens, steps)
     finally:
         forward._layer_tail = real
     del eng
@@ -2970,13 +3024,97 @@ def _half_sums_control(torch, cfg, params, cache_kw, rt_kw, ids, tokens):
     return logits.numpy()
 
 
-def _f32_layer(torch, cfg, params, mesh, axes: dict):
+def _rank_shapes_mat(cfg, real):
+    """``wquant.mat`` with every product at a tp=2 rank's shapes: the
+    column halves of wqkv, w_gate_up and the lm_head concatenated, the
+    row-half products of wo and w_down summed in the model dtype (the
+    tp=2 all-reduce)."""
+    import torch
+
+    cols = {(cfg.num_heads + 2 * cfg.num_kv_heads) * cfg.head_dim,
+            2 * cfg.intermediate_size, cfg.vocab_size}
+    rows = {(cfg.num_heads * cfg.head_dim, cfg.hidden_size),
+            (cfg.intermediate_size, cfg.hidden_size)}
+
+    def mat(x, w, out_dtype=None):
+        k, n = w.shape[-2], w.shape[-1]
+        if n in cols:
+            return torch.cat([real(x, w[..., :n // 2].contiguous(), out_dtype),
+                              real(x, w[..., n // 2:].contiguous(), out_dtype)],
+                             dim=-1)
+        if (k, n) in rows:
+            y = (real(x[..., :k // 2].contiguous(), w[..., :k // 2, :].contiguous())
+                 + real(x[..., k // 2:].contiguous(),
+                        w[..., k // 2:, :].contiguous()))
+            return y if out_dtype is None else y.to(out_dtype)
+        return real(x, w, out_dtype)
+
+    return mat
+
+
+def _rank_shapes_control(torch, cfg, params, cache_kw, rt_kw, ids, tokens,
+                         steps: int = PAR_GEN - 1):
+    """The single-device engine (eager steps) with ``_rank_shapes_mat``:
+    teacher-forced logits [steps + 1, B, V] rounded as a tp=2 mesh rounds
+    them."""
+    from shadowkv_tpu_torch.core import layers, wquant
+
+    eng = _par_engine(torch, cfg, params, {}, rt_kw, cache_kw, eager=True)
+    real = wquant.mat
+    layers.mat = wquant.mat = _rank_shapes_mat(cfg, real)
+    try:
+        logits, _ = _forced_logits(torch, eng, ids, tokens, steps)
+    finally:
+        layers.mat = wquant.mat = real
+    del eng
+    _release(torch)
+    return logits.numpy()
+
+
+def _f32_attention(rt_kw: dict):
+    """The phase's prefill attention in f32 through the plain versions of
+    its kernels: ``attend(q, k, v, sim, offset)``, ``sim`` a rank's place
+    in the ``vs_sim`` draws (None on one device)."""
+    from shadowkv_tpu_torch.config import RuntimeConfig
+    from shadowkv_tpu_torch.core import attention
+    from shadowkv_tpu_torch.core import minference as mi
+    from shadowkv_tpu_torch.kernels import vs_sparse, vs_tile
+    from shadowkv_tpu_torch.models import forward as fw
+
+    rt = RuntimeConfig(**rt_kw)
+    if rt.prefill_pattern == "stream":
+        return lambda q, k, v, sim, off: attention.sparse_prefill_attention(
+            q, k, v, rt.stream_window, rt.stream_sink)
+    if rt.prefill_pattern != "vs":
+        return lambda q, k, v, sim, off: attention.causal_prefill_attention(
+            q, k, v, offset=off)
+
+    def walk(q, k, v, col_ids, col_cnt, col_flag, diag_ids, diag_cnt,
+             kv_map, *, block, scale, seq_len):
+        meta = mi.VSMeta(col_ids, col_cnt, col_flag, diag_ids, diag_cnt)
+        return mi.vs_attention_reference(q, k, v, meta, kv_map, block,
+                                         scale=scale, seq_len=seq_len)
+
+    def attend(q, k, v, sim, off):
+        real = vs_tile.vs_tile_attention, vs_sparse.vs_sparse_attention
+        vs_tile.vs_tile_attention = vs_tile.vs_tok_attention_reference
+        vs_sparse.vs_sparse_attention = walk
+        try:
+            return fw.prefill_attention(rt, 0, q, k, v, sim)
+        finally:
+            vs_tile.vs_tile_attention, vs_sparse.vs_sparse_attention = real
+
+    return attend
+
+
+def _f32_layer(torch, cfg, params, mesh, axes: dict, rt_kw: dict):
     """(relative error, planted fault's) of layer 0 of this rank's path in
-    f32 against the single-device layer on the same input; see
-    PAR_F32_TOL. pp stages: (None, None)."""
+    f32 against the single-device layer on the same input, with the
+    phase's prefill attention (``_f32_attention``); see PAR_F32_TOL. pp
+    stages: (None, None)."""
     import dataclasses
 
-    from shadowkv_tpu_torch.core.attention import causal_prefill_attention
+    from shadowkv_tpu_torch.core import minference as mi
     from shadowkv_tpu_torch.core.layers import LayerParams
     from shadowkv_tpu_torch.core.rope import compute_cos_sin
     from shadowkv_tpu_torch.models import forward as fw
@@ -3000,19 +3138,25 @@ def _f32_layer(torch, cfg, params, mesh, axes: dict):
     x = torch.randn(BATCH, s, cfg.hidden_size, device=DEVICE, generator=gen)
     cos, sin = compute_cos_sin(cfg1, s, dtype=torch.float32, device=DEVICE)
 
-    def layer(model, lp, x, cos, sin, tp=None, sp=None, off=0):
+    attend = _f32_attention(rt_kw)
+
+    def layer(model, lp, x, cos, sin, tp=None, sp=None, off=0, sim=None):
         q, k, _, v = fw._layer_qkv(model, lp, x, cos, sin)
         if sp is not None:
             k = mesh_lib.all_gather(k, sp, dim=1)
             v = mesh_lib.all_gather(v, sp, dim=1)
-        ctx = causal_prefill_attention(q, k, v, offset=off)
+        ctx = attend(q.contiguous(), k.contiguous(), v.contiguous(), sim, off)
         return fw._layer_tail(lp, model, x, ctx, tp)
 
     ref = layer(cfg1, f32(one), x, cos, sin)
     lp = f32(sh)
     if axes.get("tp"):
-        got = layer(local, lp, x, cos, sin, tp=mesh.tp_group)
-        bad = layer(local, lp, x, cos, sin)  # the all-reduces left out
+        # the rank's heads of one device's vs_sim draws (one sub-batch)
+        sim = mi.SimShard(batch=BATCH, sub=BATCH, row0=0,
+                          heads=cfg.num_heads,
+                          head0=mesh.head_slice(cfg.num_heads).start)
+        got = layer(local, lp, x, cos, sin, tp=mesh.tp_group, sim=sim)
+        bad = layer(local, lp, x, cos, sin, sim=sim)  # no all-reduces
     elif axes.get("sp"):
         n = s // mesh.sp
         off = mesh.coords["sp"] * n
@@ -3125,93 +3269,136 @@ def _diverge(a, b) -> int | None:
     return None if d.size == 0 else int(d[0])
 
 
-def parallel_rank(label: str, rank: int, port: int, work: str) -> int:
-    """One rank of a 2-rank gloo phase on the card (``chip_smoke.py
-    --parallel-rank``): the phase's engine on this rank's shard with eager
-    decode, a greedy run (counts reset just before it and read just after),
-    teacher-forced logits on the single-device engine's tokens, under tp
-    the cache checks and the planted tp faults, and the planted fault's
-    prefill logits; rank 0 writes them."""
-    import numpy as np
+def parallel_ranks(rank: int, port: int, root: str) -> int:
+    """One of the two rank processes of the gloo phases on the card
+    (``chip_smoke.py --parallel-rank``): one gloo group for every phase of
+    PAR_PHASES in order, each with its mesh, its seeded weights and its
+    work directory ``root/<label>``, its device memory freed after it."""
     import torch
     import torch.distributed as dist
 
     from shadowkv_tpu_torch.kernels import build
     from shadowkv_tpu_torch.models.registry import llama31_8b
-
     from shadowkv_tpu_torch.parallel import mesh as mesh_lib
 
     torch.cuda.set_device(0)
     build.library()  # built by the parent
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                             rank=rank, world_size=2)
+    full = llama31_8b("meta-llama/Llama-3.1-8B-Instruct", dtype=torch.bfloat16)
     try:
-        layers, axes, cache_kw, rt_kw = PAR_PHASES[label]
-        full = llama31_8b("meta-llama/Llama-3.1-8B-Instruct",
-                          dtype=torch.bfloat16)
-        cfg = _par_config(full, layers)
-        params = _par_params(torch, full, layers)
-        mesh = (mesh_lib.build_mesh_pp(axes["pp"]) if axes.get("pp")
-                else mesh_lib.build_mesh(axes.get("dp", 1), axes.get("tp", 1),
-                                         axes.get("sp", 1)))
-        f32_rel, f32_fault = _f32_layer(torch, cfg, params, mesh, axes)
-        eng = _par_engine(torch, cfg, params, axes, rt_kw, cache_kw,
-                          mesh=mesh, eager=True)
-        del params
-        _release(torch)
-        ref = np.load(os.path.join(work, "ref.npz"))
-        ids, ref_tokens = ref["ids"], ref["tokens"]
-        counters = _counters()
-        _reset_counts(counters)
-        out, prefill_s, tok_s = _run_generate(torch, eng, ids)
-        counts = _read_counts(counters)
-        forced, cache = _forced_logits(torch, eng, ids, ref_tokens)
-        info = dict(f32=f32_rel, f32_fault=f32_fault)
-        arrays = {}
-        if axes.get("tp"):
-            info["u_equal"] = _u_equal(torch, cache, mesh)
-            info["scales"], info["scales_rolled"] = _scale_errs(
-                torch, cache, mesh, ref)
-        del cache
-        _release(torch)
-        if axes.get("tp"):
-            for name, (lg, u_eq) in _tp_faults(torch, eng, ids, ref_tokens,
-                                               mesh, rank).items():
-                arrays[name] = lg.numpy()
-                info[f"{name} u_equal"] = u_eq
-        # planted fault: one rank's o_proj and MLP outputs lost in every
-        # local layer (dropped partial sums)
-        if rank == (0 if axes.get("pp") else 1):
-            eng.params.layers.wo.zero_()
-            eng.params.layers.w_down.zero_()
-        lg, _ = eng.prefill(ids)
-        fault = lg[:, -1].float().cpu()
-        info.update(counts=counts,
-                    peak=torch.cuda.max_memory_allocated() / 2**30)
-        every = [None, None]
-        dist.all_gather_object(every, info)
-        if rank == 0:
-            np.savez(os.path.join(work, "rank0.npz"), tokens=out,
-                     forced=forced.numpy(), fault=fault.numpy(),
-                     prefill_s=prefill_s, tok_s=tok_s,
-                     info=json.dumps(every), **arrays)
-        dist.barrier()
+        for label, (layers, axes, cache_kw, rt_kw) in PAR_PHASES.items():
+            t0 = time.perf_counter()
+            torch.cuda.reset_peak_memory_stats()
+            mesh = (mesh_lib.build_mesh_pp(axes["pp"]) if axes.get("pp")
+                    else mesh_lib.build_mesh(axes.get("dp", 1),
+                                             axes.get("tp", 1),
+                                             axes.get("sp", 1)))
+            run = PAR_KIND[label][1] if label in PAR_KIND else _rank_phase
+            run(torch, rank, mesh, _par_config(full, layers),
+                _par_params(torch, full, layers), axes, cache_kw, rt_kw,
+                os.path.join(root, label))
+            _release(torch)
+            if rank == 0:
+                log(f"[{label}] ranks {time.perf_counter() - t0:.1f} s")
     finally:
         dist.destroy_process_group()
     return 0
 
 
-def _spawn_ranks(label: str, work: str, timeout: float = 600.0) -> None:
-    """Two processes of this script for a gloo phase, both on cuda:0;
-    stopped before this returns."""
+def _rank_phase(torch, rank, mesh, cfg, params, axes, cache_kw, rt_kw,
+                work) -> None:
+    """A rank of ``_generate_phase``: the phase's engine on this rank's
+    shard with eager decode, a greedy run (counts reset just before it and
+    read just after), teacher-forced logits on the single-device engine's
+    tokens, under tp the cache checks and the planted tp faults, and the
+    planted fault's prefill logits; rank 0 writes them."""
+    import numpy as np
+    import torch.distributed as dist
+
+    f32_rel, f32_fault = _f32_layer(torch, cfg, params, mesh, axes,
+                                    rt_kw)
+    eng = _par_engine(torch, cfg, params, axes, rt_kw, cache_kw,
+                      mesh=mesh, eager=True)
+    del params
+    _release(torch)
+    ref = np.load(os.path.join(work, "ref.npz"))
+    ids, ref_tokens = ref["ids"], ref["tokens"]
+    counters = _counters()
+    _reset_counts(counters)
+    with _sim_draws_recorded() as draws:
+        out, prefill_s, tok_s = _run_generate(torch, eng, ids)
+    counts = _read_counts(counters)
+    if draws:
+        np.savez(os.path.join(work, f"draws{rank}.npz"), **draws)
+    forced, cache = _forced_logits(torch, eng, ids, ref_tokens)
+    info = dict(f32=f32_rel, f32_fault=f32_fault)
+    arrays = {}
+    if axes.get("tp"):
+        info["u_equal"] = _u_equal(torch, cache, mesh)
+        info["scales"], info["scales_rolled"] = _scale_errs(
+            torch, cache, mesh, ref)
+    del cache
+    _release(torch)
+    if axes.get("tp"):
+        for name, (lg, u_eq) in _tp_faults(torch, eng, ids, ref_tokens,
+                                           mesh, rank).items():
+            arrays[name] = lg.numpy()
+            info[f"{name} u_equal"] = u_eq
+    # planted fault: one rank's o_proj and MLP outputs lost in every
+    # local layer (dropped partial sums)
+    if rank == (0 if axes.get("pp") else 1):
+        eng.params.layers.wo.zero_()
+        eng.params.layers.w_down.zero_()
+    lg, _ = eng.prefill(ids)
+    fault = lg[:, -1].float().cpu()
+    info.update(counts=counts,
+                peak=torch.cuda.max_memory_allocated() / 2**30)
+    every = [None, None]
+    dist.all_gather_object(every, info)
+    if rank == 0:
+        np.savez(os.path.join(work, "rank0.npz"), tokens=out,
+                 forced=forced.numpy(), fault=fault.numpy(),
+                 prefill_s=prefill_s, tok_s=tok_s,
+                 info=json.dumps(every), **arrays)
+    dist.barrier()
+
+
+@contextlib.contextmanager
+def _sim_draws_recorded():
+    """A dict that gains the ``vs_sim`` draws of the first layer-0 call
+    (salt 0) of ``minference.sim_vs_draws`` made inside the block (noise,
+    hot, uniform as host arrays); empty without ``vs_sim``."""
+    from shadowkv_tpu_torch.core import minference as mi
+
+    real = mi.sim_vs_draws
+    out: dict = {}
+
+    def record(b, hm, s, salt=0, device=None, shard=None):
+        got = real(b, hm, s, salt, device, shard=shard)
+        if salt == 0 and not out:
+            out.update(zip(("noise", "hot", "uniform"),
+                           (t.cpu().numpy() for t in got)))
+        return got
+
+    mi.sim_vs_draws = record
+    try:
+        yield out
+    finally:
+        mi.sim_vs_draws = real
+
+
+def _spawn_ranks(root: str, timeout: float = 900.0) -> None:
+    """The two rank processes of this script (``parallel_ranks``), both on
+    cuda:0, for every gloo phase; stopped before this returns."""
     import socket
 
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
     procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--parallel-rank", label,
-         str(r), str(port), work]) for r in range(2)]
+        [sys.executable, os.path.abspath(__file__), "--parallel-rank",
+         str(r), str(port), root]) for r in range(2)]
     try:
         for p in procs:
             p.wait(timeout=timeout)
@@ -3221,7 +3408,7 @@ def _spawn_ranks(label: str, work: str, timeout: float = 600.0) -> None:
                 p.kill()
                 p.wait()
     if any(p.returncode for p in procs):
-        raise AssertionError(f"{label}: a rank failed "
+        raise AssertionError(f"the gloo ranks failed "
                              f"({[p.returncode for p in procs]})")
 
 
@@ -3294,142 +3481,549 @@ def run_tp1_nccl(torch, cfg, params) -> dict:
 
 def run_parallel_phases(torch, cfg) -> dict:
     """The 2-rank gloo phases (two processes on this one card, eager
-    decode): per phase the single-device engine here first (greedy tokens,
-    teacher-forced logits; under tp its layer-0 scales and the half-sums
-    control), then the ranks; their logits within PAR_LOGIT_TOL of the
-    single device's, the planted fault above it, the f32 layer and the tp
-    cache checks within their bounds with their faults above, the launches
-    of each rank's kernels exact, the greedy tokens with the first
-    divergence step. Two ranks share one card: their tok/s says nothing of
+    decode): ``_generate_phase``, or the phase's own (``PAR_KIND``). Each
+    phase is a generator whose first part (up to its ``yield``) runs the
+    single-device side here and writes what the ranks read into its work
+    directory; then one pair of rank processes runs every phase in order
+    (``parallel_ranks``), and each phase's second part checks the ranks'
+    results. Two ranks share one card: their tok/s says nothing of
     scaling."""
-    import numpy as np
-
-    work = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "shadowkv_tpu_torch", "build", "parallel")
-    out = {}
+    shutil.rmtree(root, ignore_errors=True)
+    phases = {}
     for label, (layers, axes, cache_kw, rt_kw) in PAR_PHASES.items():
         t0 = time.perf_counter()
-        shutil.rmtree(work, ignore_errors=True)
+        work = os.path.join(root, label)
         os.makedirs(work)
-        lcfg = _par_config(cfg, layers)
-        params = _par_params(torch, cfg, layers)
-        eng = _par_engine(torch, lcfg, params, {}, rt_kw, cache_kw)
-        ids = np.random.default_rng(SEED + 31).integers(
-            0, cfg.vocab_size, (BATCH, GLOO_PROMPT))
-        ref, _, ref_tok_s = _run_generate(torch, eng, ids)
-        ref_logits, cache = _forced_logits(torch, eng, ids, ref)
-        ref_logits = ref_logits.numpy()
-        scales = {n: getattr(cache, n)[0].float().cpu().numpy()
-                  for n in SCALES if getattr(cache, n) is not None}
-        del eng, cache
-        _release(torch)
-        control = None
-        if axes.get("tp"):
-            control = _half_sums_control(torch, lcfg, params, cache_kw,
-                                         rt_kw, ids, ref)
-        del params
-        _release(torch)
-        np.savez(os.path.join(work, "ref.npz"), ids=ids, tokens=ref,
-                 **scales)
-        _spawn_ranks(label, work)
-        got = np.load(os.path.join(work, "rank0.npz"))
-        info = json.loads(str(got["info"]))
-        rel = _rel_steps(got["forced"], ref_logits)
-        fault = float(np.abs(got["fault"] - ref_logits[0]).max()
-                      / np.abs(ref_logits[0]).max())
-        div = _diverge(got["tokens"], ref)
-        per_rank = layers // axes.get("pp", 1)
-        # B: once per local layer per prefill (sp: the offset form; pp:
-        # per microbatch, two of one row each); the decode kernel once per
-        # local layer per step
-        prefill_name = ("prefill_attention_offset" if axes.get("sp")
-                        else "prefill_attention")
-        want = {prefill_name: per_rank * (2 if axes.get("pp") else 1)}
-        mode = cache_kw.get("mode", PAR_CACHE["mode"])
-        step_name = decode_kernel(mode, rt_kw)
-        if step_name:
-            want[step_name] = per_rank * (PAR_GEN - 1)
-            if mode == "shadow_offload" and step_name != "gather_v_rows":
-                want[step_name + "_host_v"] = want[step_name]
-        for r, rinfo in enumerate(info):
-            _expect(f"{label} rank {r}", rinfo["counts"], **want)
-        launches = {k: sum(ri["counts"][k] for ri in info) for k in want}
-        f32 = [ri["f32"] for ri in info]
-        f32_fault = [ri["f32_fault"] for ri in info]
-        f32_text = ("n/a (pp stages run whole single-device layers)"
-                    if axes.get("pp") else f"{f32} (tol {PAR_F32_TOL}; "
-                    f"planted fault {f32_fault})")
-        tp_text = ""
-        if axes.get("tp"):
-            n_f = PAR_FAULT_STEPS + 1
-            names = [n for n in ("svd-local", "scales-rolled")
-                     if n in got.files]
-            faults = {n: max(_rel_steps(got[n], ref_logits[:n_f]))
-                      for n in names}
-            near = {n: max(_rel_steps(got[n], control[:n_f])) for n in names}
-            floor = max(_rel_steps(control, ref_logits))
-            tp_text = (
-                f"; half-sums control (tp=2 noise floor) {floor:.4e} (bound "
-                f"{PAR_CONTROL_RATIO} x: {PAR_CONTROL_RATIO * floor:.4e}), "
-                f"the ranks "
-                f"against it {max(_rel_steps(got['forced'], control)):.4e} "
-                f"(faults against it {near}); U "
-                f"bit-equal across the tp ranks "
-                f"{[ri['u_equal'] for ri in info]} (svd-local fault: "
-                f"{[ri['svd-local u_equal'] for ri in info]}); layer 0 "
-                f"scales against the single device's head slice "
-                f"{[ri['scales'] for ri in info]} (tol {PAR_SCALE_TOL}; rolled "
-                f"by one head {[ri['scales_rolled'] for ri in info]}); planted "
-                f"tp faults' logits over {PAR_FAULT_STEPS} steps "
-                + ", ".join(f"{n} {v:.4e} (above {PAR_LOGIT_TOL}: "
-                            f"{v > PAR_LOGIT_TOL}; above the control bound: "
-                            f"{v > PAR_CONTROL_RATIO * floor})"
-                            for n, v in faults.items()))
-        log(f"[{label}] {layers} layers, {cache_kw}, {rt_kw}, {GLOO_PROMPT} x "
-            f"{BATCH}, mesh {axes}: f32 layer 0 rel err per rank {f32_text}; "
-            f"teacher-forced logits rel err max {max(rel):.4e} (prefill "
-            f"{rel[0]:.4e}; tol {PAR_LOGIT_TOL}); planted fault {fault:.4e} "
-            f"(rejected: {fault > PAR_LOGIT_TOL}){tp_text}; greedy tokens "
-            f"equal {div is None} (first divergence step {div}); launches "
-            f"per rank {[ri['counts'] for ri in info]} (sum {launches}); "
-            f"peak GiB per rank {[round(ri['peak'], 2) for ri in info]}; "
-            f"2-rank prefill_s {float(got['prefill_s']):.3f} decode tok/s "
-            f"{float(got['tok_s']):.2f} against single-device "
-            f"{ref_tok_s:.2f} (both ranks on one card: no scaling claim); "
-            f"phase {time.perf_counter() - t0:.1f} s")
-        if not (max(rel) <= PAR_LOGIT_TOL < fault):
-            raise AssertionError(f"{label}: logits off the single-device "
-                                 "engine's, or the bound misses the fault")
-        if not axes.get("pp") and not all(
-                e <= PAR_F32_TOL < b for e, b in zip(f32, f32_fault)):
-            raise AssertionError(f"{label}: the f32 layer is off the single "
-                                 "device's, or the bound misses the fault")
-        if axes.get("tp") and not (
-                max(rel) <= PAR_CONTROL_RATIO * floor < min(faults.values())):
-            raise AssertionError(
-                f"{label}: logits beyond {PAR_CONTROL_RATIO} x the half-sums "
-                "control, or a planted tp fault within it")
-        if axes.get("tp") and not all(
-                ri["u_equal"] and not ri["svd-local u_equal"]
-                and all(ri["scales"][n] <= PAR_SCALE_TOL
-                        < ri["scales_rolled"][n] for n in ri["scales"])
-                for ri in info):
-            raise AssertionError(f"{label}: U differs across the tp ranks or "
-                                 "a rank's scales are off the single "
-                                 "device's head slice, or a check misses "
-                                 "its fault")
-        out[label] = dict(rel=max(rel), fault=fault, diverge=div, f32=f32,
-                          launches=launches, tok_s=float(got["tok_s"]),
-                          ref_tok_s=ref_tok_s)
-    shutil.rmtree(work, ignore_errors=True)
+        run = PAR_KIND[label][0] if label in PAR_KIND else _generate_phase
+        phases[label] = run(torch, cfg, label, layers, axes, cache_kw,
+                            rt_kw, work)
+        next(phases[label])
+        log(f"[{label}] single-device side {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    _spawn_ranks(root)
+    log(f"[gloo ranks] every phase in one pair of processes: "
+        f"{time.perf_counter() - t0:.1f} s")
+    out = {}
+    for label, phase in phases.items():
+        t0 = time.perf_counter()
+        try:
+            next(phase)
+        except StopIteration as done:
+            out[label] = done.value
+        else:
+            raise AssertionError(f"{label}: the phase yields once")
+        log(f"[{label}] checks {time.perf_counter() - t0:.1f} s")
+    shutil.rmtree(root, ignore_errors=True)
     return out
 
 
-def check_shard_kernels(torch, cfg, lay, link: float) -> None:
+def _generate_phase(torch, cfg, label, layers, axes, cache_kw, rt_kw,
+                    work) -> dict:
+    """A greedy run on the mesh against the single-device engine: the
+    single-device engine here first (greedy tokens, teacher-forced logits;
+    under tp its layer-0 scales and the half-sums control; with vs_sim its
+    layer-0 draws), then the ranks; their logits within PAR_LOGIT_TOL of
+    the single device's, the planted fault above it, the f32 layer and the
+    tp cache checks within their bounds with their faults above, a rank's
+    vs_sim draws bit-equal to its slice of the single device's, the
+    launches of each rank's kernels exact, the greedy tokens with the
+    first divergence step."""
+    import numpy as np
+
+    lcfg = _par_config(cfg, layers)
+    params = _par_params(torch, cfg, layers)
+    eng = _par_engine(torch, lcfg, params, {}, rt_kw, cache_kw)
+    ids = np.random.default_rng(SEED + 31).integers(
+        0, cfg.vocab_size, (BATCH, GLOO_PROMPT))
+    with _sim_draws_recorded() as global_draws:
+        ref, _, ref_tok_s = _run_generate(torch, eng, ids)
+    ref_logits, cache = _forced_logits(torch, eng, ids, ref)
+    ref_logits = ref_logits.numpy()
+    scales = {n: getattr(cache, n)[0].float().cpu().numpy()
+              for n in SCALES if getattr(cache, n) is not None}
+    del eng, cache
+    _release(torch)
+    control = shapes = None
+    if axes.get("tp"):
+        control = _half_sums_control(torch, lcfg, params, cache_kw,
+                                     rt_kw, ids, ref)
+        shapes = _rank_shapes_control(torch, lcfg, params, cache_kw, rt_kw,
+                                      ids, ref)
+    del params
+    _release(torch)
+    np.savez(os.path.join(work, "ref.npz"), ids=ids, tokens=ref,
+             **scales)
+    yield  # the ranks run here (run_parallel_phases)
+    got = np.load(os.path.join(work, "rank0.npz"))
+    info = json.loads(str(got["info"]))
+    rel = _rel_steps(got["forced"], ref_logits)
+    fault = float(np.abs(got["fault"] - ref_logits[0]).max()
+                  / np.abs(ref_logits[0]).max())
+    div = _diverge(got["tokens"], ref)
+    per_rank = layers // axes.get("pp", 1)
+    # the prefill kernel once per local layer per prefill (sp: B's offset
+    # form; pp: per microbatch, two of one row each; the sparse prefills
+    # their own); the decode kernel once per local layer per step
+    pattern = rt_kw.get("prefill_pattern", "dense")
+    prefill_name = ("prefill_attention_offset" if axes.get("sp")
+                    else PREFILL_KERNEL[rt_kw.get("vs_impl", "tile")]
+                    if pattern == "vs" else PREFILL_KERNEL.get(
+                        pattern, "prefill_attention"))
+    want = {prefill_name: per_rank * (2 if axes.get("pp") else 1)}
+    mode = cache_kw.get("mode", PAR_CACHE["mode"])
+    step_name = decode_kernel(mode, rt_kw)
+    if step_name:
+        want[step_name] = per_rank * (PAR_GEN - 1)
+        if mode == "shadow_offload" and step_name != "gather_v_rows":
+            want[step_name + "_host_v"] = want[step_name]
+    for r, rinfo in enumerate(info):
+        _expect(f"{label} rank {r}", rinfo["counts"], **want)
+    launches = {k: sum(ri["counts"][k] for ri in info) for k in want}
+    f32 = [ri["f32"] for ri in info]
+    f32_fault = [ri["f32_fault"] for ri in info]
+    f32_text = ("n/a (pp stages run whole single-device layers)"
+                if axes.get("pp") else f"{f32} (tol {PAR_F32_TOL}; "
+                f"planted fault {f32_fault})")
+    draws_equal = None
+    if global_draws:
+        heads = cfg.num_heads // axes["tp"]
+        draws_equal = []
+        for r in range(2):
+            mine = np.load(os.path.join(work, f"draws{r}.npz"))
+            draws_equal.append(all(
+                np.array_equal(mine[n], global_draws[n][:, r * heads:
+                                                        (r + 1) * heads])
+                for n in ("noise", "hot", "uniform")))
+    tp_text = ""
+    if axes.get("tp"):
+        n_f = PAR_FAULT_STEPS + 1
+        names = [n for n in ("svd-local", "scales-rolled")
+                 if n in got.files]
+        faults = {n: max(_rel_steps(got[n], ref_logits[:n_f]))
+                  for n in names}
+        near = {n: max(_rel_steps(got[n], shapes[:n_f])) for n in names}
+        floor = max(_rel_steps(control, ref_logits))
+        to_shapes = max(_rel_steps(got["forced"], shapes))
+        tp_text = (
+            f"; half-sums control (tp=2 noise floor) {floor:.4e} (bound "
+            f"{PAR_CONTROL_RATIO} x: {PAR_CONTROL_RATIO * floor:.4e}); "
+            f"rank-shapes control against the single device "
+            f"{max(_rel_steps(shapes, ref_logits)):.4e}, the ranks against "
+            f"it {to_shapes:.4e} (faults against it {near}), the ranks "
+            f"against the half-sums control "
+            f"{max(_rel_steps(got['forced'], control)):.4e}; U "
+            f"bit-equal across the tp ranks "
+            f"{[ri['u_equal'] for ri in info]} (svd-local fault: "
+            f"{[ri['svd-local u_equal'] for ri in info]}); layer 0 "
+            f"scales against the single device's head slice "
+            f"{[ri['scales'] for ri in info]} (tol {PAR_SCALE_TOL}; rolled "
+            f"by one head {[ri['scales_rolled'] for ri in info]}); planted "
+            f"tp faults' logits over {PAR_FAULT_STEPS} steps "
+            + ", ".join(f"{n} {v:.4e} (above {PAR_LOGIT_TOL}: "
+                        f"{v > PAR_LOGIT_TOL}; against the rank-shapes "
+                        f"control above the bound: "
+                        f"{near[n] > PAR_CONTROL_RATIO * floor})"
+                        for n, v in faults.items()))
+    if draws_equal is not None:
+        tp_text += (f"; layer-0 vs_sim draws of each rank bit-equal to its "
+                    f"head slice of the single device's {draws_equal}")
+    log(f"[{label}] {layers} layers, {cache_kw}, {rt_kw}, {GLOO_PROMPT} x "
+        f"{BATCH}, mesh {axes}: f32 layer 0 rel err per rank {f32_text}; "
+        f"teacher-forced logits rel err max {max(rel):.4e} (prefill "
+        f"{rel[0]:.4e}; tol {PAR_LOGIT_TOL}); planted fault {fault:.4e} "
+        f"(rejected: {fault > PAR_LOGIT_TOL}){tp_text}; greedy tokens "
+        f"equal {div is None} (first divergence step {div}); launches "
+        f"per rank {[ri['counts'] for ri in info]} (sum {launches}); "
+        f"peak GiB per rank {[round(ri['peak'], 2) for ri in info]}; "
+        f"2-rank prefill_s {float(got['prefill_s']):.3f} decode tok/s "
+        f"{float(got['tok_s']):.2f} against single-device "
+        f"{ref_tok_s:.2f} (both ranks on one card: no scaling claim)")
+    if not (max(rel) <= PAR_LOGIT_TOL < fault):
+        raise AssertionError(f"{label}: logits off the single-device "
+                             "engine's, or the bound misses the fault")
+    if not axes.get("pp") and not all(
+            e <= PAR_F32_TOL < b for e, b in zip(f32, f32_fault)):
+        raise AssertionError(f"{label}: the f32 layer is off the single "
+                             "device's, or the bound misses the fault")
+    if axes.get("tp") and not (
+            to_shapes <= PAR_CONTROL_RATIO * floor < min(near.values())):
+        raise AssertionError(
+            f"{label}: logits off the rank-shapes control by more than "
+            f"{PAR_CONTROL_RATIO} x the half-sums floor, or a planted tp "
+            "fault within it")
+    if axes.get("tp") and not all(
+            ri["u_equal"] and not ri["svd-local u_equal"]
+            and all(ri["scales"][n] <= PAR_SCALE_TOL
+                    < ri["scales_rolled"][n] for n in ri["scales"])
+            for ri in info):
+        raise AssertionError(f"{label}: U differs across the tp ranks or "
+                             "a rank's scales are off the single "
+                             "device's head slice, or a check misses "
+                             "its fault")
+    if draws_equal is not None and not all(draws_equal):
+        raise AssertionError(f"{label}: a rank's vs_sim draws are not its "
+                             "slice of the single device's")
+    return dict(rel=max(rel), fault=fault, diverge=div, f32=f32,
+                launches=launches, tok_s=float(got["tok_s"]),
+                ref_tok_s=ref_tok_s, summary=(
+                    f"logits rel {max(rel):.4e} (fault {fault:.4e}), first "
+                    f"divergence {div}, 2-rank tok/s "
+                    f"{float(got['tok_s']):.2f} (single {ref_tok_s:.2f})"))
+
+
+CTX_FIRST = 9  # greedy tokens before a save: the prefill's and 8 steps'
+CTX_MORE = 8  # decode steps after the load
+
+
+def _context_phase(torch, cfg, label, layers, axes, cache_kw, rt_kw,
+                   work) -> dict:
+    """Context checkpoints on a tp=2 mesh (``_context_rank`` for the
+    ranks). Here first: the single-device engine's greedy run of
+    CTX_FIRST + CTX_MORE tokens, its teacher-forced logits, a file saved
+    after its first CTX_FIRST tokens (which the ranks load) and the
+    half-sums control (the tp=2 noise floor). After the ranks: their resume
+    from their own file gives their unbroken tokens, bit for bit; the
+    single-device file resumed on the mesh and the mesh's file resumed on
+    one device (here) give teacher-forced logits within PAR_LOGIT_TOL and
+    PAR_CONTROL_RATIO x the control of the single device's on the same
+    tokens, and the mesh's file with its two tp ranks' heads swapped (a
+    file written in the wrong head order) reads above both bounds;
+    launches exact, save and load seconds, the file's GiB. With V on the
+    host the loaded store must be pinned host memory and the load's peak
+    device memory no more than the other fields' bytes."""
+    import numpy as np
+
+    from shadowkv_tpu_torch.utils.checkpoint import HEAD_FIELDS
+
+    lcfg = _par_config(cfg, layers)
+    params = _par_params(torch, cfg, layers)
+    n = CTX_FIRST + CTX_MORE
+    ids = np.random.default_rng(SEED + 33).integers(
+        0, cfg.vocab_size, (BATCH, GLOO_PROMPT))
+    eng = _par_engine(torch, lcfg, params, {}, rt_kw, cache_kw, eager=True)
+    ref, _ = eng.generate(ids, gen_len=n)
+    ref_logits, _ = _forced_logits(torch, eng, ids, ref, n - 1)
+    ref_logits = ref_logits.numpy()
+    eng.generate(ids, gen_len=CTX_FIRST)
+    eng.save_state(os.path.join(work, "single.npz"))
+    del eng
+    _release(torch)
+    control = _half_sums_control(torch, lcfg, params, cache_kw, rt_kw, ids,
+                                 ref, n - 1)
+    floor = max(_rel_steps(control, ref_logits))
+    np.savez(os.path.join(work, "ref.npz"), ids=ids, tokens=ref)
+    del params
+    _release(torch)
+    yield  # the ranks run here (run_parallel_phases)
+    got = np.load(os.path.join(work, "rank0.npz"))
+    info = json.loads(str(got["info"]))
+    on_mesh = _rel_steps(got["forced"], ref_logits[CTX_FIRST:])
+
+    # the mesh's file on one device, on the mesh's own tokens
+    eng = _par_engine(torch, lcfg, _par_params(torch, cfg, layers), {},
+                      rt_kw, cache_kw, eager=True)
+    _release(torch)
+    mesh_tok = got["unbroken"]
+    base, _ = _forced_logits(torch, eng, ids, mesh_tok, n - 1)
+    base = base.numpy()[CTX_FIRST:]
+
+    def resumed_logits(swap: bool):
+        eng.load_state(os.path.join(work, "mesh.npz"))
+        if swap:
+            for name in HEAD_FIELDS:
+                t = getattr(eng._cache, name)
+                if t is not None:
+                    t.copy_(t.roll(t.shape[2] // 2, dims=2))
+        out = []
+        for i in range(CTX_MORE):
+            tok = torch.as_tensor(mesh_tok[:, CTX_FIRST - 1 + i],
+                                  dtype=torch.int32, device=DEVICE)
+            out.append(eng.decode_step(eng._cache, tok)[1].float().cpu())
+        return torch.stack(out).numpy()
+
+    on_one = _rel_steps(resumed_logits(False), base)
+    swapped = max(_rel_steps(resumed_logits(True), base))
+    del eng
+    _release(torch)
+    bound_ = min(PAR_LOGIT_TOL, PAR_CONTROL_RATIO * floor)
+    per_rank = layers
+    host = cache_kw.get("mode") == "shadow_offload"
+    want = {"prefill_attention": per_rank,
+            "sparse_refresh": per_rank * (n - 1)}
+    want_resume = {"sparse_refresh": per_rank * CTX_MORE}
+    if host:
+        want["sparse_refresh_host_v"] = want["sparse_refresh"]
+        want_resume["sparse_refresh_host_v"] = want_resume["sparse_refresh"]
+    for r, ri in enumerate(info):
+        _expect(f"{label} rank {r} unbroken", ri["counts"], **want)
+        _expect(f"{label} rank {r} resume", ri["resume_counts"],
+                **want_resume)
+    equal = bool(np.array_equal(got["resumed"], got["unbroken"]))
+    res = dict(save_s=info[0]["save_s"],
+               load_s=[ri["load_s"] for ri in info],
+               file_gib=info[0]["file_gib"], resume_equal=equal,
+               single_on_mesh=max(on_mesh), mesh_on_single=max(on_one),
+               swapped=swapped, floor=floor,
+               load_peak_mib=[ri["load_peak"] / 2**20 for ri in info],
+               other_fields_mib=[ri["dev_bytes"] / 2**20 for ri in info],
+               v_mib=[ri["v_bytes"] / 2**20 for ri in info],
+               v_pinned_host=[ri["host_v"] for ri in info])
+    log(f"[{label}] {layers} layers, {cache_kw}, {rt_kw}, {GLOO_PROMPT} x "
+        f"{BATCH}, tp=2: save {res['save_s']:.3f} s ({res['file_gib']:.4f} "
+        f"GiB), load per rank {[round(x, 3) for x in res['load_s']]} s; "
+        f"tp2 resume equals the unbroken tp2 run {equal}; single-device "
+        f"file resumed on tp2: teacher-forced logits rel err "
+        f"{max(on_mesh):.4e}; tp2 file resumed on one device "
+        f"{max(on_one):.4e}; heads swapped (planted) {swapped:.4e}; bound "
+        f"min({PAR_LOGIT_TOL}, {PAR_CONTROL_RATIO} x control {floor:.4e}) "
+        f"= {bound_:.4e}; launches per rank {[ri['counts'] for ri in info]}"
+        f", resumed {[ri['resume_counts'] for ri in info]}; load peak MiB "
+        f"{res['load_peak_mib']} against the non-V fields' "
+        f"{res['other_fields_mib']} (V {res['v_mib']} MiB, pinned on the "
+        f"host {res['v_pinned_host']})")
+    if not equal:
+        raise AssertionError(f"{label}: the tp2 resume differs from the "
+                             "unbroken tp2 run")
+    if not (max(on_mesh) <= bound_ and max(on_one) <= bound_ < swapped):
+        raise AssertionError(f"{label}: a resumed file's logits are off the "
+                             "single device's, or the bound misses the "
+                             "swapped heads")
+    if host and not all(
+            ri["host_v"] and ri["load_peak"] <= ri["dev_bytes"] + 2**20
+            < ri["dev_bytes"] + ri["v_bytes"] for ri in info):
+        raise AssertionError(f"{label}: the loaded V store is not pinned "
+                             "host memory, or it passed through the card")
+    res["summary"] = (f"save {res['save_s']:.3f} s, load "
+                      f"{max(res['load_s']):.3f} s, {res['file_gib']:.4f} "
+                      f"GiB, resume equal {equal}, logits rel "
+                      f"{max(on_mesh):.4e} / {max(on_one):.4e} (swapped "
+                      f"{swapped:.4e})")
+    return res
+
+
+def _context_rank(torch, rank, mesh, cfg, params, axes, cache_kw, rt_kw,
+                  work) -> None:
+    """A rank of ``_context_phase``: the unbroken greedy run (counts reset
+    just before it and read just after); a run of CTX_FIRST tokens saved to
+    one global file (timed); a fresh engine loads it (timed, with the
+    load's peak device memory) and continues CTX_MORE tokens (counted);
+    the single device's file loaded and fed the single device's tokens
+    (teacher-forced logits); rank 0 writes the results."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from shadowkv_tpu_torch.cache.shadow import ShadowCache
+
+    ref = np.load(os.path.join(work, "ref.npz"))
+    ids, single = ref["ids"], ref["tokens"]
+    eng = _par_engine(torch, cfg, params, axes, rt_kw, cache_kw, mesh=mesh,
+                      eager=True)
+    fresh = _par_engine(torch, cfg, params, axes, rt_kw, cache_kw,
+                        mesh=mesh, eager=True)
+    del params
+    _release(torch)
+    counters = _counters()
+    _reset_counts(counters)
+    unbroken, _ = eng.generate(ids, gen_len=CTX_FIRST + CTX_MORE)
+    counts = _read_counts(counters)
+    first, _ = eng.generate(ids, gen_len=CTX_FIRST)
+    path = os.path.join(work, "mesh.npz")
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    eng.save_state(path)
+    save_s = time.perf_counter() - t0
+    del eng
+    _release(torch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    fresh.load_state(path)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    load_peak = torch.cuda.max_memory_allocated() - before
+    cache = fresh._cache
+    dev_bytes = sum(t.numel() * t.element_size() for t in (
+        getattr(cache, n) for n in ShadowCache.FIELDS if n != "v_full")
+        if t is not None)
+    v = cache.v_full
+    host_v = (not v.is_cuda) and v.is_pinned()
+    _reset_counts(counters)
+    rest, _ = fresh.generate(first[:, -1:], gen_len=CTX_MORE, cont=True)
+    resume_counts = _read_counts(counters)
+    fresh.load_state(os.path.join(work, "single.npz"))
+    forced = []
+    for i in range(CTX_MORE):
+        tok = torch.as_tensor(single[:, CTX_FIRST - 1 + i], dtype=torch.int32,
+                              device=DEVICE)
+        forced.append(fresh.decode_step(fresh._cache, tok)[1].float().cpu())
+    info = dict(counts=counts, resume_counts=resume_counts, save_s=save_s,
+                load_s=load_s, load_peak=load_peak, dev_bytes=dev_bytes,
+                v_bytes=v.numel() * v.element_size(), host_v=host_v,
+                file_gib=os.path.getsize(path) / 2**30)
+    every = [None, None]
+    dist.all_gather_object(every, info)
+    if rank == 0:
+        np.savez(os.path.join(work, "rank0.npz"), unbroken=unbroken,
+                 resumed=np.concatenate([first, rest], axis=1),
+                 forced=torch.stack(forced).numpy(), info=json.dumps(every))
+    dist.barrier()
+
+
+SERVE_CTX_SLOTS = 2  # per dp shard
+SERVE_CTX_CONTEXTS = (0, 1, 2, 3, 2, 0, 1, 3)  # context of each request
+
+
+def _ctx_requests(cfg) -> list:
+    """The shared-context stream of ``dp2-serve-ctx-gloo``: four
+    GLOO_PROMPT-token contexts, each request a SERVE_SUFFIX-token suffix
+    and SERVE_SUFFIX greedy tokens. The first four fill the 2 x 2 slots
+    and finish in the first chunk; at its end slot 0 (shard 0) restores
+    context 2 (taken on slot 2, shard 1), slot 1 context 0 (slot 0), slot
+    2 (shard 1) context 1 (slot 1, shard 0) and slot 3 context 3 (slot
+    3): two restores across the shards, one each way, and two within."""
+    import numpy as np
+
+    from shadowkv_tpu_torch.serving import Request
+
+    rng = np.random.default_rng(SEED + 35)
+    ctx = rng.integers(0, cfg.vocab_size, (4, GLOO_PROMPT))
+    return [Request(uid=i, input_ids=np.concatenate([
+        ctx[c], rng.integers(0, cfg.vocab_size, SERVE_SUFFIX)]),
+        gen_len=SERVE_SUFFIX, context_id=c, context_len=GLOO_PROMPT)
+        for i, c in enumerate(SERVE_CTX_CONTEXTS)]
+
+
+def _ctx_batcher(eng):
+    from shadowkv_tpu_torch.serving import ContinuousBatcher
+
+    return ContinuousBatcher(eng, slots=SERVE_CTX_SLOTS * eng.rt.dp,
+                             max_contexts=4, max_dispatch=2 * SERVE_SUFFIX)
+
+
+def _serve_phase(torch, cfg, label, layers, axes, cache_kw, rt_kw,
+                 work) -> dict:
+    """Shared-prefix snapshots over dp=2 (``_serve_rank`` for the ranks),
+    every prefill one sequence (``prefill_sub_batch=1``): the batcher's
+    greedy tokens of every request equal the single-device batcher's here,
+    run at a rank's batch shape (SERVE_CTX_SLOTS slots: each request then
+    sees the same kernels and GEMM shapes); at least two restores cross
+    the shards, one each way; launches exact per rank (B once per layer
+    and one-sequence prefill of the shard, A once per layer and decode
+    step); ms per restore across and within a shard."""
+    import numpy as np
+
+    lcfg = _par_config(cfg, layers)
+    params = _par_params(torch, cfg, layers)
+    eng = _par_engine(torch, lcfg, params, {}, rt_kw, cache_kw)
+    del params
+    _release(torch)
+    want, st1 = _ctx_batcher(eng).run(_ctx_requests(cfg))
+    del eng
+    _release(torch)
+    yield  # the ranks run here (run_parallel_phases)
+    got = np.load(os.path.join(work, "rank0.npz"), allow_pickle=True)
+    info = json.loads(str(got["info"]))
+    served = got["tokens"].item()
+    equal = sorted(served) == sorted(want) and all(
+        np.array_equal(served[u], want[u]) for u in want)
+    st = info[0]["stats"]
+    for r, ri in enumerate(info):
+        _expect(f"{label} rank {r}", ri["counts"],
+                prefill_attention=layers * SERVE_CTX_SLOTS,
+                sparse_refresh=layers * st["decode_steps"])
+    cross = [len(ri["ms"]["cross"]) for ri in info]
+    ms = {k: float(np.mean([x for ri in info for x in ri["ms"][k]]))
+          for k in ("cross", "same")}
+    res = dict(equal=equal, cross=cross, ms_cross=ms["cross"],
+               ms_same=ms["same"], stats=st,
+               single_decode_steps=st1.decode_steps)
+    log(f"[{label}] {layers} layers, {rt_kw}, dp=2 x {SERVE_CTX_SLOTS} "
+        f"slots, {len(SERVE_CTX_CONTEXTS)} requests on 4 contexts of "
+        f"{GLOO_PROMPT} tokens: tokens equal the single-device batcher's "
+        f"{equal}; restores across shards per rank {cross} (owners "
+        f"{info[0]['owners']}), ms per restore across "
+        f"{ms['cross']:.3f} against within a shard {ms['same']:.3f}; "
+        f"launches per rank {[ri['counts'] for ri in info]}; stats {st}; "
+        f"served tok/s {st['completed_tokens'] / st['wall_seconds']:.2f}")
+    if not equal:
+        raise AssertionError(f"{label}: served tokens differ from the "
+                             "single-device batcher's")
+    if min(cross) < 2 or st["context_hits"] != 4 \
+            or sorted(info[0]["owners"]) != [[0, 1], [1, 0]]:
+        raise AssertionError(f"{label}: expected two restores across the "
+                             "shards, one each way")
+    res["summary"] = (f"tokens equal {equal}, {cross[0]} restores across "
+                      f"shards at {ms['cross']:.3f} ms against "
+                      f"{ms['same']:.3f} ms within")
+    return res
+
+
+def _serve_rank(torch, rank, mesh, cfg, params, axes, cache_kw, rt_kw,
+                work) -> None:
+    """A rank of ``_serve_phase``: the batcher run with every kernel count
+    set to 0 just before it and read just after, each restore timed and
+    classed by the shards it joins; rank 0 writes the results."""
+    import dataclasses
+
+    import numpy as np
+    import torch.distributed as dist
+
+    eng = _par_engine(torch, cfg, params, axes, rt_kw, cache_kw, mesh=mesh,
+                      eager=True)
+    del params
+    _release(torch)
+    ms: dict = {"cross": [], "same": []}
+    owners = []
+    real = eng._merge_slots
+
+    def timed(cache, small, b0, with_v=False, src=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(cache, small, b0, with_v, src)
+        torch.cuda.synchronize()
+        pair = [eng.mesh.batch_ranks.index(eng._slot_at(x)[0])
+                for x in (src, b0)]
+        if pair[0] != pair[1]:
+            owners.append(pair)
+        ms["cross" if pair[0] != pair[1] else "same"].append(
+            (time.perf_counter() - t0) * 1e3)
+        return out
+
+    eng._merge_slots = timed
+    counters = _counters()
+    reqs = _ctx_requests(cfg)
+    _reset_counts(counters)
+    results, st = _ctx_batcher(eng).run(reqs)
+    counts = _read_counts(counters)
+    info = dict(counts=counts, ms=ms, owners=owners,
+                stats=dataclasses.asdict(st))
+    every = [None, None]
+    dist.all_gather_object(every, info)
+    if rank == 0:
+        np.savez(os.path.join(work, "rank0.npz"),
+                 tokens=np.array(results, dtype=object),
+                 info=json.dumps(every))
+    dist.barrier()
+
+
+PAR_KIND.update({
+    "tp2-context-gloo": (_context_phase, _context_rank),
+    "tp2-offload-fused-context-gloo": (_context_phase, _context_rank),
+    "dp2-serve-ctx-gloo": (_serve_phase, _serve_rank),
+})
+
+
+def check_shard_kernels(torch, cfg, lay, link: float) -> dict:
     """A, D, E, A-host and gather_v_rows against their plain versions at
     the shapes a 2-rank mesh gives them: the tp=2 head slice (B 2, 16 heads
     / 4 KV heads) for all five, and the dp=2 shard (B 1, 8 KV heads) for D
-    and E, which the dp phases run."""
+    and E, which the dp phases run; then C, F and G at the tp=2 head slice
+    of the gloo phases' prefill (``check_shard_attention``), whose
+    readings it returns."""
     import dataclasses
 
     half = dataclasses.replace(cfg, num_heads=cfg.num_heads // 2,
@@ -3441,6 +4035,74 @@ def check_shard_kernels(torch, cfg, lay, link: float) -> None:
     check_gather_v_rows(torch, half, lay, link, layers=64)  # 2 MB a layer
     log("[shard shapes: dp=2 shard, B 1, 8 KV heads]")
     check_gather(torch, cfg, lay, link, batch=1, timed=False)
+    return check_shard_attention(torch, half)
+
+
+def check_shard_attention(torch, half) -> dict:
+    """C (window 1024, sink 64, as tp2-stream-gloo), F and G (VS_GLOO's
+    sizes on clustered flags, as the vs_sim phases) against their
+    plain versions at a tp=2 rank's prefill shapes, B 2 / S GLOO_PROMPT /
+    16 heads / 4 KV heads, per row as at full width; timed beside their
+    bounds. Returns {kernel: (ms, bound_ms, bound_by)}."""
+    from shadowkv_tpu_torch.core import minference as mi
+    from shadowkv_tpu_torch.core.attention import sparse_prefill_attention
+    from shadowkv_tpu_torch.kernels import vs_sparse, vs_tile
+    from shadowkv_tpu_torch.kernels.prefill_attention import (
+        sparse_prefill_splash,
+    )
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 7)
+    b, s = BATCH, GLOO_PROMPT
+    h, kh, dh = half.num_heads, half.num_kv_heads, half.head_dim
+    q = torch.randn(b, s, h, dh, device=DEVICE, generator=gen,
+                    dtype=torch.bfloat16)
+    k = torch.randn(b, s, kh, dh, device=DEVICE, generator=gen,
+                    dtype=torch.bfloat16)
+    v = torch.randn(b, s, kh, dh, device=DEVICE, generator=gen,
+                    dtype=torch.bfloat16)
+    io_bytes = (2 * q.numel() + k.numel() + v.numel()) * 2
+    out = {}
+    window, sink = 1024, 64
+    run = lambda: sparse_prefill_splash(q, k, v, window, sink)  # noqa: E731
+    ref = sparse_prefill_attention(q, k, v, window, sink)
+    _check_rows(torch, f"shard C, B {b} S {s} H {h}", run(), ref, s)
+    pairs = _stream_pairs(torch, s, window, sink) * b * h
+    out["C"] = (time_ms(torch, run, reps=10, warmup=2),
+                *bound(io_bytes, 4 * dh * pairs))
+    vert, sl = _vs_flag_sets(torch, gen, q, k, s)["clustered"]
+    v_idx, dflag, meta, _ = _vs_inputs(torch, vert, sl, s, VS_GLOO)
+    q_f, k_f, v_f = mi.flat_heads(q, s), mi.flat_heads(k, s), mi.flat_heads(v, s)
+    kv_map = mi.kv_map_of(b, kh, range(h), h // kh, DEVICE)
+    block = VS_GLOO["vs_block"]
+    kw = dict(block=block, scale=dh**-0.5, seq_len=s)
+    runs = {
+        "F": (lambda: vs_tile.vs_tile_attention(
+                  q_f, k_f, v_f, v_idx, dflag, kv_map, **kw),
+              lambda: vs_tile.vs_tok_attention_reference(
+                  q_f, k_f, v_f, v_idx, dflag, kv_map, **kw),
+              vs_tile.tile_masks(v_idx, dflag, block, s, s, 256),
+              (v_idx.numel() + dflag.numel()) * 4),
+        "G": (lambda: vs_sparse.vs_sparse_attention(
+                  q_f, k_f, v_f, meta.col_ids, meta.col_cnt, meta.col_flag,
+                  meta.diag_ids, meta.diag_cnt, kv_map, **kw),
+              lambda: mi.vs_attention_reference(q_f, k_f, v_f, meta, kv_map,
+                                                **kw),
+              mi.walk_masks(meta, block, s, s, 256),
+              5 * meta.col_ids.numel() * 4),
+    }
+    for name, (run, plain, masks, extra) in runs.items():
+        _check_rows(torch, f"shard {name}, BH {b * h} S {s}", run(), plain(),
+                    s)
+        pairs = mi.active_pairs(masks, s)
+        out[name] = (time_ms(torch, run, reps=10, warmup=2),
+                     *bound(io_bytes + extra, 4 * dh * pairs))
+    for name, (ms, b_ms, by) in out.items():
+        log(f"[shard {name}] B {b} S {s} {h} heads / {kh} KV heads: "
+            f"kernel_ms {ms:.4f} bound_ms {b_ms:.4f} ({by}; "
+            f"{b_ms / ms:.1%} of bound)")
+    del q, k, v, q_f, k_f, v_f
+    torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -3518,7 +4180,7 @@ def main() -> int:
     tp1 = run_tp1_nccl(torch, cfg, params)
     del params  # each LLM of the entry-points phase holds its own weights
     _release(torch)
-    check_shard_kernels(torch, cfg, lay, link)
+    shard = check_shard_kernels(torch, cfg, lay, link)
     par = run_parallel_phases(torch, cfg)
     entry_points = run_entry_points(torch, cfg, runs["shadow"])
     # Each kernel's launches come from the run of the path that uses it.
@@ -3559,11 +4221,13 @@ def main() -> int:
         f" s (host V {c['load_s_offload']:.2f} s) against prefill_s "
         f"{c['prefill_s']:.2f}; HF load {h['load_s_none']:.2f} s "
         f"({h['load_gb_s_none']:.2f} GB/s); phase {entry_points['seconds']:.1f} s")
+    log("[summary] C, F, G at the tp=2 head slice (B 2, S "
+        f"{GLOO_PROMPT}): " + ", ".join(
+            f"{k} {ms:.4f} ms against bound {b_ms:.4f} ({by})"
+            for k, (ms, b_ms, by) in shard.items()))
     log("[summary] parallel: tp1-nccl decode tok/s "
         f"{tp1['tok_s']} against single-device {tp1['ref_tok_s']}; " + ", ".join(
-            f"{k} logits rel {r['rel']:.4e} (fault {r['fault']:.4e}), first "
-            f"divergence {r['diverge']}, 2-rank tok/s {r['tok_s']:.2f} "
-            f"(single {r['ref_tok_s']:.2f})" for k, r in par.items())
+            f"{k} {r['summary']}" for k, r in par.items())
         + f"; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(entries.values())}))
     print(facts["smi"])
@@ -3574,7 +4238,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if len(sys.argv) == 6 and sys.argv[1] == "--parallel-rank":
-        sys.exit(parallel_rank(sys.argv[2], int(sys.argv[3]),
-                               int(sys.argv[4]), sys.argv[5]))
+    if len(sys.argv) == 5 and sys.argv[1] == "--parallel-rank":
+        sys.exit(parallel_ranks(int(sys.argv[2]), int(sys.argv[3]),
+                                sys.argv[4]))
     sys.exit(main())

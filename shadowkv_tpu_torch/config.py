@@ -284,9 +284,6 @@ class RuntimeConfig:
                                  "use_pallas, no ring_gather)")
         if self.mesh_size > 1 and self.offload_prefill_segments > 1:
             raise ValueError("the segmented offload prefill serves one rank")
-        if self.mesh_size > 1 and self.vs_sim is not None:
-            raise ValueError("vs_sim draws per global head and layer; it "
-                             "serves one rank only")
         if (self.pp > 1 and self.prefill_pattern == "vs"
                 and self.minference_layer_patterns is not None):
             raise ValueError("per-layer MInference tables are not supported "

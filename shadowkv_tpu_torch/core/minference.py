@@ -125,13 +125,28 @@ SIM_HOT = 512  # hot vertical tokens per head of the 'clustered' simulation
 SIM_KEY = 0  # the simulation's base seed (JAX: PRNGKey(0))
 
 
-def sim_vs_draws(b: int, hm: int, s: int, salt: int = 0, device=None):
-    """The random draws of ``sim_vs_scores``: (noise [B, Hm, S] f32 standard
-    normal, hot [B, Hm, SIM_HOT] int64 token ids in [0, S), uniform [B, Hm,
-    S] f32 in [0, 1)), from a ``torch.Generator`` on ``device`` seeded with
-    ``SIM_KEY * 2**32 + salt`` — the counterpart of JAX's
-    ``fold_in(PRNGKey(0), salt)`` split three ways; the numbers differ from
-    JAX's, whose draws a test can hand in instead."""
+@dataclasses.dataclass(frozen=True)
+class SimShard:
+    """Where a rank's slice lies in the draws one device makes
+    (``sim_vs_draws`` on a rank mesh): the device prefills ``batch`` rows
+    ``sub`` at a time (``prefill_sub_batch``) and draws once per sub-batch
+    and layer over its ``heads`` vertical_and_slash heads; this call's rows
+    start at global row ``row0``, its heads at ``head0`` (tp), and its
+    first layer is global layer ``layer0`` (pp), the salt's base."""
+
+    batch: int
+    sub: int
+    row0: int
+    heads: int
+    head0: int
+    layer0: int = 0
+
+    def shift(self, rows: int) -> "SimShard":
+        """The shard of a call that starts ``rows`` further down."""
+        return dataclasses.replace(self, row0=self.row0 + rows)
+
+
+def _draws(b: int, hm: int, s: int, salt: int, device):
     gen = torch.Generator(device=device).manual_seed(
         SIM_KEY * 2**32 + int(salt))
     noise = torch.randn(b, hm, s, generator=gen, device=device)
@@ -140,12 +155,38 @@ def sim_vs_draws(b: int, hm: int, s: int, salt: int = 0, device=None):
     return noise, hot, uniform
 
 
+def sim_vs_draws(b: int, hm: int, s: int, salt: int = 0, device=None,
+                 shard: Optional[SimShard] = None):
+    """The random draws of ``sim_vs_scores``: (noise [B, Hm, S] f32 standard
+    normal, hot [B, Hm, SIM_HOT] int64 token ids in [0, S), uniform [B, Hm,
+    S] f32 in [0, 1)), from a ``torch.Generator`` on ``device`` seeded with
+    ``SIM_KEY * 2**32 + salt`` — the counterpart of JAX's
+    ``fold_in(PRNGKey(0), salt)`` split three ways; the numbers differ from
+    JAX's, whose draws a test can hand in instead. With a ``shard`` the
+    B x Hm draws are that rank's slice of the one device's: each
+    sub-batch's whole draw is made and cut to the shard's rows and heads
+    (JAX's GSPMD shards of its global draws)."""
+    if shard is None:
+        return _draws(b, hm, s, salt, device)
+    parts, r, stop = [], shard.row0, shard.row0 + b
+    heads = slice(shard.head0, shard.head0 + hm)
+    while r < stop:
+        j0 = r - r % shard.sub
+        n = min(shard.sub, shard.batch - j0)
+        end = min(j0 + n, stop)
+        whole = _draws(n, shard.heads, s, salt, device)
+        parts.append([x[r - j0:end - j0, heads] for x in whole])
+        r = end
+    return tuple(torch.cat(p) for p in zip(*parts))
+
+
 def sim_vs_scores(
     regime: str,
     vertical: torch.Tensor,  # [B, Hm, S] estimated scores (f32)
     slash: torch.Tensor,
     salt: int = 0,
     draws=None,
+    shard: Optional[SimShard] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """BENCHMARK-ONLY pattern simulation (``RuntimeConfig.vs_sim``, JAX
     ``sim_vs_scores``). Synthetic weights give top-k-of-noise patterns whose
@@ -157,13 +198,14 @@ def sim_vs_scores(
     the estimation still runs and its forced +inf rows (first 30
     verticals, nearest 100 slashes) survive as +inf. ``salt`` (the layer)
     varies the pattern per layer; ``draws`` (``sim_vs_draws``' triple)
-    replaces the draws."""
+    replaces the draws; ``shard`` takes a rank's slice of them."""
     if regime != "clustered":
         raise ValueError(
             f"unknown vs_sim regime {regime!r} (supported: 'clustered')")
     b, hm, s = slash.shape
     if draws is None:
-        draws = sim_vs_draws(b, hm, s, salt, slash.device)
+        draws = (sim_vs_draws(b, hm, s, salt, slash.device) if shard is None
+                 else sim_vs_draws(b, hm, s, salt, slash.device, shard=shard))
     noise, hot, uniform = draws
     d = torch.arange(s, dtype=torch.float32, device=slash.device)
     sl = -d / 2048.0 + 0.2 * noise
@@ -439,7 +481,8 @@ def flat_heads(t: torch.Tensor, s_pad: int) -> torch.Tensor:
         b * n, s_pad, dh).contiguous()
 
 
-def _estimate(q, k, pats, scale, meta_heads, g, sim=None, sim_salt=0):
+def _estimate(q, k, pats, scale, meta_heads, g, sim=None, sim_salt=0,
+              sim_shard=None):
     """Scores of the vertical_and_slash heads among ``meta_heads``:
     ({head: row}, vertical, slash) with [B, Hv, S] scores (simulated with
     ``sim``, ``sim_vs_scores``)."""
@@ -449,7 +492,8 @@ def _estimate(q, k, pats, scale, meta_heads, g, sim=None, sim_salt=0):
     vertical, slash = estimate_vertical_slash(
         q[:, :, vs_heads], k, scale, head_kv=[i // g for i in vs_heads])
     if sim is not None:
-        vertical, slash = sim_vs_scores(sim, vertical, slash, salt=sim_salt)
+        vertical, slash = sim_vs_scores(sim, vertical, slash, salt=sim_salt,
+                                        shard=sim_shard)
     return {hh: j for j, hh in enumerate(vs_heads)}, vertical, slash
 
 
@@ -503,13 +547,15 @@ def minference_prefill(
     scale: Optional[float] = None,
     sim: Optional[str] = None,
     sim_salt: int = 0,
+    sim_shard: Optional[SimShard] = None,
 ) -> torch.Tensor:
     """Per-head sparse prefill through the block walk (``vs_impl="walk"``):
     vertical_and_slash, stream_llm and dense heads become VS block
     metadata and run in ONE launch of kernel G (``kernels/vs_sparse.py``;
     its plain version on CPU tensors); block_sparse heads run
-    ``block_sparse_attention``. ``sim`` / ``sim_salt``: the benchmark-only
-    score simulation (``sim_vs_scores``). Returns [B, S, H, Dh]."""
+    ``block_sparse_attention``. ``sim`` / ``sim_salt`` / ``sim_shard``: the
+    benchmark-only score simulation (``sim_vs_scores``). Returns [B, S, H,
+    Dh]."""
     from shadowkv_tpu_torch.kernels.vs_sparse import vs_sparse_attention
 
     b, s, h, dh = q.shape
@@ -523,7 +569,7 @@ def minference_prefill(
     out = torch.zeros_like(q)
     if meta_heads:
         rows, vertical, slash = _estimate(q, k, pats, scale, meta_heads, g,
-                                          sim, sim_salt)
+                                          sim, sim_salt, sim_shard)
         col = torch.empty(b, len(meta_heads), n_blk, dtype=torch.int32,
                           device=q.device)
         diag = torch.empty_like(col)
@@ -570,6 +616,7 @@ def minference_prefill_tile(
     scale: Optional[float] = None,
     sim: Optional[str] = None,
     sim_salt: int = 0,
+    sim_shard: Optional[SimShard] = None,
 ) -> torch.Tensor:
     """Per-head sparse prefill through the tile kernel (``vs_impl="tile"``,
     the default): verticals token-granular, slashes as block bands, one
@@ -584,8 +631,9 @@ def minference_prefill_tile(
     S is padded to a multiple of ``block`` and of kernel F's 128-row tile
     (JAX's ``tile`` argument sizes the TPU kernel's tiles only; padded rows
     are sliced off and padded keys masked, so it changes no result);
-    vertical lists are padded to one capacity with ``2 * S_pad``. ``sim`` /
-    ``sim_salt`` as in ``minference_prefill``. Returns [B, S, H, Dh]."""
+    vertical lists are padded to one capacity with ``2 * S_pad``. ``sim``,
+    ``sim_salt``, ``sim_shard`` as in ``minference_prefill``. Returns [B, S,
+    H, Dh]."""
     from shadowkv_tpu_torch.kernels.vs_tile import TILE, vs_tile_attention
 
     b, s, h, dh = q.shape
@@ -599,7 +647,7 @@ def minference_prefill_tile(
     out = torch.zeros_like(q)
     if meta_heads:
         rows, vertical, slash = _estimate(q, k, pats, scale, meta_heads, g,
-                                          sim, sim_salt)
+                                          sim, sim_salt, sim_shard)
         nv_cap = max(topk_sizes(vsize, 0, s)[0] if kind == "vertical_and_slash"
                      else min(stream_sink, s) if kind == "stream_llm" else 1
                      for kind, vsize, _ in (pats[i] for i in meta_heads))

@@ -67,8 +67,11 @@ the batch shards. Each rank samples its rows from the whole batch's draws
 (``core/sampling.py``), so a dp run samples what one device samples. On the
 card a decode step and its collectives are one CUDA graph under NCCL; a
 gloo mesh on the card needs ``eager_decode`` (its collectives run on the
-host), and the pp pipeline always steps eagerly. Context checkpoints and
-shared-prefix snapshots across dp shards serve one rank only.
+host), and the pp pipeline always steps eagerly. A context checkpoint is
+the whole cache at its global shape whatever mesh wrote it, and loads on
+any mesh or one device (``utils/checkpoint.py``). A shared-prefix snapshot
+stays on the dp shard that took it; a restore into another shard's slot
+sends it there, one tensor at a time (``_move_slot``).
 """
 
 from __future__ import annotations
@@ -82,6 +85,7 @@ import torch
 from shadowkv_tpu_torch.cache.full import FullCache
 from shadowkv_tpu_torch.cache.shadow import ShadowCache, ShadowLayout
 from shadowkv_tpu_torch.config import CacheConfig, ModelConfig, RuntimeConfig
+from shadowkv_tpu_torch.core import minference as mi
 from shadowkv_tpu_torch.core import rope as rope_lib
 from shadowkv_tpu_torch.core.layers import ModelParams
 from shadowkv_tpu_torch.core.sampling import sample_token
@@ -263,6 +267,24 @@ class Engine:
             return x
         return mesh_lib.all_gather(x, self.mesh.batch_group, dim=dim)
 
+    def _sim(self, batch: int, sub: int, row0: int):
+        """Where a prefill call of ``batch`` rows, ``sub`` at a time, whose
+        rows start at global row ``row0``, lies in one device's ``vs_sim``
+        draws (``minference.SimShard``); None on one device or without
+        ``vs_sim``."""
+        rt, mesh = self.rt, self.mesh
+        if rt.vs_sim is None or rt.prefill_pattern != "vs" or mesh is None:
+            return None
+        pats = mi.resolve_patterns(rt.minference_patterns,
+                                   self.model.num_heads, rt.vs_vertical_size,
+                                   rt.vs_slash_size)
+        vs = [p[0] == "vertical_and_slash" for p in pats]
+        head0 = mesh.head_slice(self.model.num_heads).start
+        return mi.SimShard(
+            batch=batch, sub=sub, row0=row0, heads=sum(vs),
+            head0=sum(vs[:head0]),
+            layer0=mesh.layer_slice(self.model.num_layers).start)
+
     def _local_slot(self, slot: int) -> int | None:
         """This rank's row of global slot ``slot``, or None."""
         rows = self._rows(self._batch)
@@ -293,8 +315,10 @@ class Engine:
         mesh, model, rt = self.mesh, self.local, self._rt_local
         self._batch = b
         b_dec = self._rows(b).stop - self._rows(b).start
+        row0 = 0
         if mesh is not None:
             # this rank's prefill rows (its dp shard)
+            row0 = mesh.prefill_rows(b).start
             input_ids = input_ids[mesh.prefill_rows(b)]
         parts = []
         if self.is_shadow:
@@ -305,7 +329,8 @@ class Engine:
             if self.rt.pp > 1:
                 parts.append(pipeline.prefill_shadow_pp(
                     model, self.params, cache, input_ids, self.cos_table,
-                    self.sin_table, mesh, self.sketch, rt))
+                    self.sin_table, mesh, self.sketch, rt,
+                    self._sim(b, t, row0)))
             elif self.rt.sp > 1:
                 parts.append(forward.prefill_shadow_sp(
                     model, self.params, cache, input_ids, self.cos_table,
@@ -315,7 +340,7 @@ class Engine:
                     parts.append(forward.prefill_shadow_into(
                         model, self.params, cache, input_ids[b0:b0 + t],
                         self.cos_table, self.sin_table, b0, self.sketch, rt,
-                        self.tp,
+                        self.tp, self._sim(b, t, row0 + b0),
                     ))
         else:
             cache = FullCache.init(model, self.cache_cfg, b_dec, self.device)
@@ -323,6 +348,7 @@ class Engine:
                 parts.append(forward.prefill_full(
                     model, self.params, cache, input_ids[b0:b0 + t],
                     self.cos_table, self.sin_table, b0, rt, self.tp,
+                    self._sim(b, t, row0 + b0),
                 ))
         self._cache = cache
         if self.is_shadow:
@@ -726,6 +752,7 @@ class Engine:
             lg = forward.prefill_shadow_into(
                 self.local, self.params, cache, ids, self.cos_table,
                 self.sin_table, local, self.sketch, self._rt_local, self.tp,
+                self._sim(1, 1, 0),
             )
         if self._sharded_batch():
             lg = mesh_lib.broadcast(
@@ -734,16 +761,29 @@ class Engine:
                 self.mesh.batch_group)
         return lg, cache
 
-    def _extract_slot(self, cache, b0: int) -> ShadowCache:
+    def _slot_at(self, slot: int) -> tuple[int | None, int | None]:
+        """Global slot ``slot``: (the global rank of this rank's batch group
+        that holds it, None off a batch-sharded mesh; this rank's row of
+        it, None on another dp shard)."""
+        if not self._sharded_batch():
+            return None, slot
+        return (self.mesh.owner_of_row(slot, self._batch),
+                self._local_slot(slot))
+
+    def _extract_slot(self, cache, b0: int) -> ShadowCache | None:
         """A one-slot copy of slot ``b0`` of every field of ``cache``,
         ``gen_len`` and the int8 scales included (JAX ``extract_slot_fn``):
         a shared-prefix snapshot. A host V store's rows are not copied
         here (``host_slot_rows`` does that); the snapshot holds a zero-row
-        placeholder for them, as JAX's does."""
-        self._one_rank("shared-prefix snapshots across dp shards")
+        placeholder for them, as JAX's does. On a batch-sharded mesh the
+        snapshot stays on the dp shard that holds the slot (each tp rank
+        its heads); the other shards get None."""
+        row = self._slot_at(b0)[1]
+        if row is None:
+            return None
 
         def take(t):
-            return None if t is None else t[:, b0:b0 + 1].clone()
+            return None if t is None else t[:, row:row + 1].clone()
 
         fields = {name: take(getattr(cache, name))
                   for name in ShadowCache.FIELDS if name != "v_full"}
@@ -752,37 +792,60 @@ class Engine:
                                         + (0,) + v.shape[4:])
                             if cache.v_on_host else take(v))
         gen_len = cache.gen_len
-        gen_len = (gen_len[b0:b0 + 1] if gen_len.dim() else gen_len).clone()
+        gen_len = (gen_len[row:row + 1] if gen_len.dim() else gen_len).clone()
         return ShadowCache(layout=cache.layout, gen_len=gen_len,
                            v_on_host=cache.v_on_host, **fields)
 
-    def _merge_slots(self, cache, small: ShadowCache, b0: int,
-                     with_v: bool = False):
+    def _move_slot(self, parts: dict, live: dict, src: int, dst: int,
+                   group) -> dict:
+        """Slot ``src``'s one-slot tensors ``parts`` (name -> tensor, on the
+        shard that holds it) to the shard that holds slot ``dst``: returns
+        them there (``parts`` itself on one shard, {} on a rank of
+        neither). Across dp shards the owner's rank sends each to the rank
+        with its tp coordinate on the target shard, over ``group``; the
+        receiver allocates each like one slot of ``live`` (name -> the
+        live [L, B, ...] tensor)."""
+        src_owner, src_row = self._slot_at(src)
+        dst_owner, dst_row = self._slot_at(dst)
+        if src_owner == dst_owner:
+            return parts if dst_row is not None else {}
+        out = {}
+        for name, t in live.items():
+            if src_row is not None:
+                mesh_lib.exchange(parts[name], dst_owner, None, None, group)
+            elif dst_row is not None:
+                out[name] = torch.empty_like(t[:, :1])
+                mesh_lib.exchange(None, None, out[name], src_owner, group)
+        return out
+
+    def _merge_slots(self, cache, small: ShadowCache | None, b0: int,
+                     with_v: bool = False, src: int | None = None):
         """Copy the one-slot ``small`` into slot ``b0`` of the live tensors
         of ``cache``, in place (JAX ``merge_slots_fn``): every field but
         the V store, which stays where it is (a host store takes its rows
         through ``set_host_slot_rows``); ``gen_len`` is left to the
-        caller."""
-        self._one_rank("shared-prefix snapshots across dp shards")
+        caller. ``src`` is the slot the snapshot was taken from: on a
+        batch-sharded mesh a snapshot of another dp shard's slot crosses
+        to ``b0``'s shard first (``_move_slot``)."""
         names = [n for n in ShadowCache.FIELDS if n != "v_full"]
-        for name in names + (["v_full"] if with_v else []):
-            dst = getattr(cache, name)
-            if dst is not None:
-                dst[:, b0:b0 + 1].copy_(getattr(small, name))
+        names += ["v_full"] if with_v else []
+        live = {n: getattr(cache, n) for n in names
+                if getattr(cache, n) is not None}
+        row = self._slot_at(b0)[1]
+        parts = {} if small is None else {n: getattr(small, n) for n in live}
+        parts = self._move_slot(parts, live, b0 if src is None else src, b0,
+                                self.mesh.batch_group
+                                if self._sharded_batch() else None)
+        if row is not None:
+            for name, val in parts.items():
+                getattr(cache, name)[:, row:row + 1].copy_(val)
         return cache
 
-    def _merge_slots_v(self, cache, small: ShadowCache, b0: int):
+    def _merge_slots_v(self, cache, small: ShadowCache | None, b0: int,
+                       src: int | None = None):
         """``_merge_slots`` with the V store (a cache whose V is on the
         card; JAX ``merge_slots_v_fn``)."""
-        return self._merge_slots(cache, small, b0, with_v=True)
-
-    def _one_rank(self, what: str, batch_only: bool = True) -> None:
-        """Raise for ``what`` on a mesh that shards the batch (or, with
-        ``batch_only=False``, on any mesh)."""
-        if self._sharded_batch() or (self.mesh is not None
-                                     and not batch_only):
-            raise ValueError(f"{what} serve one rank (a snapshot or a file "
-                             "would hold one shard of the cache)")
+        return self._merge_slots(cache, small, b0, with_v=True, src=src)
 
     def _host_store(self) -> torch.Tensor:
         if not self.v_on_host or self._cache is None:
@@ -790,27 +853,47 @@ class Engine:
                              "shadow_offload cache")
         return self._cache.v_full
 
-    def host_slot_rows(self, slot: int) -> torch.Tensor:
+    def host_slot_rows(self, slot: int) -> torch.Tensor | None:
         """A copy of slot ``slot`` of the host V store [L, 1, K, rows, Dh],
-        pinned when the engine runs on the card (JAX ``host_slot_rows``)."""
-        rows = self._host_store()[:, slot:slot + 1]
+        pinned when the engine runs on the card (JAX ``host_slot_rows``);
+        on a batch-sharded mesh, on the dp shard that holds the slot (None
+        on the others)."""
+        store = self._host_store()
+        row = self._slot_at(slot)[1]
+        if row is None:
+            return None
+        rows = store[:, row:row + 1]
         out = torch.empty(rows.shape, dtype=rows.dtype,
                           pin_memory=self.device.type == "cuda")
         return out.copy_(rows)
 
-    def set_host_slot_rows(self, rows: torch.Tensor, slot: int) -> None:
+    def set_host_slot_rows(self, rows: torch.Tensor | None, slot: int,
+                           src: int | None = None) -> None:
         """Write a ``host_slot_rows`` copy back into slot ``slot`` of the
-        host V store (JAX ``set_host_slot_rows``)."""
-        self._host_store()[:, slot:slot + 1].copy_(rows)
+        host V store (JAX ``set_host_slot_rows``); from another dp shard's
+        slot ``src``, the rows cross over the mesh's gloo group, through
+        host memory only."""
+        store = self._host_store()
+        row = self._slot_at(slot)[1]
+        parts = self._move_slot({} if rows is None else {"v": rows},
+                                {"v": store}, slot if src is None else src,
+                                slot,
+                                self.mesh.host_group
+                                if self._sharded_batch() else None)
+        if row is not None:
+            store[:, row:row + 1].copy_(parts["v"])
 
     # -- context checkpoints (utils/checkpoint.py) ----------------------------
 
     def save_state(self, path: str) -> None:
         """Write the live shadow cache (after a prefill, or mid-generation)
-        to ``path``; ``load_state`` in this or another engine resumes it."""
+        to ``path``; ``load_state`` in this or another engine resumes it.
+        On a rank mesh every rank calls it: the file is the whole cache at
+        its global shape (one writer, the replica's first rank), and each
+        rank returns once it is complete. A world of several replicas
+        writes one file per replica: give each its own ``path``."""
         if not self.is_shadow:
             raise ValueError("save_state serves the shadow cache modes")
-        self._one_rank("context checkpoints", batch_only=False)
         if self._cache is None:
             raise ValueError("save_state needs a prefilled cache: call "
                              "prefill() or generate() first")
@@ -818,7 +901,8 @@ class Engine:
             variant = "hbm"
         else:
             variant = "io_callback" if self.host_store else "host"
-        checkpoint.save_shadow_state(self._cache, path, variant=variant)
+        checkpoint.save_shadow_state(self._cache, path, variant=variant,
+                                     mesh=self.mesh)
 
     def load_state(self, path: str) -> None:
         """Load a ``save_state`` file as the live cache; afterwards
@@ -827,29 +911,41 @@ class Engine:
         file saved with V on the card loads into a ``shadow_offload``
         engine without passing through device memory, and the reverse).
         The layout must match this engine's cache config (``_check_layout``),
-        the shapes its model. The old cache's graphs are dropped and the
-        slots' host-side depths are rebuilt from the loaded ``gen_len``."""
+        the shapes its model; on a rank mesh each rank checks the header
+        before reading anything and keeps its slice, so a file saved on any
+        mesh (or one device) loads on any other. The old cache's graphs
+        are dropped and the slots' host-side depths are rebuilt from the
+        loaded ``gen_len``."""
         if not self.is_shadow:
             raise ValueError("load_state serves the shadow cache modes")
-        self._one_rank("context checkpoints", batch_only=False)
         self._cache = None
         self._steps = None
         cache = checkpoint.load_shadow_state(
             path, self.device, v_on_host=self.v_on_host,
-            check=self._check_layout)
+            check=self._check_layout, mesh=self.mesh,
+            check_shapes=self._check_shapes)
+        self._cache = cache
+        self._batch = cache.k_buf.shape[1] * (
+            self.mesh.batch_shards if self.mesh is not None else 1)
+        self._host_axis = "batch"
+        self._hit_prev_ids = None
+        depth = cache.gen_len.cpu().numpy().astype(np.int64)
+        self._steps = StepGraphs(cache, cache.k_buf.shape[1], depth,
+                                 self.cache_cfg.gen_capacity, self.device,
+                                 eager=self.rt.eager_decode or self.rt.pp > 1)
+
+    def _check_shapes(self, shapes: dict) -> None:
+        """Refuse a checkpoint whose cache does not fit this engine's model
+        or mesh; every rank reads the same header, so all raise alike."""
         m = self.model
-        l, b, kh, _, dh = cache.k_buf.shape
+        l, b, kh, _, dh = shapes["k_buf"]
         if (l, kh, dh) != (m.num_layers, m.num_kv_heads, m.head_dim):
             raise ValueError(
                 f"checkpoint cache [L {l}, K {kh}, Dh {dh}] does not match "
                 f"this engine's model [L {m.num_layers}, K "
                 f"{m.num_kv_heads}, Dh {m.head_dim}]")
-        self._cache = cache
-        self._host_axis = "batch"
-        self._hit_prev_ids = None
-        depth = cache.gen_len.cpu().numpy().astype(np.int64)
-        self._steps = StepGraphs(cache, b, depth, self.cache_cfg.gen_capacity,
-                                 self.device)
+        if self.mesh is not None:
+            self.mesh.batch_rows(b)  # the batch divides over the shards
 
     def _check_layout(self, lo: ShadowLayout) -> None:
         """Refuse a checkpoint whose static layout differs from this engine's

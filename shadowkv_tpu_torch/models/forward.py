@@ -141,9 +141,11 @@ def check_layer_patterns(rt: RuntimeConfig, model: ModelConfig) -> None:
                             rt.vs_vertical_size, rt.vs_slash_size)
 
 
-def prefill_attention(rt: RuntimeConfig, layer: int, q, k, v) -> torch.Tensor:
+def prefill_attention(rt: RuntimeConfig, layer: int, q, k, v,
+                      sim: "mi.SimShard | None" = None) -> torch.Tensor:
     """The configured prefill attention of one layer; q [B, S, H, Dh], k/v
-    [B, S, K, Dh] (contiguous)."""
+    [B, S, K, Dh] (contiguous). ``sim``: on a rank mesh, where the call's
+    rows, heads and layers lie in one device's ``vs_sim`` draws."""
     if rt.prefill_pattern == "stream":
         return sparse_prefill_splash(q, k, v, rt.stream_window, rt.stream_sink)
     if rt.prefill_pattern != "vs":
@@ -155,7 +157,8 @@ def prefill_attention(rt: RuntimeConfig, layer: int, q, k, v) -> torch.Tensor:
         # The score simulation serves uniform tables only, as in JAX (its
         # per-layer path takes no ``sim``).
         kw.update(patterns=rt.minference_patterns, sim=rt.vs_sim,
-                  sim_salt=layer)
+                  sim_salt=layer + (sim.layer0 if sim is not None else 0),
+                  sim_shard=sim)
     else:
         kw.update(patterns=rt.minference_layer_patterns[layer])
     if rt.vs_impl == "tile":
@@ -178,6 +181,7 @@ def prefill_full(
     batch_start: int = 0,
     rt: RuntimeConfig = _DENSE,
     tp=None,
+    sim: "mi.SimShard | None" = None,
 ) -> torch.Tensor:
     """Prefill of a sub-batch into ``cache`` rows
     [batch_start, batch_start + Bsub); returns last-token logits."""
@@ -190,7 +194,8 @@ def prefill_full(
         q, k_r, _, v = _layer_qkv(model, lp, x, cos, sin)
         cache.k[layer, bs, :, :s] = k_r.transpose(1, 2)
         cache.v[layer, bs, :, :s] = v.transpose(1, 2)
-        ctx = prefill_attention(rt, layer, q, k_r.contiguous(), v.contiguous())
+        ctx = prefill_attention(rt, layer, q, k_r.contiguous(), v.contiguous(),
+                                sim)
         x = _layer_tail(lp, model, x, ctx, tp)
     cache.length.fill_(s)
     return _finalize(model, params, x, tp)
@@ -242,12 +247,14 @@ def shadow_prefill_body(
     omega: torch.Tensor | None = None,
     rt: RuntimeConfig = _DENSE,
     tp=None,
+    sim: "mi.SimShard | None" = None,
 ) -> torch.Tensor:
     """One prefill layer (JAX ``make_shadow_prefill_body``): QKV + RoPE,
     the layer's shadow-cache slices written into ``cache`` at (layer,
     batch_start), the configured prefill attention, MLP. Returns the new
     residual. A host V store takes its rows by a synchronous copy from the
-    card, so the layer's V rows are on the card only while it runs."""
+    card, so the layer's V rows are on the card only while it runs.
+    ``sim`` as in ``prefill_attention``."""
     q, k_r, k_pre, v = _layer_qkv(model, lp, x, cos, sin)
     slices = shadow_prefill_layer(
         model, cache.layout, k_pre, k_r, v, q[:, -1:], omega=omega, tp=tp
@@ -255,7 +262,8 @@ def shadow_prefill_body(
     bs = slice(batch_start, batch_start + x.shape[0])
     for name, val in slices.items():
         getattr(cache, name)[layer, bs] = val
-    ctx = prefill_attention(rt, layer, q, k_r.contiguous(), v.contiguous())
+    ctx = prefill_attention(rt, layer, q, k_r.contiguous(), v.contiguous(),
+                            sim)
     return _layer_tail(lp, model, x, ctx, tp)
 
 
@@ -270,6 +278,7 @@ def prefill_shadow_into(
     omega: torch.Tensor | None = None,
     rt: RuntimeConfig = _DENSE,
     tp=None,
+    sim: "mi.SimShard | None" = None,
 ) -> torch.Tensor:
     """Sub-batch shadow prefill writing into the preallocated full-batch
     cache at ``batch_start``; returns last-token logits [Bsub, 1, V]."""
@@ -281,7 +290,7 @@ def prefill_shadow_into(
     for layer in range(model.num_layers):
         x = shadow_prefill_body(
             model, cache, layer, params.layer(layer), x, cos, sin,
-            batch_start, omega, rt, tp,
+            batch_start, omega, rt, tp, sim,
         )
     return _finalize(model, params, x, tp)
 

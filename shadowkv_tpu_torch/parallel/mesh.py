@@ -81,6 +81,12 @@ class RankMesh:
     batch_group: object  # decode batch shards: dp, or (dp, sp)
     batch_ranks: list  # global ranks of batch_group, by decode shard
     backend: str
+    # axis order of the replica's layout (outermost first), the global
+    # rank at each position of it, and a gloo group over the replica: host
+    # tensors (checkpoints, host V rows) travel on it whatever the backend
+    layout: tuple = ()
+    replica_ranks: list = dataclasses.field(default_factory=list)
+    host_group: object = None
 
     @property
     def size(self) -> int:
@@ -131,6 +137,23 @@ class RankMesh:
         ``row``."""
         return self.batch_ranks[row // (batch // self.batch_shards)]
 
+    @property
+    def rank(self) -> int:
+        """This process's global rank."""
+        return self.batch_ranks[self.batch_index]
+
+    def rank_of(self, **coords) -> int:
+        """The global rank of this replica at ``coords`` (axes left out are
+        at 0)."""
+        i = 0
+        for a in self.layout:
+            i = i * getattr(self, a) + coords.get(a, 0)
+        return self.replica_ranks[i]
+
+    def batch_coords(self, shard: int) -> dict:
+        """The (dp, sp) coordinates of decode batch shard ``shard``."""
+        return {"dp": shard // self.sp, "sp": shard % self.sp}
+
 
 def _build(axes: dict, order: tuple) -> RankMesh:
     """A mesh of the axis sizes ``axes`` laid out in ``order`` (outermost
@@ -164,6 +187,7 @@ def _build(axes: dict, order: tuple) -> RankMesh:
 
     mine = coords_of(me % n)
     groups, group_ranks = {}, {}
+    host_group = replica = None
     # one group per axis, and the decode batch shards (dp, sp) in one
     kinds = [(a, (a,)) for a in order] + [("batch", ("dp", "sp"))]
     for base in range(0, world, n):
@@ -179,6 +203,10 @@ def _build(axes: dict, order: tuple) -> RankMesh:
                 group = dist.new_group(ranks)
                 if me in ranks:
                     groups[name], group_ranks[name] = group, ranks
+        ranks = list(range(base, base + n))
+        group = dist.new_group(ranks, backend="gloo")
+        if me in ranks:
+            host_group, replica = group, ranks
     batch_group, batch_ranks = groups.pop("batch"), group_ranks.pop("batch")
     full = {"dp": 1, "tp": 1, "sp": 1, "pp": 1}
     full.update(axes)
@@ -190,7 +218,8 @@ def _build(axes: dict, order: tuple) -> RankMesh:
         dp=full["dp"], tp=full["tp"], sp=full["sp"], pp=full["pp"],
         coords=coords, groups=groups, group_ranks=group_ranks,
         batch_group=batch_group, batch_ranks=batch_ranks,
-        backend=dist.get_backend(),
+        backend=dist.get_backend(), layout=order, replica_ranks=replica,
+        host_group=host_group,
     )
 
 

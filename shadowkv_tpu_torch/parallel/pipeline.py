@@ -101,13 +101,15 @@ def prefill_shadow_pp(
     mesh,
     omega: torch.Tensor | None = None,
     rt: RuntimeConfig = forward._DENSE,
+    sim=None,
 ) -> torch.Tensor:
     """Whole-batch shadow prefill with the layers pipelined over pp (JAX
     ``prefill_shadow_pp``, ``:81``): each stage runs the sub-batch prefill's
     layer body (``forward.shadow_prefill_body``) for its layers on each
     microbatch and writes its cache slices in place. A stage holds one
-    microbatch's [uB, S, D] activations. Returns the last-token logits
-    [B_dp, 1, V], on every stage."""
+    microbatch's [uB, S, D] activations. ``sim`` (``mi.SimShard``) places
+    the stage's first row and layer in one device's ``vs_sim`` draws.
+    Returns the last-token logits [B_dp, 1, V], on every stage."""
     b, s = input_ids.shape
     if s != cache.layout.prefill_len:
         raise ValueError("prompt length does not match the cache layout")
@@ -123,7 +125,7 @@ def prefill_shadow_pp(
         for layer in range(model.num_layers):
             x = forward.shadow_prefill_body(
                 model, cache, layer, params.layer(layer), x, cos, sin, lo,
-                omega, rt, tp)
+                omega, rt, tp, None if sim is None else sim.shift(lo))
         return x
 
     outs = _run(mesh, b, stage, (ub, s, model.hidden_size), model.dtype,

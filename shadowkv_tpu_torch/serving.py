@@ -32,9 +32,11 @@ Over a (dp, tp) mesh every rank runs this same host-side schedule on the
 whole batch: the engine's slot operations take global slots, the dp shard
 that holds a slot prefills an admission with its tp ranks and broadcasts
 its logits, and every rank samples the whole batch from the same
-generator. sp and pp meshes are refused, as in JAX, and shared-prefix
-snapshots serve meshes that do not shard the batch (a snapshot stays on
-its rank).
+generator. sp and pp meshes are refused, as in JAX. A shared-prefix
+snapshot stays on the dp shard that took it (each tp rank its heads);
+every rank keeps the context's entry and the slot it came from, and a
+restore into another shard's slot sends the snapshot there
+(``Engine._move_slot``), where JAX's global cache restores in place.
 """
 
 from __future__ import annotations
@@ -145,8 +147,9 @@ class ContinuousBatcher:
         self.max_dispatch = max(1, int(max_dispatch))
         # Shared-prefix snapshots: context_id -> (prefix fingerprint,
         # last-prefix-token logits [1, 1, V], one-slot cache, host V rows
-        # or None); at most max_contexts of them, least recently used
-        # evicted first.
+        # or None, the slot it was taken from); at most max_contexts of
+        # them, least recently used evicted first. On a dp shard that does
+        # not hold the slot, the cache and the rows are None.
         self.max_contexts = max_contexts
         self._ctx: dict = {}
 
@@ -205,6 +208,7 @@ class ContinuousBatcher:
                 lg_row.clone(),
                 eng._extract_slot(cache, i),
                 eng.host_slot_rows(i) if offload else None,
+                i,
             )
             stats.context_prefills += 1
 
@@ -270,19 +274,20 @@ class ContinuousBatcher:
                 prefix, suffix = split(r)
                 hit = r.context_id is not None and r.context_id in self._ctx
                 if hit:
-                    fp, lg, small, host_rows = self._ctx.pop(r.context_id)
+                    entry = self._ctx.pop(r.context_id)
+                    fp, lg, small, host_rows, src = entry
                     if fp != fingerprint(prefix):
                         raise ValueError(
                             f"context_id {r.context_id} reused with a "
                             "different prefix")
-                    self._ctx[r.context_id] = (fp, lg, small, host_rows)
+                    self._ctx[r.context_id] = entry
                     if offload:
                         # the snapshot's V store is a placeholder; the
                         # slot's rows restore into the host store
-                        cache = eng._merge_slots(cache, small, i)
-                        eng.set_host_slot_rows(host_rows, i)
+                        cache = eng._merge_slots(cache, small, i, src=src)
+                        eng.set_host_slot_rows(host_rows, i, src=src)
                     else:
-                        cache = eng._merge_slots_v(cache, small, i)
+                        cache = eng._merge_slots_v(cache, small, i, src=src)
                     stats.context_hits += 1
                 else:
                     lg, cache = eng.admit_slot(cache, prefix, i)

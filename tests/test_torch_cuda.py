@@ -23,7 +23,11 @@ captures both paths; the HostVStore path (miss-only V gather from the
 pinned store) and the segmented decode attention are among the paths;
 ``utils/profiling.program_table`` gives one row per replayed graph. int8
 weight quantization (``core/wquant.py``) on the card equals the host's bit
-for bit."""
+for bit. C, F and G at a tp=2 rank's head slice (Llama's 16 query / 4 KV
+heads) match their plain versions per row and give bit for bit the head
+slice of the same kernel over all heads. A tp-shaped cache saved on the
+card loads on the CPU bit-equal, whole and as each tp rank's head
+slice."""
 
 from __future__ import annotations
 
@@ -730,3 +734,108 @@ def test_quantize_weight_card_equals_host(gen, shape, axis):
     host = quantize_weight(w.cpu(), reduce_axis=axis)
     assert torch.equal(dev.q.cpu(), host.q)
     assert torch.equal(dev.s.cpu(), host.s)
+
+
+# -- a tp=2 rank's shard ----------------------------------------------------
+
+
+def _tp2_flags(gen, b, h, s, block):
+    """Vertical ids and band flags (F), block metadata (G) for ``b * h``
+    heads."""
+    bh, nk = b * h, s // block
+    dflag = (torch.rand(bh, nk, device="cuda", generator=gen) < 0.3).int()
+    dflag[:, 0] = 1
+    v_idx = torch.randint(0, s, (bh, 200), device="cuda", generator=gen,
+                          dtype=torch.int32)
+    col = (torch.rand(bh, nk, device="cuda", generator=gen) < 0.3).int()
+    return v_idx, dflag, meta_from_flags(col, dflag)
+
+
+@pytest.mark.parametrize("kernel", ["C", "F", "G"])
+def test_sparse_prefill_kernels_at_the_tp2_head_slice(gen, kernel):
+    """Rank t=1 of tp=2 over 32 query / 8 KV heads holds heads [16, 32) /
+    [4, 8): the kernel on that slice matches its plain version per row,
+    and equals bit for bit the slice of the kernel over all heads."""
+    b, s, h, kh, dh, block = 2, 1024, 32, 8, 128, 128
+    q = torch.randn(b, s, h, dh, device="cuda", generator=gen).bfloat16()
+    k = torch.randn(b, s, kh, dh, device="cuda", generator=gen).bfloat16()
+    v = torch.randn(b, s, kh, dh, device="cuda", generator=gen).bfloat16()
+    hs, ks = slice(h // 2, h), slice(kh // 2, kh)
+    half = [t[:, :, sl].contiguous() for t, sl in ((q, hs), (k, ks), (v, ks))]
+    if kernel == "C":
+        out = sparse_prefill_splash(*half, 300, 64)
+        ref = sparse_prefill_attention(*half, 300, 64)
+        whole = sparse_prefill_splash(q, k, v, 300, 64)[:, :, hs]
+    else:
+        def flat(t):  # [B, S, N, Dh] -> [B * N, S, Dh]
+            return t.transpose(1, 2).reshape(-1, s, dh).contiguous()
+
+        def kv_map(n, nk):
+            return ((torch.arange(b)[:, None] * nk
+                     + torch.arange(n)[None, :] // (n // nk)).reshape(-1)
+                    .int().cuda())
+
+        v_idx, dflag, meta = _tp2_flags(gen, b, h, s, block)
+        mine = torch.arange(b * h, device="cuda").view(b, h)[:, hs].reshape(-1)
+        kw = dict(block=block, scale=dh**-0.5, seq_len=s)
+        args = [flat(t) for t in half]
+        if kernel == "F":
+            out = vs_tile_attention(*args, v_idx[mine], dflag[mine],
+                                    kv_map(h // 2, kh // 2), **kw)
+            ref = vs_tok_attention_reference(*args, v_idx[mine], dflag[mine],
+                                             kv_map(h // 2, kh // 2), **kw)
+            full = vs_tile_attention(flat(q), flat(k), flat(v), v_idx, dflag,
+                                     kv_map(h, kh), **kw)
+        else:
+            part = meta_from_flags(meta.col_flag[mine], dflag[mine])
+            out = vs_sparse_attention(*args, part.col_ids, part.col_cnt,
+                                      part.col_flag, part.diag_ids,
+                                      part.diag_cnt, kv_map(h // 2, kh // 2),
+                                      **kw)
+            ref = vs_attention_reference(*args, part,
+                                         kv_map(h // 2, kh // 2), **kw)
+            full = vs_sparse_attention(flat(q), flat(k), flat(v), meta.col_ids,
+                                       meta.col_cnt, meta.col_flag,
+                                       meta.diag_ids, meta.diag_cnt,
+                                       kv_map(h, kh), **kw)
+        whole = full[mine]
+    torch.cuda.synchronize()
+    assert _row_rel_err(out, ref) <= 2.0**-6
+    assert torch.equal(out, whole)
+
+
+def test_tp_shaped_checkpoint_saved_on_card_loads_on_cpu(gen, tmp_path):
+    """A tp=2 rank's cache shape (the toy engine's 2 KV heads of 4) saved
+    from the card: loaded on the CPU every field is bit-equal with its
+    dtype, and the file's head slices (as each rank of a tp=2 mesh loads
+    them) put back together give it again."""
+    from shadowkv_tpu_torch.cache.shadow import ShadowCache
+    from shadowkv_tpu_torch.parallel.mesh import RankMesh
+    from shadowkv_tpu_torch.utils import checkpoint
+
+    eng, ids = _toy_engine("shadow", use_pallas=True)
+    eng.generate(ids, gen_len=3)
+    path = str(tmp_path / "ctx.npz")
+    eng.save_state(path)
+    src = eng._cache
+    got = checkpoint.load_shadow_state(path, "cpu")
+    parts = []
+    for t in range(2):
+        mesh = RankMesh(dp=1, tp=2, sp=1, pp=1,
+                        coords={"dp": 0, "sp": 0, "tp": t, "pp": 0},
+                        groups={}, group_ranks={}, batch_group=None,
+                        batch_ranks=[0], backend="gloo")
+        parts.append(checkpoint.load_shadow_state(path, "cpu", mesh=mesh))
+    for name in ShadowCache.FIELDS + ("gen_len",):
+        a = getattr(src, name)
+        if a is None:
+            assert getattr(got, name) is None, name
+            continue
+        b = getattr(got, name)
+        assert b.device.type == "cpu" and b.dtype == a.dtype, name
+        assert torch.equal(b, a.cpu()), name
+        if name in checkpoint.HEAD_FIELDS:
+            joined = torch.cat([getattr(p, name) for p in parts], dim=2)
+        else:
+            joined = getattr(parts[1], name)
+        assert torch.equal(joined, b), name

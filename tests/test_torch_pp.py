@@ -7,10 +7,15 @@ the microbatch rule and the batcher's refusal.
 
 Four gloo ranks (once for the file) run the toy model (f32, 8 heads / 4
 KV heads) with pp=2 at batch 4 and at batch 1 (fewer rows than stages),
-pp=2 over 4 layers (two per stage), pp2 x dp2 and pp2 x tp2: greedy
-tokens equal the single-device port engine's on every rank, prefill
-logits within 1e-4; pp=2 gives the JAX engine's tokens on its pp=2 mesh of
-virtual CPU devices.
+pp=2 over 4 layers (two per stage), pp2 x dp2, pp2 x tp2 and a pp=2 vs prefill with ``vs_sim="clustered"``
+(the global layer as each stage's salt): greedy tokens equal the
+single-device port engine's on every rank, prefill logits within 1e-4;
+pp=2 gives the JAX engine's tokens on its pp=2 mesh of virtual CPU
+devices. Context checkpoints saved on pp2, pp2 x dp2 and pp2 x tp2 resume
+on their mesh with the unbroken run's tokens and on one device with the
+single device's, the single-device file and the other pp meshes' files
+resume on each mesh, and the pp2 and pp2 x dp2 files equal the single
+device's field by field.
 """
 
 from __future__ import annotations
@@ -40,7 +45,17 @@ CASES = {
     "pp2-4layers": dict(pp=2, batch=2, num_layers=4, weights=1),
     "pp2dp2": dict(pp=2, dp=2),
     "pp2tp2": dict(pp=2, tp=2),
+    "pp2-vs-sim": dict(pp=2, rt=dict(
+        prefill_pattern="vs", vs_vertical_size=64, vs_slash_size=64,
+        vs_block=64, vs_sim="clustered")),
 }
+SHADOW = {"mode": "shadow"}
+CKPT = {
+    "ckpt-pp2": dict(pp=2, cache=SHADOW),
+    "ckpt-pp2dp2": dict(pp=2, dp=2, cache=SHADOW, loads=["ckpt-pp2"]),
+    "ckpt-pp2tp2": dict(pp=2, tp=2, cache=SHADOW, loads=["ckpt-pp2dp2"]),
+}
+CKPT_FIELD_TOL = 1e-5  # as test_torch_mesh.py's
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -54,16 +69,20 @@ def one_thread():
 
 
 @pytest.fixture(scope="module")
-def job():
+def job(tmp_path_factory):
     cases = [dict(c, kind="generate", cache={"mode": "shadow"})
              for c in CASES.values()]
     w = [R.weights(seed=2), R.weights(seed=3, num_layers=4)]
     sketch = R.jax_sketch()
     ids = R.prompts(4, seed=2)
+    params = [from_jax_params(x, device="cpu") for x in w]
+    ckpt, singles = R.ckpt_cases(CKPT, tmp_path_factory.mktemp("ckpt"),
+                                 params[0], sketch, ids)
+    cases += ckpt
     res = R.spawn(4, dict(cases=cases, weights=w, sketch=sketch,
                           prompts=ids))
     return dict(cases=cases, res=res, w=w, sketch=sketch, ids=ids,
-                params=[from_jax_params(x, device="cpu") for x in w])
+                params=params, singles=singles)
 
 
 def _engine(rt: RuntimeConfig, mesh=None, **cache_kw):
@@ -115,6 +134,19 @@ def test_pp_generation_matches_single(job, name):
         np.testing.assert_array_equal(r[i]["tokens"], ref["tokens"])
         np.testing.assert_allclose(r[i]["logits"], ref["logits"], rtol=0,
                                    atol=LOGIT_TOL)
+
+
+@pytest.mark.parametrize("name", list(CKPT))
+def test_pp_checkpoint_resumes(job, name):
+    """As ``test_torch_mesh.py::test_mesh_checkpoint_resumes``: resumed on
+    the mesh, the unbroken run's tokens; the single-device file and the
+    earlier pp meshes' files on the mesh, and the mesh file on one device,
+    the single device's; pp2 and pp2 x dp2 files equal the single
+    device's field by field (CKPT_FIELD_TOL)."""
+    i = len(CASES) + list(CKPT).index(name)
+    R.check_ckpt(job["cases"][i], [r[i] for r in job["res"]],
+                 job["singles"][name], job["params"][0], job["sketch"],
+                 CKPT_FIELD_TOL)
 
 
 def test_pp_matches_jax_engine(job):

@@ -14,6 +14,11 @@ Four gloo ranks (once for the file) run the toy model with (sp=2, tp=2),
 engine's on every rank, prefill logits within 2e-4 (JAX's
 ``test_sp_prefill_logits_match`` bound); the (sp=2, tp=2) tokens equal the
 JAX engine's on its (dp=1, sp=2, tp=2) mesh of virtual CPU devices.
+Context checkpoints saved on (sp=2, tp=2) and sp=2 (after the prefill
+the cache is sharded over the decode batch) resume on their mesh with the
+unbroken run's tokens and on one device with the single device's, the
+single-device file and the (sp=2, tp=2) file resume on sp=2, and the
+sp=2 file equals the single device's field by field.
 """
 
 from __future__ import annotations
@@ -51,6 +56,11 @@ CASES = {
     "dp2sp2": dict(dp=2, sp=2),
     "sp2": dict(sp=2),
 }
+CKPT = {
+    "ckpt-sp2tp2": dict(sp=2, tp=2, cache={"mode": "shadow"}),
+    "ckpt-sp2": dict(sp=2, cache={"mode": "shadow"}, loads=["ckpt-sp2tp2"]),
+}
+CKPT_FIELD_TOL = 1e-5  # as test_torch_mesh.py's
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -64,16 +74,20 @@ def one_thread():
 
 
 @pytest.fixture(scope="module")
-def job():
+def job(tmp_path_factory):
     cases = [dict(c, kind="generate", cache={"mode": "shadow"})
              for c in CASES.values()]
     w = R.weights(seed=1)
     sketch = R.jax_sketch()
     ids = R.prompts(4, seed=1)
+    params = from_jax_params(w, device="cpu")
+    ckpt, singles = R.ckpt_cases(CKPT, tmp_path_factory.mktemp("ckpt"),
+                                 params, sketch, ids)
+    cases += ckpt
     res = R.spawn(4, dict(cases=cases, weights=[w], sketch=sketch,
                           prompts=ids))
     return dict(cases=cases, res=res, w=w, sketch=sketch, ids=ids,
-                params=from_jax_params(w, device="cpu"))
+                params=params, singles=singles)
 
 
 @pytest.mark.parametrize("s_q, t_k, offset", [
@@ -159,6 +173,16 @@ def test_sp_generation_matches_single(job, name):
         np.testing.assert_array_equal(r[i]["tokens"], ref["tokens"])
         np.testing.assert_allclose(r[i]["logits"], ref["logits"], rtol=0,
                                    atol=LOGIT_TOL)
+
+
+@pytest.mark.parametrize("name", list(CKPT))
+def test_sp_checkpoint_resumes(job, name):
+    """As ``test_torch_mesh.py::test_mesh_checkpoint_resumes``; the sp=2
+    file equals the single device's field by field (CKPT_FIELD_TOL)."""
+    i = len(CASES) + list(CKPT).index(name)
+    R.check_ckpt(job["cases"][i], [r[i] for r in job["res"]],
+                 job["singles"][name], job["params"], job["sketch"],
+                 CKPT_FIELD_TOL)
 
 
 def test_sp_matches_jax_engine(job):
