@@ -215,6 +215,28 @@ to the CPU):
    C, F and G are held to their plain versions at the tp=2 head slice of
    that prefill and timed against their bounds. Two ranks share one card:
    their tok/s claims no scaling.
+18. Training (``tools/make_tiny_checkpoint.py``, ``train_tiny_model.py``,
+   ``train_bench_weights.py``), after the entry points:
+   - ``train-tiny``: the trained BPE tokenizer and the initial 6 x 1024
+     oracle written to the gitignored build directory; step 0 of the
+     trainer on the card against the CPU at a 2-layer narrow f32 config
+     (loss within 1e-5 relative, each leaf's gradient within 1e-4 relative
+     RMS; the same step with TF32 products, a planted control, must miss
+     the gradient bound); then the first 200 steps of the
+     tool's curriculum at its defaults (dense recall, ctx 256, batch 32,
+     AdamW) on the full-width oracle: every loss finite, the mean of the
+     last 20 at least 1 nat below the first 20's; steps/s, peak GiB and
+     the dense-recall probe;
+   - ``train-bench``: three Adafactor steps of the bench-shape model (16
+     layers, d 2048, bf16) at ctx 2048 x 2; ms per step and peak GiB,
+     every loss finite;
+   - ``text``: the train-tiny checkpoint with its tokenizer through
+     ``LLM(model_dir=...)`` (bf16), one RULER niah_single_1 sample at 4096
+     with the port's template and eval_acc's prompt bucket, greedy, shadow
+     at budget 512, rank 64, chunk 8 with the fused refresh, and full: B
+     once per layer and A once per layer and decode step (exact), the
+     decoded strings and their score, and the organic slot hit rate of 64
+     further greedy steps.
 
 The line before the card line is a JSON object with every kernel's
 numbers; the last line is ``{"ok": true, "device": {...}}``.
@@ -2185,26 +2207,6 @@ def run_int8_and_context(torch, cfg, counters, bf16_logits,
     return res
 
 
-def _write_safetensors(torch, path: str, tensors: dict) -> int:
-    """A safetensors file of bf16 CUDA tensors (a JSON header, then the raw
-    little-endian bytes); returns its size."""
-    header, offset, blobs = {}, 0, []
-    for name, t in tensors.items():
-        a = t.contiguous().cpu().view(torch.int16).numpy()
-        header[name] = {"dtype": "BF16", "shape": list(t.shape),
-                        "data_offsets": [offset, offset + a.nbytes]}
-        offset += a.nbytes
-        blobs.append(a)
-    head = json.dumps(header).encode()
-    head += b" " * (-len(head) % 8)
-    with open(path, "wb") as f:
-        f.write(len(head).to_bytes(8, "little"))
-        f.write(head)
-        for a in blobs:
-            f.write(a.data)
-    return 8 + len(head) + offset
-
-
 def run_hf_load(torch, cfg) -> dict:
     """HF checkpoint loading at full width, depth cut to HF_LAYERS: this
     script writes ``config.json`` (LlamaForCausalLM, llama3 rope scaling)
@@ -2223,6 +2225,7 @@ def run_hf_load(torch, cfg) -> dict:
     from shadowkv_tpu_torch.core.wquant import QTensor, quantize_params
     from shadowkv_tpu_torch.models.engine import Engine
     from shadowkv_tpu_torch.models.llm import LLM, load_tokenizer
+    from shadowkv_tpu_torch.models.params import write_safetensors
     from shadowkv_tpu_torch.models.registry import llama31_8b
 
     want_cfg = dataclasses.replace(llama31_8b(ENTRY_NAME),
@@ -2257,8 +2260,8 @@ def run_hf_load(torch, cfg) -> dict:
               "model-00002-of-00002.safetensors": names[len(names) // 2:]}
     total = 0
     for shard, keys in shards.items():
-        total += _write_safetensors(torch, os.path.join(out_dir, shard),
-                                    {k: hf[k] for k in keys})
+        total += write_safetensors(os.path.join(out_dir, shard),
+                                   {k: hf[k] for k in keys})
     with open(os.path.join(out_dir, "model.safetensors.index.json"), "w") as f:
         json.dump({"metadata": {"total_size": total}, "weight_map": {
             k: shard for shard, keys in shards.items() for k in keys}}, f)
@@ -2362,6 +2365,263 @@ def run_entry_points(torch, cfg, shadow_run: dict) -> dict:
     out = dict(e2e=e2e_res, int8=int8_res, hf=hf_res,
                seconds=time.perf_counter() - t0)
     log(f"[entry] phase {out['seconds']:.1f} s")
+    return out
+
+
+TRAIN_TINY_STEPS = 200  # dense-phase steps of the tiny oracle's curriculum
+TRAIN_LOSS_MARGIN = 1.0  # nats the last 20 steps' mean loss must fall by
+TRAIN_LOSS_RTOL = 1e-5  # step 0 on the card against the CPU: the loss
+TRAIN_GRAD_RMS = 1e-4  # and each leaf's gradient (relative RMS)
+TRAIN_PARITY_CTX, TRAIN_PARITY_CHUNK = 96, 32
+BENCH_TRAIN_STEPS = 3
+BENCH_TRAIN_CTX, BENCH_TRAIN_BATCH = 2048, 2
+TEXT_MODEL = "tiny-llama-trained"  # the JAX archive's model name ("base")
+TEXT_CTX = 4096
+TEXT_BUCKET = 1024  # eval_acc's default prompt bucket
+TEXT_SHADOW = dict(sparse_budget=512, rank=64, chunk_size=8)  # the archive's
+TEXT_HIT_STEPS = 64  # greedy steps of the hit-rate run
+
+
+def _train_dir():
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                     "shadowkv_tpu_torch", "build", "train")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    return d
+
+
+def check_train_step_parity(torch) -> dict:
+    """Step 0 of the tiny trainer on the card against the same step on the
+    CPU at a 2-layer narrow config (hidden 128, 4 / 2 heads of 32, vocab
+    512, f32, N(0, 0.1) weights), ctx 96 at query chunks of 32: the loss
+    within TRAIN_LOSS_RTOL relative, every leaf's gradient within
+    TRAIN_GRAD_RMS relative RMS. A planted control runs the card's step
+    again with TF32 products (``set_float32_matmul_precision("high")``):
+    its largest gradient gap must exceed TRAIN_GRAD_RMS, else the bound
+    could not see the device rounding it is there for."""
+    import numpy as np
+
+    from shadowkv_tpu_torch.models.params import init_synthetic_params
+    from shadowkv_tpu_torch.models.registry import toy_config
+    from shadowkv_tpu_torch.tools import train_tiny_model as tt
+
+    cfg = toy_config(dtype=torch.float32)
+    rng = np.random.RandomState(SEED)
+    ids = rng.randint(0, cfg.vocab_size, (2, TRAIN_PARITY_CTX))
+    mask = rng.choice([0, 1, 1, 1, 2], (2, TRAIN_PARITY_CTX))
+    prec = torch.get_float32_matmul_precision()
+    got = {}
+    for run, dev in (("cpu", "cpu"), ("card", DEVICE), ("tf32", DEVICE)):
+        params = init_synthetic_params(
+            cfg, torch.Generator().manual_seed(SEED), scale=0.1,
+            device="cpu").to(dev)
+        tr = tt.tiny_trainer(cfg, params, 7e-4, 1500, TRAIN_PARITY_CTX,
+                             chunk=TRAIN_PARITY_CHUNK)
+        torch.set_float32_matmul_precision("high" if run == "tf32" else prec)
+        try:
+            loss, _, _, grads = tr.grads(ids, mask)
+        finally:
+            torch.set_float32_matmul_precision(prec)
+        got[run] = (float(loss), [g.cpu() for g in grads])
+    names = [n for n, _ in tt.named_leaves(params)]
+    l_cpu, g_cpu = got["cpu"]
+    res = dict(f32_matmul_precision=prec)
+    for run in ("card", "tf32"):
+        l_dev, g_dev = got[run]
+        rms = {n: _rel_rms(torch, a, b)
+               for n, a, b in zip(names, g_dev, g_cpu)}
+        res[run] = dict(loss_rel=abs(l_dev - l_cpu) / abs(l_cpu),
+                        grad_rel_rms_max=max(rms.values()),
+                        grad_rel_rms=rms)
+    log(f"[train parity] {json.dumps(res)}")
+    card, tf32 = res["card"], res["tf32"]
+    if card["loss_rel"] > TRAIN_LOSS_RTOL or (
+            card["grad_rel_rms_max"] > TRAIN_GRAD_RMS):
+        raise AssertionError(
+            f"train parity: the card's step 0 is off the CPU's beyond "
+            f"{TRAIN_LOSS_RTOL} / {TRAIN_GRAD_RMS}: {res}")
+    if tf32["grad_rel_rms_max"] <= TRAIN_GRAD_RMS:
+        raise AssertionError(
+            f"train parity: TF32 products read {tf32['grad_rel_rms_max']}, "
+            f"within the {TRAIN_GRAD_RMS} gradient bound: {res}")
+    return res
+
+
+def run_train_tiny(torch) -> tuple[dict, str]:
+    """``train-tiny``: the tokenizer and the initial checkpoint
+    (``tools/make_tiny_checkpoint.py``) in the gitignored build directory,
+    the card-against-CPU step check, then the first TRAIN_TINY_STEPS steps
+    of ``tools/train_tiny_model.py``'s curriculum at its defaults (dense
+    recall at ctx 256, batch 32, AdamW at lr 7e-4 over the 1500-step
+    schedule) on the full-width 6 x 1024 oracle; every loss finite, the
+    mean of the last 20 at least TRAIN_LOSS_MARGIN below the first 20's;
+    steps/s, peak GiB and the dense-recall probe. The trained weights are
+    written back for the text phase; returns (numbers, the checkpoint)."""
+    import numpy as np
+
+    from shadowkv_tpu_torch.models.params import save_hf_checkpoint
+    from shadowkv_tpu_torch.tools import train_tiny_model as tt
+    from shadowkv_tpu_torch.tools.make_tiny_checkpoint import (
+        build_tiny_checkpoint,
+    )
+
+    t0 = time.perf_counter()
+    tiny = build_tiny_checkpoint(os.path.join(_train_dir(), "tiny"))
+    res = dict(build_s=time.perf_counter() - t0,
+               parity=check_train_step_parity(torch))
+    tokenizer, cfg, params = tt.load_for_training(tiny, DEVICE)
+    tr = tt.tiny_trainer(cfg, params, 7e-4, 1500, 4096)
+    kind, ctx, batch, _ = tt.curriculum(1500, 4096, 2)[0]
+    rng = np.random.RandomState(SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, data_s = [], 0.0
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_TINY_STEPS):
+        t1 = time.perf_counter()
+        ids, mask = tt.make_samples_dense(tokenizer, batch, ctx,
+                                          seed=int(rng.randint(0, 2**31)))
+        data_s += time.perf_counter() - t1
+        losses.append(tr.step(ids, mask)[0])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = torch.stack(losses).cpu().numpy()
+    res.update(kind=kind, ctx=ctx, batch=batch, steps=TRAIN_TINY_STEPS,
+               wall_s=wall, steps_per_s=TRAIN_TINY_STEPS / wall,
+               data_s=data_s,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               loss_first20=float(losses[:20].mean()),
+               loss_last20=float(losses[-20:].mean()),
+               loss_every20=[float(x) for x in losses[::20]])
+    res["dense_acc"] = tt.retrieval_acc(tr, tokenizer, 16, ctx,
+                                        seed=7_000_000, kind=kind)
+    log(f"[train-tiny] {json.dumps(res)}")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"train-tiny: non-finite loss {losses}")
+    if res["loss_last20"] > res["loss_first20"] - TRAIN_LOSS_MARGIN:
+        raise AssertionError(
+            f"train-tiny: the loss fell from {res['loss_first20']:.4f} to "
+            f"{res['loss_last20']:.4f}, less than {TRAIN_LOSS_MARGIN}")
+    save_hf_checkpoint(params, cfg, tiny)
+    del tr, params
+    _release(torch)
+    return res, tiny
+
+
+def run_train_bench(torch, tokenizer) -> dict:
+    """``train-bench``: BENCH_TRAIN_STEPS Adafactor steps of
+    ``tools/train_bench_weights.py`` on the full-width 1.4B bf16 model
+    (16 layers, d 2048) at ctx 2048, batch 2, alternating dense recall and
+    the heterogeneous stream as the tool does; ms per step (each ending in
+    a synchronize), peak GiB, every loss finite."""
+    import numpy as np
+
+    from shadowkv_tpu_torch.models.params import init_synthetic_params
+    from shadowkv_tpu_torch.tools import train_bench_weights as tb
+    from shadowkv_tpu_torch.tools.train_tiny_model import make_samples_dense
+
+    cfg = tb.bench_model_config()
+    params = init_synthetic_params(
+        cfg, torch.Generator(device=DEVICE).manual_seed(SEED), device=DEVICE)
+    tr = tb.bench_trainer(cfg, params, 3e-4, 400, BENCH_TRAIN_CTX)
+    het = tb.build_prompt_stream(tokenizer, 8 * BENCH_TRAIN_CTX, SEED + 17)
+    rng = np.random.RandomState(SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses = [], []
+    for step in range(BENCH_TRAIN_STEPS):
+        if step % 2:
+            ids, mask = tb.het_batch(het, rng, BENCH_TRAIN_BATCH,
+                                     BENCH_TRAIN_CTX)
+        else:
+            ids, mask = make_samples_dense(tokenizer, BENCH_TRAIN_BATCH,
+                                           BENCH_TRAIN_CTX,
+                                           seed=int(rng.randint(0, 2**31)))
+        t0 = time.perf_counter()
+        loss, _, _ = tr.step(ids, mask)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    res = dict(params_b=sum(t.numel() for t in tr.leaves) / 1e9,
+               step_ms=step_ms, losses=losses,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    log(f"[train-bench] {json.dumps(res)}")
+    del tr, params
+    _release(torch)
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"train-bench: non-finite loss {losses}")
+    return res
+
+
+def run_text(torch, model_dir: str) -> dict:
+    """``text``: the train-tiny checkpoint and its tokenizer through
+    ``LLM(model_dir=...)`` on the card (bf16), one RULER niah_single_1
+    sample at TEXT_CTX built by ``data/dataset.py`` with the port's
+    template and eval_acc's prompt bucket, greedy ``generate`` with the eval harness's gen_len and stop
+    tokens: shadow at the archive's settings (fused refresh) and full.
+    Kernel launches counted around each ``generate`` (B once per layer;
+    under shadow A once per layer and decode step); the decoded string and
+    its score; then TEXT_HIT_STEPS greedy steps without stops on the shadow
+    LLM give the organic slot hit rate."""
+    from shadowkv_tpu_torch.data.dataset import Dataset
+    from shadowkv_tpu_torch.models.llm import LLM
+
+    counters = _counters()
+    res = {}
+    for mode in ("shadow", "full"):
+        kw = dict(TEXT_SHADOW, use_pallas=True, track_hit_rate=True) \
+            if mode == "shadow" else {}
+        llm = LLM(TEXT_MODEL, model_dir=model_dir,
+                  max_length=TEXT_CTX + 2048, attn_mode=mode, device=DEVICE,
+                  **kw)
+        if llm.tokenizer is None:
+            raise AssertionError("text: the checkpoint's tokenizer did not "
+                                 "load")
+        ds = Dataset("ruler/niah_single_1", llm.tokenizer, TEXT_CTX, 1,
+                     bucket=TEXT_BUCKET)
+        ids = ds.tokenized_prompts[0][None]
+        layers = llm.config.num_layers
+        _reset_counts(counters)
+        text = llm.generate(ids, gen_len=ds.gen_len)[0]
+        launches = _read_counts(counters)
+        steps = llm.stats.decode_tokens
+        want = dict(prefill_attention=layers)
+        if mode == "shadow":
+            want["sparse_refresh"] = layers * steps
+        _expect(f"text {mode}", launches, **want)
+        truth = ds.gt[0][0] if len(ds.gt[0]) == 1 else ds.gt[0]
+        r = dict(prompt_tokens=int(ids.shape[1]), text=text,
+                 truth=truth, score=ds.metric(text, truth),
+                 decode_steps=steps, launches=launches,
+                 prefill_s=llm.stats.prefill_seconds)
+        if mode == "shadow":
+            llm.engine.batch_generate(ids, gen_len=TEXT_HIT_STEPS,
+                                      temperature=0.0)
+            st = llm.engine.kv_stats()
+            r.update(hit_rate_mean=st.get("hit_rate_mean"),
+                     hit_samples=st.get("hit_samples"))
+        log(f"[text {mode}] {json.dumps(r)}")
+        if not isinstance(text, str) or not text.strip():
+            raise AssertionError(f"text {mode}: nothing decoded ({text!r})")
+        res[mode] = r
+        del llm
+        _release(torch)
+    return res
+
+
+def run_training_phases(torch) -> dict:
+    """train-tiny, train-bench and text, on the card."""
+    from transformers import AutoTokenizer
+
+    t0 = time.perf_counter()
+    tiny, tiny_dir = run_train_tiny(torch)
+    tokenizer = AutoTokenizer.from_pretrained(tiny_dir, local_files_only=True)
+    bench = run_train_bench(torch, tokenizer)
+    text = run_text(torch, tiny_dir)
+    shutil.rmtree(os.path.dirname(tiny_dir), ignore_errors=True)
+    out = dict(tiny=tiny, bench=bench, text=text,
+               seconds=time.perf_counter() - t0)
+    log(f"[training] phases {out['seconds']:.1f} s")
     return out
 
 
@@ -4183,6 +4443,7 @@ def main() -> int:
     shard = check_shard_kernels(torch, cfg, lay, link)
     par = run_parallel_phases(torch, cfg)
     entry_points = run_entry_points(torch, cfg, runs["shadow"])
+    training = run_training_phases(torch)
     # Each kernel's launches come from the run of the path that uses it.
     home = {"sparse_refresh": "shadow", "prefill_attention": "shadow",
             "sparse_refresh_host_v": "offload-fused",
@@ -4221,6 +4482,17 @@ def main() -> int:
         f" s (host V {c['load_s_offload']:.2f} s) against prefill_s "
         f"{c['prefill_s']:.2f}; HF load {h['load_s_none']:.2f} s "
         f"({h['load_gb_s_none']:.2f} GB/s); phase {entry_points['seconds']:.1f} s")
+    tt, tb, tx = training["tiny"], training["bench"], training["text"]
+    log(f"[summary] training: tiny oracle {tt['steps_per_s']:.3f} steps/s "
+        f"(dense ctx {tt['ctx']} x {tt['batch']}), peak {tt['peak_gib']:.2f} "
+        f"GiB, loss {tt['loss_first20']:.4f} -> {tt['loss_last20']:.4f}, "
+        f"card vs CPU loss {tt['parity']['card']['loss_rel']:.2e} grads "
+        f"{tt['parity']['card']['grad_rel_rms_max']:.2e} (TF32 control "
+        f"{tt['parity']['tf32']['grad_rel_rms_max']:.2e}); bench 1.4B step ms "
+        f"{[round(x, 1) for x in tb['step_ms']]}, peak {tb['peak_gib']:.2f} "
+        f"GiB; text shadow {tx['shadow']['text']!r} (hit rate "
+        f"{tx['shadow']['hit_rate_mean']}), full {tx['full']['text']!r}, "
+        f"truth {tx['full']['truth']!r}; phases {training['seconds']:.1f} s")
     log("[summary] C, F, G at the tp=2 head slice (B 2, S "
         f"{GLOO_PROMPT}): " + ", ".join(
             f"{k} {ms:.4f} ms against bound {b_ms:.4f} ({by})"

@@ -95,15 +95,23 @@ def _layer_tail(lp: LayerParams, model: ModelConfig, x, ctx, tp=None):
     return x + m
 
 
-def _finalize(model: ModelConfig, params: ModelParams, x,
-              tp=None) -> torch.Tensor:
-    """Last-position logits [B, 1, V] in f32 (the product is taken in the
-    model dtype: on bf16 models the logits carry one bf16 rounding, where
-    JAX asks XLA for an f32 product; an int8 lm_head's scale multiplies in
-    f32). Under ``tp`` the lm_head holds a vocabulary slice and the slices
-    are all-gathered."""
-    x = rms_norm(x[:, -1:], params.final_norm, model.rms_norm_eps)
-    logits = wquant.mat(x, params.lm_head, out_dtype=torch.float32)
+def _finalize(model: ModelConfig, params: ModelParams, x, tp=None,
+              last_only: bool = True) -> torch.Tensor:
+    """Logits in f32: of the last position [B, 1, V] (inference), or of
+    every position [B, S, V] with ``last_only=False`` (the trainers).
+
+    For the last position the product is taken in the model dtype: on bf16
+    models the logits carry one bf16 rounding, where JAX asks XLA for an
+    f32 product; an int8 lm_head's scale multiplies in f32. Every-position
+    logits are an f32 product of the model-dtype operands, as JAX's
+    ``preferred_element_type=f32``, of a plain lm_head. Under ``tp`` the
+    lm_head holds a vocabulary slice and the slices are all-gathered."""
+    x = rms_norm(x[:, -1:] if last_only else x, params.final_norm,
+                 model.rms_norm_eps)
+    if last_only:
+        logits = wquant.mat(x, params.lm_head, out_dtype=torch.float32)
+    else:
+        logits = x.float() @ params.lm_head.float()
     if tp is not None:
         logits = mesh_lib.all_gather(logits, tp, dim=-1)
     return logits

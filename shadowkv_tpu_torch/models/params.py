@@ -7,8 +7,10 @@ patterns under a ``.bf16`` suffix (np.savez has no bfloat16).
 
 HF checkpoints are read by this module's own safetensors reader
 (``SafetensorsFile``: a little-endian u64 header size, a JSON header, raw
-little-endian bytes, mapped and viewed by ``torch.frombuffer``), so
-loading needs neither the ``safetensors`` package nor ``ml_dtypes``.
+little-endian bytes, mapped and viewed by ``torch.frombuffer``) and written
+by its own writer (``write_safetensors``; ``save_hf_checkpoint`` is the
+inverse of ``load_hf_params`` for a llama), so neither needs the
+``safetensors`` package nor ``ml_dtypes``.
 """
 
 from __future__ import annotations
@@ -179,6 +181,91 @@ def from_jax_params(np_tree, device=None) -> ModelParams:
 
 _ST_DTYPES = {"BF16": torch.bfloat16, "F16": torch.float16,
               "F32": torch.float32}
+_ST_NAMES = {v: k for k, v in _ST_DTYPES.items()}
+
+
+def write_safetensors(path: str, tensors: dict) -> int:
+    """Write a ``.safetensors`` file of bf16, f16 or f32 tensors on any
+    device (a JSON header padded with spaces to 8 bytes, then the raw
+    little-endian bytes in the dict's order); returns its size."""
+    header, offset, blobs = {}, 0, []
+    for name, t in tensors.items():
+        t = t.detach().contiguous().cpu()
+        st = _ST_NAMES.get(t.dtype)
+        if st is None:
+            raise ValueError(f"{name}: {t.dtype} is not one of "
+                             f"{sorted(map(str, _ST_NAMES))}")
+        a = (t.view(torch.int16) if t.element_size() == 2 else t).numpy()
+        header[name] = {"dtype": st, "shape": list(t.shape),
+                        "data_offsets": [offset, offset + a.nbytes]}
+        offset += a.nbytes
+        blobs.append(a)
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(len(head).to_bytes(8, "little"))
+        f.write(head)
+        for a in blobs:
+            f.write(a.data)
+    return 8 + len(head) + offset
+
+
+def save_hf_checkpoint(params: ModelParams, cfg: ModelConfig,
+                       out_dir: str) -> None:
+    """Write a llama ``ModelParams`` as an HF checkpoint in ``out_dir``:
+    ``model.safetensors`` in f32 under the names ``load_hf_params`` reads
+    (the fused ``wqkv`` / ``w_gate_up`` split back into q/k/v and gate/up,
+    each [in, out] leaf transposed to HF's [out, in]) and ``config.json``.
+    The inverse of ``load_hf_params`` (JAX ``scripts/train_tiny_model.py``
+    ``save_hf_checkpoint``) for plain (not int8) weights."""
+    if cfg.qkv_bias or cfg.rope_style != "neox":
+        raise ValueError("save_hf_checkpoint writes llama checkpoints only")
+    qd, kd = cfg.q_size, cfg.kv_size
+
+    def t(x):  # [in, out] -> HF [out, in]
+        return x.detach().float().t()
+
+    def v1(x):
+        return x.detach().float()
+
+    sd = {"model.embed_tokens.weight": v1(params.embed),
+          "model.norm.weight": v1(params.final_norm),
+          "lm_head.weight": t(params.lm_head)}
+    for i in range(cfg.num_layers):
+        lp = params.layer(i)
+        p = f"model.layers.{i}."
+        ii = lp.w_gate_up.shape[-1] // 2
+        sd.update({
+            p + "self_attn.q_proj.weight": t(lp.wqkv[:, :qd]),
+            p + "self_attn.k_proj.weight": t(lp.wqkv[:, qd:qd + kd]),
+            p + "self_attn.v_proj.weight": t(lp.wqkv[:, qd + kd:]),
+            p + "self_attn.o_proj.weight": t(lp.wo),
+            p + "mlp.gate_proj.weight": t(lp.w_gate_up[:, :ii]),
+            p + "mlp.up_proj.weight": t(lp.w_gate_up[:, ii:]),
+            p + "mlp.down_proj.weight": t(lp.w_down),
+            p + "input_layernorm.weight": v1(lp.attn_norm),
+            p + "post_attention_layernorm.weight": v1(lp.mlp_norm),
+        })
+    os.makedirs(out_dir, exist_ok=True)
+    write_safetensors(os.path.join(out_dir, "model.safetensors"), sd)
+    with open(os.path.join(out_dir, "config.json"), "w") as f:
+        json.dump({
+            "architectures": ["LlamaForCausalLM"], "model_type": "llama",
+            "hidden_size": cfg.hidden_size,
+            "intermediate_size": cfg.intermediate_size,
+            "num_hidden_layers": cfg.num_layers,
+            "num_attention_heads": cfg.num_heads,
+            "num_key_value_heads": cfg.num_kv_heads,
+            "head_dim": cfg.head_dim,
+            "vocab_size": cfg.vocab_size,
+            "max_position_embeddings": cfg.max_position_embeddings,
+            "rope_theta": cfg.rope_theta,
+            "rope_scaling": cfg.rope_scaling_dict,
+            "rms_norm_eps": cfg.rms_norm_eps,
+            "tie_word_embeddings": cfg.tie_word_embeddings,
+            "attention_bias": False, "mlp_bias": False, "hidden_act": "silu",
+            "torch_dtype": "float32",
+        }, f, indent=2)
 
 
 class SafetensorsFile:
@@ -312,14 +399,20 @@ def load_hf_params(
     embed = t("model.embed_tokens.weight")
     tied = cfg.tie_word_embeddings or not has("lm_head.weight")
     lm_head = embed.T if tied else t("lm_head.weight").T
-    embed_d = final(embed, True, reduce_axis=-1).to(device)
+    def place(w):
+        # A copy: an f32 leaf kept on the CPU would otherwise view the file's
+        # mapping, which rewriting the checkpoint pulls away.
+        return w.to(device) if isinstance(w, QTensor) else w.to(device,
+                                                                 copy=True)
+
+    embed_d = place(final(embed, True, reduce_axis=-1))
     if tied and not q8:
         lm_head_d = embed_d.t()  # one table, as init_synthetic_params
     else:
-        lm_head_d = final(lm_head.contiguous(), True).to(device)
+        lm_head_d = place(final(lm_head.contiguous(), True))
     return ModelParams(
         embed=embed_d,
         layers=LayerParams(**stacked),
-        final_norm=final(t("model.norm.weight")).to(device),
+        final_norm=place(final(t("model.norm.weight"))),
         lm_head=lm_head_d,
     )

@@ -13,6 +13,9 @@ stores, or the full-attention baseline) with one of its decode paths:
   (attention sink + window, kernel C; MInference vertical + slash through
   kernel F or the block walk, kernel G; the JAX defaults);
 
+- ``offload-host``: the V store in bf16 pinned in host memory and
+  neither decode kernel (JAX's HostVStore path: ``gather_v_rows``);
+
 then traces with ``torch.profiler`` (CPU + CUDA activities):
 
 - the whole prefill;
@@ -31,6 +34,23 @@ most device time, with the device time of the port's own kernels (A, B,
 C, D, F, G) summed apart. The full tables go to
 ``<out-dir>/profile_<mode>_<window>.txt``.
 
+Last, ``batch_generate`` of 128 greedy tokens from a new prefill
+(the graph-replayed loop chip_smoke times) gives one JSON line with decode
+tok/s, ``prefill_s``, the number of distinct tokens in each row's output
+and, on the shadow paths, the organic slot hit rate that the engine
+samples (``track_hit_rate``), which follows the decoded stream.
+
+``--weights DIR`` runs the bench-shape 1.4B model (``sbench-1.4b-llama``,
+``tools/train_bench_weights.py``) on ``DIR/params.npz`` (trained by that
+tool, or synthetic from ``tools/gen_bench_npz.py``) with its prompt rows
+from ``--prompt-ids`` (default ``DIR/prompt.npy``, the prompt stream the
+weights were trained beside; random ids without one), as the JAX
+``bench.py`` reads ``BENCH_WEIGHTS``. Where that bench repeats the
+stream's first ``--prompt`` tokens in every row, here row r starts r
+strides into the stream (the strides spread the rows' windows from its
+start to its end), so the batch's rates come from ``--batch`` sequences.
+``--generate-only`` skips the profiled windows (long prompts).
+
 ``--mode serve`` profiles one serve-plain run of ``chip_smoke.py`` instead
 (``ContinuousBatcher``, 2 slots, 4 requests, gen lengths 32-64, decode
 chunks of 16 replays, fused refresh; ``serve-offload`` the same with V
@@ -42,12 +62,15 @@ the decode chunks.
 
     python -m shadowkv_tpu_torch.tools.profile_slice --mode offload-fused
     python -m shadowkv_tpu_torch.tools.profile_slice --mode serve
+    python -m shadowkv_tpu_torch.tools.profile_slice --mode shadow \
+        --weights checkpoints/bench1p4b
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 from pathlib import Path
 
@@ -58,7 +81,10 @@ from torch.profiler import ProfilerActivity, profile, record_function
 from shadowkv_tpu_torch.config import CacheConfig, RuntimeConfig
 from shadowkv_tpu_torch.core.sampling import sample_token
 from shadowkv_tpu_torch.models.engine import Engine
-from shadowkv_tpu_torch.models.params import init_synthetic_params
+from shadowkv_tpu_torch.models.params import (
+    init_synthetic_params,
+    load_params_npz,
+)
 from shadowkv_tpu_torch.models.registry import llama31_8b
 from shadowkv_tpu_torch.utils.profiling import busy_seconds, top_kernels
 
@@ -69,6 +95,7 @@ MODES = {
     "ring": ("shadow", dict(ring_gather=True)),
     "offload-fused": ("shadow_offload", dict(use_pallas=True)),
     "offload-ring": ("shadow_offload", dict(ring_gather=True)),
+    "offload-host": ("shadow_offload", dict()),
     "full": ("full", dict()),
     "stream": ("shadow", dict(use_pallas=True, prefill_pattern="stream")),
     "vs": ("shadow", dict(use_pallas=True, prefill_pattern="vs")),
@@ -78,7 +105,10 @@ MODES = {
     "serve-offload": ("shadow_offload",
                       dict(use_pallas=True, prefill_sub_batch=1)),
 }
+# modes whose V store is bf16 (the HostVStore path takes no int8 store)
+BF16_STORE = {"offload-host"}
 SERVE_STEPS = 64  # the serve stream's longest gen length
+GEN_STEPS = 128  # the closing batch_generate (a hit-rate pair per 16 steps)
 SERVE_CHUNK = 16  # decode steps per host sync
 
 
@@ -165,6 +195,7 @@ def profile_serve(eng, args, meta: dict) -> None:
 # the port's kernels, by fragments of their demangled or mangled names
 # (B and C are one kernel: B in the dense prefill, C in the stream one)
 KERNELS = {("RefreshArgs",): "A refresh", ("GatherArgs",): "D gather",
+           ("VRowsArgs",): "gather_v_rows",
            ("prefill_attention_kernel",): "B/C prefill",
            ("vs_tile_kernel",): "F vs tile", ("vs_sparse_kernel",): "G vs walk"}
 
@@ -208,28 +239,78 @@ def main() -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out-dir", type=Path, default=Path("profile_out"),
                     help="where the full profiler tables are written")
+    ap.add_argument("--weights", default=None,
+                    help="a bench-shape params.npz directory (trained or "
+                         "synthetic) in place of the 8B synthetic weights")
+    ap.add_argument("--prompt-ids", default=None,
+                    help="a token stream (.npy) whose --prompt-token "
+                         "windows, spread from its start to its end, are "
+                         "the rows (default: the weights directory's "
+                         "prompt.npy)")
+    ap.add_argument("--generate-only", action="store_true", default=False)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice needs a CUDA device")
 
-    cfg = llama31_8b("meta-llama/Llama-3.1-8B-Instruct", dtype=torch.bfloat16)
-    params = init_synthetic_params(
-        cfg, torch.Generator(device="cuda").manual_seed(args.seed),
-        device="cuda")
+    if args.weights:
+        from shadowkv_tpu_torch.tools.train_bench_weights import (
+            bench_model_config,
+        )
+
+        cfg = bench_model_config()
+        params = load_params_npz(os.path.join(args.weights, "params.npz"),
+                                 device="cuda")
+    else:
+        cfg = llama31_8b("meta-llama/Llama-3.1-8B-Instruct",
+                         dtype=torch.bfloat16)
+        params = init_synthetic_params(
+            cfg, torch.Generator(device="cuda").manual_seed(args.seed),
+            device="cuda")
     mode, rt_kw = MODES[args.mode]
     cc = CacheConfig(mode=mode, max_length=args.prompt + 256,
                      sparse_budget=2048, rank=160, chunk_size=16,
-                     kv_quant="int8", gen_capacity=256)
-    rt = RuntimeConfig(**{"prefill_pattern": "dense-splash", **rt_kw})
+                     kv_quant="none" if args.mode in BF16_STORE else "int8",
+                     gen_capacity=256)
+    rt = RuntimeConfig(**{"prefill_pattern": "dense-splash",
+                          "track_hit_rate": mode != "full", **rt_kw})
     eng = Engine(cfg, cc, rt, params, device="cuda")
-    ids = np.random.RandomState(args.seed).randint(
-        1, cfg.vocab_size, (args.batch, args.prompt))
+    ppath = args.prompt_ids or (
+        os.path.join(args.weights, "prompt.npy") if args.weights else None)
+    if ppath and os.path.exists(ppath):
+        stream = np.load(ppath)
+        if stream.shape[0] < args.prompt:
+            raise SystemExit(f"{ppath} holds {stream.shape[0]} tokens, "
+                             f"fewer than --prompt {args.prompt}")
+        stride = (stream.shape[0] - args.prompt) // max(args.batch - 1, 1)
+        ids = np.stack([stream[r * stride:r * stride + args.prompt]
+                        for r in range(args.batch)])
+    else:
+        ppath = None
+        ids = np.random.RandomState(args.seed).randint(
+            1, cfg.vocab_size, (args.batch, args.prompt))
     meta = {"mode": args.mode, "prompt": args.prompt, "batch": args.batch,
+            "model": cfg.name, "weights": args.weights, "prompt_ids": ppath,
             "device": torch.cuda.get_device_name(0)}
     if args.mode.startswith("serve"):
         profile_serve(eng, args, meta)
         return
+    if not args.generate_only:
+        profile_windows(eng, ids, args, meta)
+    toks, st = eng.batch_generate(ids, gen_len=GEN_STEPS, temperature=0.0)
+    kv = eng.kv_stats()
+    print(json.dumps({
+        "window": f"{args.mode}_generate", "decode_tok_s":
+        st.decode_tokens_per_second, "prefill_s": st.prefill_seconds,
+        "gen": GEN_STEPS, "hit_rate_mean": kv.get("hit_rate_mean"),
+        "hit_rate_ema": kv.get("hit_rate_ema"),
+        "hit_samples": kv.get("hit_samples"),
+        "distinct_tokens": [len(set(row.tolist())) for row in toks],
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30, **meta,
+    }), flush=True)
 
+
+def profile_windows(eng, ids, args, meta: dict) -> None:
+    """The profiled prefill, eager decode and graph decode windows."""
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with profile(activities=acts) as prof:

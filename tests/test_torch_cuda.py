@@ -27,7 +27,7 @@ for bit. C, F and G at a tp=2 rank's head slice (Llama's 16 query / 4 KV
 heads) match their plain versions per row and give bit for bit the head
 slice of the same kernel over all heads. A tp-shaped cache saved on the
 card loads on the CPU bit-equal, whole and as each tp rank's head
-slice."""
+slice. A training step of the tiny trainer on the card equals the CPU's."""
 
 from __future__ import annotations
 
@@ -839,3 +839,46 @@ def test_tp_shaped_checkpoint_saved_on_card_loads_on_cpu(gen, tmp_path):
         else:
             joined = getattr(parts[1], name)
         assert torch.equal(joined, b), name
+
+
+def test_training_step_card_equals_cpu(gen):
+    """The tiny trainer (``tools/train_tiny_model.py``) at a 2-layer f32
+    config, ctx 96 at query chunks of 32, from the same weights on the card
+    and on the CPU: step 0's loss within 1e-5 relative and each leaf's
+    gradient within 1e-4 relative RMS (with TF32 products the largest leaf
+    reads 1.9e-3 off, ``chip_smoke.check_train_step_parity``'s control);
+    after two AdamW steps (the first at learning rate 0) each leaf's
+    change within 1e-3 relative RMS of the CPU's (Adam's first update is
+    ~sign(g), so an element with a near-zero gradient may flip)."""
+    import numpy as np
+
+    from shadowkv_tpu_torch.models.params import init_synthetic_params
+    from shadowkv_tpu_torch.models.registry import toy_config
+    from shadowkv_tpu_torch.tools import train_tiny_model as tt
+
+    cfg = toy_config(dtype=torch.float32)
+    rng = np.random.RandomState(0)
+    ids = rng.randint(0, cfg.vocab_size, (2, 96))
+    mask = rng.choice([0, 1, 1, 1, 2], (2, 96))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = init_synthetic_params(cfg, torch.Generator().manual_seed(0),
+                                       scale=0.1, device="cpu").to(dev)
+        before = [t.detach().cpu().clone() for _, t in tt.named_leaves(params)]
+        tr = tt.tiny_trainer(cfg, params, 1e-3, 10, 96, chunk=32)
+        loss, _, _, grads = tr.grads(ids, mask)
+        tr.opt.step(grads)
+        tr.step(ids, mask)
+        moved = [t.detach().cpu() - b
+                 for (_, t), b in zip(tt.named_leaves(params), before)]
+        out[dev] = (float(loss), [g.cpu() for g in grads], moved)
+
+    def rel_rms(a, b):
+        return float((a - b).norm() / b.norm())
+
+    (l_c, g_c, m_c), (l_d, g_d, m_d) = out["cpu"], out["cuda"]
+    assert abs(l_d - l_c) <= 1e-5 * abs(l_c)
+    for a, b in zip(g_d, g_c):
+        assert rel_rms(a, b) <= 1e-4
+    for a, b in zip(m_d, m_c):
+        assert b.norm() > 0 and rel_rms(a, b) <= 1e-3

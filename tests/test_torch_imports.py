@@ -1,5 +1,5 @@
-"""The PyTorch port stands alone: no JAX, no flax, nothing of the JAX
-package, and no ``transformers``, ``safetensors`` or ``ml_dtypes`` at module
+"""The PyTorch port stands alone: no JAX, no flax, no optax, nothing of the
+JAX package or of the JAX repo's ``scripts/``, and no ``transformers``, ``safetensors`` or ``ml_dtypes`` at module
 level (the port needs none of them: only a tokenizer load imports
 ``transformers``); and it never falls back from a requested CUDA device to
 the CPU."""
@@ -19,7 +19,7 @@ from shadowkv_tpu_torch.models.params import init_synthetic_params
 from shadowkv_tpu_torch.models.registry import toy_config
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "flax", "shadowkv_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "shadowkv_tpu", "optax", "scripts"}
 # Importable only inside the function that needs them (the tokenizer).
 NOT_AT_MODULE_LEVEL = {"transformers", "safetensors", "ml_dtypes",
                        "tokenizers"}
