@@ -1885,7 +1885,8 @@ def check_serve_run(torch, eng, reqs, label: str, offload: bool,
         "admissions": st.admissions == len(reqs) - BATCH,
         "completed_tokens": st.completed_tokens == sum(r.gen_len for r in reqs),
         "launches": launches == want,
-        "one capture": steps.captures == 1 and len(steps._graphs) == 1,
+        # one path, captured plain and as its marked twin
+        "one capture": steps.captures == 2 and len(steps._graphs) == 1,
         "depth vector": gen_len is steps.position
         and tuple(gen_len.shape) == (BATCH,),
     }

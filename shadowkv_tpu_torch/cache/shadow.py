@@ -61,6 +61,7 @@ from shadowkv_tpu_torch.core.selection import (
 )
 from shadowkv_tpu_torch.kernels.gather import gather_chunks, gather_v_rows
 from shadowkv_tpu_torch.kernels.reconstruct import sparse_refresh
+from shadowkv_tpu_torch.utils import profiling as prof
 
 
 @dataclasses.dataclass(frozen=True)
@@ -334,53 +335,60 @@ def shadow_decode_layer(
       ``where(stay, old, new)``. Only the sparse region is written. With V
       in host memory (bf16 stores) only the missed chunks' V rows are
       read.
+
+    Under a profiler the selection and the refresh (the new rows' append
+    and the ids' write included) are the phases ``select`` and
+    ``refresh`` (``utils/profiling.py``).
     """
     lo = cache.layout
     b, qn, kh, dh = k_new.shape
-    q_grouped = q.transpose(1, 2).reshape(b, kh, model.num_groups, qn, dh)
-    prev_ids = cache.cached_ids[layer]
-    new_ids = score_and_select(
-        q_grouped, cache.landmarks[layer], cache.landmark_mask[layer],
-        lo.select_sets,
-        landmark_scale=None if cache.lm_scale is None else cache.lm_scale[layer],
-        resident_ids=prev_ids if hysteresis else None,
-        hysteresis=hysteresis,
-    )
-    if debug_hit_rate is not None:
-        # The real scores above are computed and discarded, so the step
-        # pays the selection's cost as a real one does.
-        new_ids = forced_ids(lo, cache.gen_len, debug_hit_rate,
-                             debug_hit_layout, q.device).expand_as(new_ids)
-    asg = assign_slots_stable(prev_ids, new_ids)
-    if use_kernel:
-        mc, ms, cnt = compact_misses(asg.slot_ids, asg.stay_mask)
-        sparse_refresh(
-            layer, mc, ms, cnt, cache.u, cache.sv, cache.v_full,
-            inv_freq_full, cache.k_buf, cache.v_buf,
-            chunk_size=lo.chunk_size, sparse_start=lo.sparse_start,
-            rope_dim=model.rope_dim, rope_style=model.rope_style,
-            u_scale=cache.u_scale, v_scale=cache.v_scale,
+    with prof.span(prof.SELECT, q.device):
+        q_grouped = q.transpose(1, 2).reshape(b, kh, model.num_groups, qn, dh)
+        prev_ids = cache.cached_ids[layer]
+        new_ids = score_and_select(
+            q_grouped, cache.landmarks[layer], cache.landmark_mask[layer],
+            lo.select_sets,
+            landmark_scale=(None if cache.lm_scale is None
+                            else cache.lm_scale[layer]),
+            resident_ids=prev_ids if hysteresis else None,
+            hysteresis=hysteresis,
         )
-    else:
-        k_rows, v_rows = _gather_rebuild(
-            model, cache, layer, asg.slot_ids, ring, cos_table, sin_table,
-            inv_freq_full, asg.stay_mask,
-        )
-        stay = asg.stay_mask[..., None, None]  # [B, K, S, 1, 1]
-        for buf, new in ((cache.k_buf, k_rows), (cache.v_buf, v_rows)):
-            region = buf[layer, :, :, lo.sparse_start:lo.sparse_end].view(
-                b, kh, lo.select_sets, lo.chunk_size, dh)
-            region.copy_(torch.where(stay, region, new))
-    # The new tokens' rows, from the device counter (no host read).
-    row = lo.sparse_end + cache.gen_len
-    if row.dim() == 0:
-        rows = row.long() + torch.arange(qn, device=row.device)
-        cache.k_buf[layer].index_copy_(2, rows, k_new.transpose(1, 2))
-        cache.v_buf[layer].index_copy_(2, rows, v_new.transpose(1, 2))
-    else:
-        _append_gen_rows(cache.k_buf[layer], k_new.transpose(1, 2), row)
-        _append_gen_rows(cache.v_buf[layer], v_new.transpose(1, 2), row)
-    cache.cached_ids[layer] = asg.slot_ids
+        if debug_hit_rate is not None:
+            # The real scores above are computed and discarded, so the step
+            # pays the selection's cost as a real one does.
+            new_ids = forced_ids(lo, cache.gen_len, debug_hit_rate,
+                                 debug_hit_layout, q.device).expand_as(new_ids)
+        asg = assign_slots_stable(prev_ids, new_ids)
+    with prof.span(prof.REFRESH, q.device):
+        if use_kernel:
+            mc, ms, cnt = compact_misses(asg.slot_ids, asg.stay_mask)
+            sparse_refresh(
+                layer, mc, ms, cnt, cache.u, cache.sv, cache.v_full,
+                inv_freq_full, cache.k_buf, cache.v_buf,
+                chunk_size=lo.chunk_size, sparse_start=lo.sparse_start,
+                rope_dim=model.rope_dim, rope_style=model.rope_style,
+                u_scale=cache.u_scale, v_scale=cache.v_scale,
+            )
+        else:
+            k_rows, v_rows = _gather_rebuild(
+                model, cache, layer, asg.slot_ids, ring, cos_table, sin_table,
+                inv_freq_full, asg.stay_mask,
+            )
+            stay = asg.stay_mask[..., None, None]  # [B, K, S, 1, 1]
+            for buf, new in ((cache.k_buf, k_rows), (cache.v_buf, v_rows)):
+                region = buf[layer, :, :, lo.sparse_start:lo.sparse_end].view(
+                    b, kh, lo.select_sets, lo.chunk_size, dh)
+                region.copy_(torch.where(stay, region, new))
+        # The new tokens' rows, from the device counter (no host read).
+        row = lo.sparse_end + cache.gen_len
+        if row.dim() == 0:
+            rows = row.long() + torch.arange(qn, device=row.device)
+            cache.k_buf[layer].index_copy_(2, rows, k_new.transpose(1, 2))
+            cache.v_buf[layer].index_copy_(2, rows, v_new.transpose(1, 2))
+        else:
+            _append_gen_rows(cache.k_buf[layer], k_new.transpose(1, 2), row)
+            _append_gen_rows(cache.v_buf[layer], v_new.transpose(1, 2), row)
+        cache.cached_ids[layer] = asg.slot_ids
     k_l, v_l = cache.k_buf[layer], cache.v_buf[layer]
     if segmented and not use_kernel:
         ss, se = lo.sparse_start, lo.sparse_end

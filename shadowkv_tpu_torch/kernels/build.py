@@ -10,7 +10,8 @@ rebuilds and an unchanged one is reused. The library is linked without
 ``-lcuda``: the one driver entry point it needs (``cuTensorMapEncodeTiled``,
 for the attention kernels' TMA maps) is fetched through the runtime.
 ``-Xptxas -v`` output (registers, shared memory, spills per kernel) is kept
-beside it in ``nvcc.log``.
+beside it in ``nvcc.log``. Under a profiler the build is the host span
+``skv.kernels.build``.
 
 Nothing here runs at import time: the first kernel launch builds.
 """
@@ -27,11 +28,13 @@ from pathlib import Path
 
 import torch
 
+from shadowkv_tpu_torch.utils import profiling
+
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
 SOURCES = ("refresh.cu", "prefill_attention.cu", "gather.cu", "vs_tile.cu",
-           "vs_sparse.cu")
+           "vs_sparse.cu", "spans.cu")
 # included by the attention kernels (B, C, F, G)
 HEADERS = ("flash_sm90.cuh",)
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -61,6 +64,8 @@ _SIGNATURES = {
     "shadowkv_vs_tile_attention": (
         [_P] * 9 + [_I] * 7 + [ctypes.c_float, _P], _I
     ),
+    "shadowkv_span": ([_I, _P], _I),
+    "shadowkv_graph_upload": ([_P, _P], _I),
 }
 
 _lib = None  # the loaded library; one per process
@@ -95,7 +100,8 @@ def build() -> Path:
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+    with profiling.span(profiling.KERNELS_BUILD), \
+            tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         procs = []
         for name in SOURCES:
             obj = Path(tmp) / (Path(name).stem + ".o")

@@ -72,6 +72,13 @@ the whole cache at its global shape whatever mesh wrote it, and loads on
 any mesh or one device (``utils/checkpoint.py``). A shared-prefix snapshot
 stays on the dp shard that took it; a restore into another shard's slot
 sends it there, one tensor at a time (``_move_slot``).
+
+Under a profiler the engine names its host work (``utils/profiling.py``):
+``skv.prefill`` around a prefill and ``skv.prefill.batch`` around each
+sub-batch; ``skv.decode.step`` around each decode step of every loop
+(``decode_step``, ``decode_chunk``, ``generate``, ``batch_generate``),
+``skv.decode.eager`` around an eager step; a step's device phases end at
+the ``end`` marker, after its token is recorded.
 """
 
 from __future__ import annotations
@@ -94,6 +101,7 @@ from shadowkv_tpu_torch.models.graphs import StepGraphs
 from shadowkv_tpu_torch.parallel import mesh as mesh_lib
 from shadowkv_tpu_torch.parallel import pipeline
 from shadowkv_tpu_torch.utils import checkpoint
+from shadowkv_tpu_torch.utils import profiling as prof
 
 
 @dataclasses.dataclass
@@ -295,6 +303,12 @@ class Engine:
     def prefill(self, input_ids) -> tuple[torch.Tensor, object]:
         """Prefill in sub-batches; returns (last-token logits [B, 1, V] f32,
         cache)."""
+        with prof.span(prof.PREFILL):
+            logits, cache = self._prefill(input_ids)
+            prof.mark(prof.END, self.device)
+        return logits, cache
+
+    def _prefill(self, input_ids) -> tuple[torch.Tensor, object]:
         input_ids = torch.as_tensor(
             np.asarray(input_ids), dtype=torch.long
         ).to(self.device)
@@ -337,19 +351,21 @@ class Engine:
                     self.sin_table, mesh, self.sketch))
             else:
                 for b0 in range(0, input_ids.shape[0], t):
-                    parts.append(forward.prefill_shadow_into(
-                        model, self.params, cache, input_ids[b0:b0 + t],
-                        self.cos_table, self.sin_table, b0, self.sketch, rt,
-                        self.tp, self._sim(b, t, row0 + b0),
-                    ))
+                    with prof.span(prof.PREFILL_BATCH):
+                        parts.append(forward.prefill_shadow_into(
+                            model, self.params, cache, input_ids[b0:b0 + t],
+                            self.cos_table, self.sin_table, b0, self.sketch,
+                            rt, self.tp, self._sim(b, t, row0 + b0),
+                        ))
         else:
             cache = FullCache.init(model, self.cache_cfg, b_dec, self.device)
             for b0 in range(0, b_dec, t):
-                parts.append(forward.prefill_full(
-                    model, self.params, cache, input_ids[b0:b0 + t],
-                    self.cos_table, self.sin_table, b0, rt, self.tp,
-                    self._sim(b, t, row0 + b0),
-                ))
+                with prof.span(prof.PREFILL_BATCH):
+                    parts.append(forward.prefill_full(
+                        model, self.params, cache, input_ids[b0:b0 + t],
+                        self.cos_table, self.sin_table, b0, rt, self.tp,
+                        self._sim(b, t, row0 + b0),
+                    ))
         self._cache = cache
         if self.is_shadow:
             depth, limit = 0, self.cache_cfg.gen_capacity
@@ -368,7 +384,8 @@ class Engine:
         its own count."""
         if cache is self._cache:
             self._steps.take(tokens.shape[1])
-        return self._forward_step(cache, tokens)
+        with prof.span(prof.DECODE_EAGER):
+            return self._forward_step(cache, tokens)
 
     def _forward_step(self, cache, tokens: torch.Tensor) -> torch.Tensor:
         """The decode forward of one step (this rank's rows), which the
@@ -413,6 +430,7 @@ class Engine:
         def body():
             logits = self._forward_step(steps.cache, steps.tok[:, None])[:, -1]
             steps.record(sample_token(logits, gen, *sample_args, rows=rows))
+            prof.mark(prof.END, logits.device)
             return logits
 
         logits = steps.step(key, body, gen if sampled else None)
@@ -553,7 +571,8 @@ class Engine:
         n = gen_len - 1
         t0 = time.perf_counter()
         for i in range(gen_len - 1):
-            self._step(steps, sample_args, gen)
+            with prof.span(prof.DECODE_STEP):
+                self._step(steps, sample_args, gen)
             if stop_ids and b == 1 and int(steps.tok[0]) in stop_ids:
                 n = i + 1
                 break
@@ -588,7 +607,8 @@ class Engine:
         multi = s - s % chunk if chunk > 1 else 0
         logits = None
         for t in range(0, multi, chunk):
-            logits = self._decode(cache, prompt[:, t:t + chunk])
+            with prof.span(prof.DECODE_STEP):
+                logits = self._decode(cache, prompt[:, t:t + chunk])
         rest = prompt[:, multi:]
         if rest.shape[1] == 0:
             head = sample_token(logits[:, -1], gen, *sample_args,
@@ -598,7 +618,8 @@ class Engine:
         forced = rest[:, 1:].T
         steps.begin(rest[:, 0], forced, torch.ones_like(forced, dtype=torch.bool))
         for _ in range(rest.shape[1]):
-            self._step(steps, sample_args, gen)
+            with prof.span(prof.DECODE_STEP):
+                self._step(steps, sample_args, gen)
         return steps, steps.hist[rest.shape[1] - 1], rest.shape[1]
 
     def batch_generate(
@@ -635,13 +656,15 @@ class Engine:
         for i in range(warmup_steps):
             if self.pallas_auto and warmup_steps >= 2:
                 self._kernel_now = i % 2 == 1
-            self._step(steps, sample_args, gen)
+            with prof.span(prof.DECODE_STEP):
+                self._step(steps, sample_args, gen)
         if self.pallas_auto:
             self._auto_reset()
         self._sync()
         t0 = time.perf_counter()
         for _ in range(gen_len):
-            self._step(steps, sample_args, gen)
+            with prof.span(prof.DECODE_STEP):
+                self._step(steps, sample_args, gen)
         self._sync()
         stats.decode_seconds = time.perf_counter() - t0
         stats.decode_tokens = b * gen_len
@@ -661,12 +684,13 @@ class Engine:
         (next tokens [B], logits [B, V]), both buffers that the next step
         overwrites (on a mesh, the gathered rows of every rank). No host
         sync."""
-        steps = self._steps_for(cache)
-        steps.begin(tokens[self._rows(self._batch)])
-        gen = self._generator() if generator is None else generator
-        logits = self._step(steps, (temperature, top_k, top_p), gen,
-                            observe=False)
-        return self._gather(steps.tok), self._gather(logits)
+        with prof.span(prof.DECODE_STEP):
+            steps = self._steps_for(cache)
+            steps.begin(tokens[self._rows(self._batch)])
+            gen = self._generator() if generator is None else generator
+            logits = self._step(steps, (temperature, top_k, top_p), gen,
+                                observe=False)
+            return self._gather(steps.tok), self._gather(logits)
 
     def decode_chunk(
         self,
@@ -692,7 +716,8 @@ class Engine:
         gen = self._generator() if generator is None else generator
         sample_args = (temperature, top_k, top_p)
         for _ in range(k):
-            self._step(steps, sample_args, gen, observe=False)
+            with prof.span(prof.DECODE_STEP):
+                self._step(steps, sample_args, gen, observe=False)
         if not self._sharded_batch():
             return steps.tok.clone(), steps.hist[:k].cpu()
         hist = self._gather(steps.hist[:k], dim=1)

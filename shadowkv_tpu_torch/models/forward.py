@@ -32,6 +32,12 @@ all-reduce the o_proj and MLP partial sums and ``_finalize`` all-gather the
 vocabulary slices of the logits (JAX ``forward.py`` :176-191, where GSPMD
 inserts the same sums). ``prefill_shadow_sp`` is the sequence-parallel
 shadow prefill (JAX ``prefill_shadow(sp_mesh=...)``, :324-395).
+
+Under a profiler these functions name their phases (``utils/profiling.py``
+``span``): ``embed``, per layer ``qkv``, then the layer's own (decode:
+``select`` and ``refresh`` in ``cache/shadow.py``; prefill: ``lowrank`` and
+``store``), ``attn``, ``tail``, and ``head`` last; with no profiler a span
+costs one check.
 """
 
 from __future__ import annotations
@@ -66,17 +72,19 @@ from shadowkv_tpu_torch.kernels.prefill_attention import (
     sparse_prefill_splash,
 )
 from shadowkv_tpu_torch.parallel import mesh as mesh_lib
+from shadowkv_tpu_torch.utils import profiling as prof
 
 _DENSE = RuntimeConfig()
 
 
 def _layer_qkv(model: ModelConfig, lp: LayerParams, x, cos, sin):
     """Pre-attention compute; returns (q_roped, k_roped, k_pre_rope, v)."""
-    h = rms_norm(x, lp.attn_norm, model.rms_norm_eps)
-    q, k, v = qkv_proj(h, lp, model.num_heads, model.num_kv_heads,
-                       model.head_dim)
-    q_r = rope_lib.apply_rope(q, cos, sin, model.rope_style)
-    k_r = rope_lib.apply_rope(k, cos, sin, model.rope_style)
+    with prof.span(prof.QKV, x.device):
+        h = rms_norm(x, lp.attn_norm, model.rms_norm_eps)
+        q, k, v = qkv_proj(h, lp, model.num_heads, model.num_kv_heads,
+                           model.head_dim)
+        q_r = rope_lib.apply_rope(q, cos, sin, model.rope_style)
+        k_r = rope_lib.apply_rope(k, cos, sin, model.rope_style)
     return q_r, k_r, k, v
 
 
@@ -84,15 +92,16 @@ def _layer_tail(lp: LayerParams, model: ModelConfig, x, ctx, tp=None):
     """Post-attention tail; under ``tp`` wo and w_down hold input rows, so
     their products are partial sums that one all-reduce each joins before
     the (replicated) residual stream."""
-    o = o_proj(ctx, lp)
-    if tp is not None:
-        o = mesh_lib.all_reduce(o, tp)
-    x = x + o
-    h = rms_norm(x, lp.mlp_norm, model.rms_norm_eps)
-    m = swiglu_mlp(h, lp)
-    if tp is not None:
-        m = mesh_lib.all_reduce(m, tp)
-    return x + m
+    with prof.span(prof.TAIL, x.device):
+        o = o_proj(ctx, lp)
+        if tp is not None:
+            o = mesh_lib.all_reduce(o, tp)
+        x = x + o
+        h = rms_norm(x, lp.mlp_norm, model.rms_norm_eps)
+        m = swiglu_mlp(h, lp)
+        if tp is not None:
+            m = mesh_lib.all_reduce(m, tp)
+        return x + m
 
 
 def _finalize(model: ModelConfig, params: ModelParams, x, tp=None,
@@ -106,15 +115,16 @@ def _finalize(model: ModelConfig, params: ModelParams, x, tp=None,
     logits are an f32 product of the model-dtype operands, as JAX's
     ``preferred_element_type=f32``, of a plain lm_head. Under ``tp`` the
     lm_head holds a vocabulary slice and the slices are all-gathered."""
-    x = rms_norm(x[:, -1:] if last_only else x, params.final_norm,
-                 model.rms_norm_eps)
-    if last_only:
-        logits = wquant.mat(x, params.lm_head, out_dtype=torch.float32)
-    else:
-        logits = x.float() @ params.lm_head.float()
-    if tp is not None:
-        logits = mesh_lib.all_gather(logits, tp, dim=-1)
-    return logits
+    with prof.span(prof.HEAD, x.device):
+        x = rms_norm(x[:, -1:] if last_only else x, params.final_norm,
+                     model.rms_norm_eps)
+        if last_only:
+            logits = wquant.mat(x, params.lm_head, out_dtype=torch.float32)
+        else:
+            logits = x.float() @ params.lm_head.float()
+        if tp is not None:
+            logits = mesh_lib.all_gather(logits, tp, dim=-1)
+        return logits
 
 
 def _tables(cos_table, sin_table, n: int):
@@ -194,16 +204,19 @@ def prefill_full(
     """Prefill of a sub-batch into ``cache`` rows
     [batch_start, batch_start + Bsub); returns last-token logits."""
     b, s = input_ids.shape
-    x = wquant.take_rows(params.embed, input_ids, model.dtype)
-    cos, sin = _tables(cos_table, sin_table, s)
+    with prof.span(prof.EMBED, input_ids.device):
+        x = wquant.take_rows(params.embed, input_ids, model.dtype)
+        cos, sin = _tables(cos_table, sin_table, s)
     bs = slice(batch_start, batch_start + b)
     for layer in range(model.num_layers):
         lp = params.layer(layer)
         q, k_r, _, v = _layer_qkv(model, lp, x, cos, sin)
-        cache.k[layer, bs, :, :s] = k_r.transpose(1, 2)
-        cache.v[layer, bs, :, :s] = v.transpose(1, 2)
-        ctx = prefill_attention(rt, layer, q, k_r.contiguous(), v.contiguous(),
-                                sim)
+        with prof.span(prof.STORE, x.device):
+            cache.k[layer, bs, :, :s] = k_r.transpose(1, 2)
+            cache.v[layer, bs, :, :s] = v.transpose(1, 2)
+        with prof.span(prof.ATTN, x.device):
+            ctx = prefill_attention(rt, layer, q, k_r.contiguous(),
+                                    v.contiguous(), sim)
         x = _layer_tail(lp, model, x, ctx, tp)
     cache.length.fill_(s)
     return _finalize(model, params, x, tp)
@@ -219,23 +232,28 @@ def decode_full(
     tp=None,
 ) -> torch.Tensor:
     b, qn = tokens.shape
-    x = wquant.take_rows(params.embed, tokens, model.dtype)
-    start = cache.length
-    cos, sin = _decode_tables(cos_table, sin_table, start, qn)
-    rows = start.long() + torch.arange(qn, device=start.device)
-    new_len = start + qn
+    with prof.span(prof.EMBED, tokens.device):
+        x = wquant.take_rows(params.embed, tokens, model.dtype)
+        start = cache.length
+        cos, sin = _decode_tables(cos_table, sin_table, start, qn)
+        rows = start.long() + torch.arange(qn, device=start.device)
+        new_len = start + qn
     for layer in range(model.num_layers):
         lp = params.layer(layer)
         q, k_r, _, v = _layer_qkv(model, lp, x, cos, sin)
-        cache.k[layer].index_copy_(2, rows, k_r.transpose(1, 2))
-        cache.v[layer].index_copy_(2, rows, v.transpose(1, 2))
+        with prof.span(prof.REFRESH, x.device):
+            cache.k[layer].index_copy_(2, rows, k_r.transpose(1, 2))
+            cache.v[layer].index_copy_(2, rows, v.transpose(1, 2))
         # Attention over the whole max_length buffer, rows past new_len
         # masked to exactly zero weight, as the JAX full decode does: the
         # shapes stay those of every other step.
-        ctx = decode_attention_hm(q, cache.k[layer], cache.v[layer], new_len)
+        with prof.span(prof.ATTN, x.device):
+            ctx = decode_attention_hm(q, cache.k[layer], cache.v[layer],
+                                      new_len)
         x = _layer_tail(lp, model, x, ctx, tp)
+    logits = _finalize(model, params, x, tp)
     cache.length.add_(qn)
-    return _finalize(model, params, x, tp)
+    return logits
 
 
 # --------------------------------------------------------------------------
@@ -264,14 +282,17 @@ def shadow_prefill_body(
     card, so the layer's V rows are on the card only while it runs.
     ``sim`` as in ``prefill_attention``."""
     q, k_r, k_pre, v = _layer_qkv(model, lp, x, cos, sin)
-    slices = shadow_prefill_layer(
-        model, cache.layout, k_pre, k_r, v, q[:, -1:], omega=omega, tp=tp
-    )
+    with prof.span(prof.LOWRANK, x.device):
+        slices = shadow_prefill_layer(
+            model, cache.layout, k_pre, k_r, v, q[:, -1:], omega=omega, tp=tp
+        )
     bs = slice(batch_start, batch_start + x.shape[0])
-    for name, val in slices.items():
-        getattr(cache, name)[layer, bs] = val
-    ctx = prefill_attention(rt, layer, q, k_r.contiguous(), v.contiguous(),
-                            sim)
+    with prof.span(prof.STORE, x.device):
+        for name, val in slices.items():
+            getattr(cache, name)[layer, bs] = val
+    with prof.span(prof.ATTN, x.device):
+        ctx = prefill_attention(rt, layer, q, k_r.contiguous(),
+                                v.contiguous(), sim)
     return _layer_tail(lp, model, x, ctx, tp)
 
 
@@ -293,8 +314,9 @@ def prefill_shadow_into(
     b, s = input_ids.shape
     if s != cache.layout.prefill_len:
         raise ValueError("prompt length does not match the cache layout")
-    x = wquant.take_rows(params.embed, input_ids, model.dtype)
-    cos, sin = _tables(cos_table, sin_table, s)
+    with prof.span(prof.EMBED, input_ids.device):
+        x = wquant.take_rows(params.embed, input_ids, model.dtype)
+        cos, sin = _tables(cos_table, sin_table, s)
     for layer in range(model.num_layers):
         x = shadow_prefill_body(
             model, cache, layer, params.layer(layer), x, cos, sin,
@@ -328,8 +350,9 @@ def decode_shadow(
     (``decode_attention_segments``; JAX ``forward.py`` :604-677); the fused
     refresh ignores it (JAX :638-640)."""
     b, qn = tokens.shape
-    x = wquant.take_rows(params.embed, tokens, model.dtype)
-    cos, sin = _decode_tables(cos_table, sin_table, cache.kv_len, qn)
+    with prof.span(prof.EMBED, tokens.device):
+        x = wquant.take_rows(params.embed, tokens, model.dtype)
+        cos, sin = _decode_tables(cos_table, sin_table, cache.kv_len, qn)
     for layer in range(model.num_layers):
         lp = params.layer(layer)
         q, k_r, _, v = _layer_qkv(model, lp, x, cos, sin)
@@ -339,13 +362,15 @@ def decode_shadow(
             sin_table=sin_table, debug_hit_rate=debug_hit_rate,
             debug_hit_layout=debug_hit_layout, segmented=segmented,
         )
-        if v_view is None:
-            ctx = decode_attention_segments(q, k_view, valid_len)
-        else:
-            ctx = decode_attention_hm(q, k_view, v_view, valid_len)
+        with prof.span(prof.ATTN, x.device):
+            if v_view is None:
+                ctx = decode_attention_segments(q, k_view, valid_len)
+            else:
+                ctx = decode_attention_hm(q, k_view, v_view, valid_len)
         x = _layer_tail(lp, model, x, ctx, tp)
+    logits = _finalize(model, params, x, tp)
     cache.gen_len.add_(qn)
-    return _finalize(model, params, x, tp)
+    return logits
 
 
 def prefill_shadow_sp(
@@ -379,9 +404,10 @@ def prefill_shadow_sp(
     s_loc, b_dec = s // sp, b // sp
     off = si * s_loc
     mine = slice(si * b_dec, (si + 1) * b_dec)
-    x = wquant.take_rows(params.embed, input_ids[:, off:off + s_loc],
-                         model.dtype)
-    cos, sin = cos_table[off:off + s_loc], sin_table[off:off + s_loc]
+    with prof.span(prof.EMBED, input_ids.device):
+        x = wquant.take_rows(params.embed, input_ids[:, off:off + s_loc],
+                             model.dtype)
+        cos, sin = cos_table[off:off + s_loc], sin_table[off:off + s_loc]
     for layer in range(model.num_layers):
         lp = params.layer(layer)
         q, k_r, k_pre, v = _layer_qkv(model, lp, x, cos, sin)
@@ -389,13 +415,16 @@ def prefill_shadow_sp(
         v_all = mesh_lib.all_gather(v, sp_g, dim=1)
         k_pre_all = mesh_lib.all_gather(k_pre, sp_g, dim=1)[mine]
         q_last = mesh_lib.all_gather(q[:, -1:], sp_g, dim=1)[:, -1:]
-        slices = shadow_prefill_layer(
-            model, cache.layout, k_pre_all, k_all[mine], v_all[mine],
-            q_last[mine], omega=omega, tp=tp,
-        )
-        for name, val in slices.items():
-            getattr(cache, name)[layer] = val
-        ctx = causal_prefill_offset(q, k_all, v_all, off)
+        with prof.span(prof.LOWRANK, x.device):
+            slices = shadow_prefill_layer(
+                model, cache.layout, k_pre_all, k_all[mine], v_all[mine],
+                q_last[mine], omega=omega, tp=tp,
+            )
+        with prof.span(prof.STORE, x.device):
+            for name, val in slices.items():
+                getattr(cache, name)[layer] = val
+        with prof.span(prof.ATTN, x.device):
+            ctx = causal_prefill_offset(q, k_all, v_all, off)
         x = _layer_tail(lp, model, x, ctx, tp)
     # The last token's hidden state lives on the last sp rank.
     logits = _finalize(model, params, x, tp)

@@ -34,6 +34,15 @@ A capture or replay that fails raises; nothing falls back to eager steps.
 The kernel wrappers count their launches in Python, which a replay does
 not run: each graph keeps the counts its capture added, the capture's own
 increments are taken back, and every replay adds them again.
+
+Each path is captured twice, into one memory pool: the plain graph, and a
+marked twin that also holds the phase markers of ``utils/profiling.py``
+(5 L + 3 empty kernels a step). A replay runs no Python, so the twin is how
+a traced step shows its phases; it is replayed while a profiler records,
+and the plain graph otherwise, so an untraced step runs no marker. Both
+draw from the same generator and give the same tokens. Under a profiler
+the host work is named: ``skv.decode.begin``, ``skv.decode.replay``,
+``skv.decode.eager`` and ``skv.graph.capture`` (each capture).
 """
 
 from __future__ import annotations
@@ -43,8 +52,10 @@ from typing import Callable
 import numpy as np
 import torch
 
+from shadowkv_tpu_torch.kernels import build
 from shadowkv_tpu_torch.kernels.gather import gather_chunks, gather_v_rows
 from shadowkv_tpu_torch.kernels.reconstruct import sparse_refresh
+from shadowkv_tpu_torch.utils import profiling
 
 # (wrapper, counter attribute) of the kernels a decode step launches
 COUNTERS = (
@@ -104,7 +115,7 @@ class StepGraphs:
         self.rows = limit - int(self.depth.max())  # the longest run of steps
         self.run = 0  # steps of the current run
         self.stepped = False  # a step has run on this cache
-        self.captures = 0
+        self.captures = 0  # CUDA graph captures: two a path
         self.device = torch.device(device)
         self.tok = torch.zeros(batch, dtype=torch.int32, device=device)
         self.pos = torch.zeros(1, dtype=torch.long, device=device)
@@ -166,17 +177,18 @@ class StepGraphs:
         """Start a run at ``tokens`` [B]: the step counter to 0, and the
         teacher-forced rows ``forced_val``/``forced_on`` [k, B] (none by
         default). Device inputs cost no host sync."""
-        self.tok.copy_(tokens)
-        self.pos.zero_()
-        self.run = 0
-        self.forced_on.zero_()
-        if forced_val is not None:
-            k = forced_val.shape[0]
-            if k > self.rows:
-                raise ValueError(f"{k} steps exceed the run capacity "
-                                 f"{self.rows}")
-            self.forced_val[:k].copy_(torch.as_tensor(forced_val))
-            self.forced_on[:k].copy_(torch.as_tensor(forced_on))
+        with profiling.span(profiling.DECODE_BEGIN):
+            self.tok.copy_(tokens)
+            self.pos.zero_()
+            self.run = 0
+            self.forced_on.zero_()
+            if forced_val is not None:
+                k = forced_val.shape[0]
+                if k > self.rows:
+                    raise ValueError(f"{k} steps exceed the run capacity "
+                                     f"{self.rows}")
+                self.forced_val[:k].copy_(torch.as_tensor(forced_val))
+                self.forced_on[:k].copy_(torch.as_tensor(forced_on))
 
     def record(self, sampled: torch.Tensor) -> None:
         """The end of a step: the forced token where this step's row asks
@@ -199,8 +211,9 @@ class StepGraphs:
         these buffers and returns its logits [B, V]. On the card the first
         step of a path runs ``body`` eagerly and then captures it (with
         ``generator``'s state registered, so that every replay draws new
-        numbers); later steps replay. The returned logits are the graph's
-        static output: the next replay overwrites them."""
+        numbers); later steps replay, the marked twin while a profiler
+        records. The returned logits are the replayed graph's static output:
+        the next replay overwrites them."""
         if _position(self.cache) is not self.position:
             raise RuntimeError("the cache's position tensor was rebound; its "
                                "captured graphs would read a dead buffer")
@@ -209,26 +222,40 @@ class StepGraphs:
         self.take(1)
         self.run += 1
         if self.device.type != "cuda" or self.eager:
-            return body()
+            with profiling.span(profiling.DECODE_EAGER):
+                return body()
         entry = self._graphs.get(key)
         if entry is None:
-            logits = body()
-            self._graphs[key] = self._capture(body, generator)
-            self.captures += 1
+            with profiling.span(profiling.DECODE_EAGER):
+                logits = body()
+            plain = self._capture(body, generator)
+            twin = self._capture(body, generator, pool=plain[0].pool(),
+                                 marked=True)
+            self._graphs[key] = (plain, twin)
+            self.captures += 2
             return logits
-        graph, logits, delta = entry
-        graph.replay()
+        plain, twin = entry
+        graph, logits, delta = twin if profiling.recording() else plain
+        with profiling.span(profiling.DECODE_REPLAY):
+            graph.replay()
         _add_counts(delta)
         return logits
 
     @staticmethod
-    def _capture(body, generator):
+    def _capture(body, generator, pool=None, marked: bool = False):
         graph = torch.cuda.CUDAGraph()
         if generator is not None:
             graph.register_generator_state(generator)
         before = _counts()
-        with torch.cuda.graph(graph):
-            logits = body()
+        with profiling.span(profiling.GRAPH_CAPTURE):
+            with profiling.capturing(marked), \
+                    torch.cuda.graph(graph, pool=pool):
+                logits = body()
+            # Uploaded now, not by the first replay (~5 ms of host time at
+            # full size): the twin's first replay is a traced step's.
+            build.check(build.library().shadowkv_graph_upload(
+                graph.raw_cuda_graph_exec(),
+                torch.cuda.current_stream().cuda_stream), "graph upload")
         delta = [a - b for a, b in zip(_counts(), before)]
         _add_counts(delta, -1)  # the capture launched nothing
         return graph, logits, delta

@@ -30,6 +30,7 @@ from shadowkv_tpu_torch.core.attention import decode_attention_hm
 from shadowkv_tpu_torch.core.layers import ModelParams
 from shadowkv_tpu_torch.models import forward
 from shadowkv_tpu_torch.parallel import mesh as mesh_lib
+from shadowkv_tpu_torch.utils import profiling as prof
 
 
 def n_micro(batch: int, pp: int) -> int:
@@ -120,8 +121,9 @@ def prefill_shadow_pp(
     def stage(m, x):
         lo = m * ub
         if x is None:
-            x = wquant.take_rows(params.embed, input_ids[lo:lo + ub],
-                                 model.dtype)
+            with prof.span(prof.EMBED, input_ids.device):
+                x = wquant.take_rows(params.embed, input_ids[lo:lo + ub],
+                                     model.dtype)
         for layer in range(model.num_layers):
             x = forward.shadow_prefill_body(
                 model, cache, layer, params.layer(layer), x, cos, sin, lo,
@@ -166,15 +168,17 @@ def decode_shadow_pp(
         cos, sin = ((cos_all[lo:lo + ub], sin_all[lo:lo + ub]) if per_slot
                     else (cos_all, sin_all))
         if x is None:
-            x = wquant.take_rows(params.embed, tokens[lo:lo + ub],
-                                 model.dtype)
+            with prof.span(prof.EMBED, tokens.device):
+                x = wquant.take_rows(params.embed, tokens[lo:lo + ub],
+                                     model.dtype)
         for layer in range(model.num_layers):
             lp = params.layer(layer)
             q, k_r, _, v = forward._layer_qkv(model, lp, x, cos, sin)
             k_view, v_view, valid_len = shadow_decode_layer(
                 model, view, layer, q, k_r, v, inv_freq_full, hysteresis,
                 cos_table=cos_table, sin_table=sin_table)
-            ctx = decode_attention_hm(q, k_view, v_view, valid_len)
+            with prof.span(prof.ATTN, x.device):
+                ctx = decode_attention_hm(q, k_view, v_view, valid_len)
             x = forward._layer_tail(lp, model, x, ctx, tp)
         return x
 

@@ -10,17 +10,45 @@
 - ``program_table``: per-program device totals. JAX's rows are its jitted
   programs; the port's compiled unit is a replayed CUDA graph
   (``models/graphs.py``), so here a row is the device time of the kernels
-  that one ``cudaGraphLaunch`` ran, summed over its replays; a trace with
+  that one ``cudaGraphLaunch`` ran, summed over its replays, split by the
+  phases of its markers where the graph holds them (below); a trace with
   no replays (eager steps, the CPU) has no rows;
 - ``busy_seconds`` / ``top_kernels``: the device-busy time (the union of
   the kernels' intervals) and the top device ops of a live profiler;
 - ``device_memory_stats``: the card's allocator statistics, ``{}`` on a
-  machine without one.
+  machine without one;
+- ``span``: the program's own spans (below).
 
 Op tables read the trace's device events: kernels, copies and memsets on
 the card. A trace without any (a CPU run) uses its CPU operators instead,
-so the same tables serve the CPU tests. Torch traces carry no byte or flop
-counts, so ``gbytes``, ``gbps`` and ``gflops`` are 0 in every row.
+so the same tables serve the CPU tests.
+
+Spans. The program names its own work while a profiler records, and only
+then. ``span(name, device)`` is a context manager: with no profiler
+recording it is one shared null context, whose only cost is the check
+``torch._C._autograd._profiler_enabled()`` (~0.1 us; entering a
+``record_function`` with no profiler costs ~5 us). While a profiler
+records it enters ``torch.profiler.record_function``: a host range on the
+profiler's clock. A name in ``PHASES`` is a device phase: its host range is
+``skv.<phase>``, and on a CUDA ``device`` it also launches the phase's
+marker kernel ``skv_span_<phase>`` (``csrc/spans.cu``, an empty kernel) on
+the current stream, so the device trace is cut into phases on its own
+clock: a phase runs from its marker to the next. A CUDA graph replays no
+Python, so a decode graph holds markers only if they were captured: each
+decode path is captured twice (``models/graphs.py``), plainly and, under
+``capturing(True)``, as a marked twin whose spans launch their markers
+(and enter no host range); the twin is replayed while a profiler records.
+``mark(phase, device)`` launches a marker alone (``end``, after a step).
+
+The names are the contract with the benchmark's readers
+(``portbench/spans.py``, ``portbench/metrics/``): the device phases, in
+their order inside a decode step, ``embed``, then per layer ``qkv``,
+``select``, ``refresh``, ``attn``, ``tail``, then ``head`` and ``end``
+(5 L + 3 markers); inside a prefill's layer ``qkv``, ``lowrank``,
+``store``, ``attn``, ``tail``. The host spans of the engine's own work:
+``skv.prefill`` > ``skv.prefill.batch``; ``skv.decode.step`` >
+``skv.decode.begin``, ``skv.decode.replay``, ``skv.decode.eager``,
+``skv.graph.capture``; ``skv.kernels.build`` around the nvcc build.
 """
 
 from __future__ import annotations
@@ -37,6 +65,80 @@ from typing import Callable, Optional
 import torch
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+# Device phases, in the order of their marker kernels in csrc/spans.cu.
+PHASES = ("embed", "qkv", "select", "refresh", "attn", "tail", "head",
+          "lowrank", "store", "end")
+(EMBED, QKV, SELECT, REFRESH, ATTN, TAIL, HEAD, LOWRANK, STORE,
+ END) = PHASES
+MARKER = "skv_span_"  # + phase: a marker kernel's name in a trace
+# Host spans of the engine's own work.
+PREFILL = "skv.prefill"
+PREFILL_BATCH = "skv.prefill.batch"
+DECODE_STEP = "skv.decode.step"
+DECODE_BEGIN = "skv.decode.begin"
+DECODE_REPLAY = "skv.decode.replay"
+DECODE_EAGER = "skv.decode.eager"
+GRAPH_CAPTURE = "skv.graph.capture"
+KERNELS_BUILD = "skv.kernels.build"
+
+_PHASE_IDS = {p: i for i, p in enumerate(PHASES)}
+_NULL = contextlib.nullcontext()
+recording = torch._C._autograd._profiler_enabled
+# None outside a capture; inside one, whether it is a marked twin.
+_capture_marked: Optional[bool] = None
+
+
+def _launch_marker(phase: str, device) -> None:
+    """The marker kernel of ``phase`` on ``device``'s current stream (none
+    off the card)."""
+    if device is None or torch.device(device).type != "cuda":
+        return
+    from shadowkv_tpu_torch.kernels import build
+
+    rc = build.library().shadowkv_span(
+        _PHASE_IDS[phase], torch.cuda.current_stream(device).cuda_stream)
+    build.check(rc, f"marker {phase}")
+
+
+@contextlib.contextmanager
+def _recorded(name: str, device):
+    phase = name in _PHASE_IDS
+    with torch.profiler.record_function("skv." + name if phase else name):
+        if phase:
+            _launch_marker(name, device)
+        yield
+
+
+def span(name: str, device=None):
+    """A span of the program's work (module docstring): a null context
+    unless a profiler records or a marked twin is captured."""
+    if _capture_marked is not None:
+        if _capture_marked and name in _PHASE_IDS:
+            _launch_marker(name, device)
+        return _NULL
+    if not recording():
+        return _NULL
+    return _recorded(name, device)
+
+
+def mark(phase: str, device) -> None:
+    """The marker of ``phase`` alone, where ``span`` would launch it."""
+    marked = recording() if _capture_marked is None else _capture_marked
+    if marked:
+        _launch_marker(phase, device)
+
+
+@contextlib.contextmanager
+def capturing(marked: bool):
+    """Inside a CUDA graph capture: spans launch their markers if
+    ``marked`` (the twin) and nothing else; no host range is entered."""
+    global _capture_marked
+    _capture_marked = marked
+    try:
+        yield
+    finally:
+        _capture_marked = None
 
 
 def _sync() -> None:
@@ -118,8 +220,7 @@ def op_table(
     (the trace category: kernel, gpu_memcpy, gpu_memset, cpu_op) or
     ``'base'`` (the name with trailing digits stripped). ``name_filter``
     keeps events whose name or source holds the substring. Rows ``{key,
-    ms, count, gbytes, gbps, gflops}`` sorted by time (the byte and flop
-    columns are 0: torch traces do not carry them)."""
+    ms, count}`` sorted by time."""
     events = _newest_events(log_dir)
     launcher = {}
     for e in events:
@@ -144,8 +245,7 @@ def op_table(
         row = agg.setdefault(key, {"ms": 0.0, "count": 0})
         row["ms"] += e.get("dur", 0) / 1e3
         row["count"] += 1
-    rows = [{"key": k, "ms": round(v["ms"], 3), "count": v["count"],
-             "gbytes": 0.0, "gbps": 0.0, "gflops": 0.0}
+    rows = [{"key": k, "ms": round(v["ms"], 3), "count": v["count"]}
             for k, v in agg.items()]
     rows.sort(key=lambda r: -r["ms"])
     return rows[:limit]
@@ -156,8 +256,11 @@ def program_table(log_dir: str) -> list[dict]:
     ``log_dir``: the kernels a ``cudaGraphLaunch`` ran share its
     correlation id, so each replay's device ms is their sum; rows ``{key,
     ms, count, ms_per_call}``, one per graph (keyed by the graph id the
-    trace gives its kernels, else one row for all replays). Empty when the
-    trace holds no replay."""
+    trace gives its kernels, else one row for all replays). A graph whose
+    replays hold phase markers (a marked twin) also has ``phases``: {phase:
+    ms} over its replays, each kernel in the phase of the last marker
+    before it (a marker's own time in its phase, ``""`` before the first
+    marker), summing to ``ms``. Empty when the trace holds no replay."""
     events = _newest_events(log_dir)
     launches = {(e.get("args") or {}).get("correlation")
                 for e in events if e.get("name") == "cudaGraphLaunch"}
@@ -169,16 +272,26 @@ def program_table(log_dir: str) -> list[dict]:
         if e.get("cat") in DEVICE_CATS and corr in launches:
             key = f"cuda_graph {args['graph id']}" if "graph id" in args \
                 else "cuda_graph"
-            per_call.setdefault((key, corr), 0.0)
-            per_call[(key, corr)] += e.get("dur", 0) / 1e3
+            per_call.setdefault((key, corr), []).append(e)
     agg: dict = {}
-    for (key, _), ms in per_call.items():
-        row = agg.setdefault(key, {"ms": 0.0, "count": 0})
-        row["ms"] += ms
+    for (key, _), evs in per_call.items():
+        row = agg.setdefault(key, {"ms": 0.0, "count": 0, "phases": {}})
+        phase = ""
+        for e in sorted(evs, key=lambda e: e.get("ts", 0)):
+            name = e.get("name", "")
+            if name.startswith(MARKER):
+                phase = name[len(MARKER):]
+            ms = e.get("dur", 0) / 1e3
+            row["ms"] += ms
+            row["phases"][phase] = row["phases"].get(phase, 0.0) + ms
         row["count"] += 1
-    rows = [{"key": k, "ms": round(v["ms"], 3), "count": v["count"],
-             "ms_per_call": round(v["ms"] / v["count"], 3)}
-            for k, v in agg.items()]
+    rows = []
+    for k, v in agg.items():
+        row = {"key": k, "ms": round(v["ms"], 3), "count": v["count"],
+               "ms_per_call": round(v["ms"] / v["count"], 3)}
+        if set(v["phases"]) != {""}:
+            row["phases"] = {p: round(ms, 3) for p, ms in v["phases"].items()}
+        rows.append(row)
     rows.sort(key=lambda r: -r["ms"])
     return rows
 
@@ -186,11 +299,10 @@ def program_table(log_dir: str) -> list[dict]:
 def print_op_table(rows: list[dict], total_ms: Optional[float] = None):
     """Render an ``op_table`` as an aligned text table."""
     tot = total_ms or sum(r["ms"] for r in rows)
-    print(f"{'ms':>9} {'%':>5} {'count':>6} {'GB':>8} {'GB/s':>7}  key")
+    print(f"{'ms':>9} {'%':>5} {'count':>6}  key")
     for r in rows:
         print(f"{r['ms']:9.3f} {100 * r['ms'] / max(tot, 1e-9):5.1f} "
-              f"{r['count']:6d} {r['gbytes']:8.3f} {r['gbps']:7.1f}  "
-              f"{r['key']}")
+              f"{r['count']:6d}  {r['key']}")
 
 
 def busy_seconds(prof, windows=None) -> float:

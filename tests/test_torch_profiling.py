@@ -50,7 +50,7 @@ def test_trace_and_tables(tmp_path, capsys):
     rows = profiling.op_table(log_dir, by="source", limit=100)
     keys = {r["key"]: r for r in rows}
     assert keys["aten::tanh"]["count"] == 3
-    assert set(rows[0]) == {"key", "ms", "count", "gbytes", "gbps", "gflops"}
+    assert set(rows[0]) == {"key", "ms", "count"}
     assert [r["ms"] for r in rows] == sorted((r["ms"] for r in rows),
                                              reverse=True)
     cats = profiling.op_table(log_dir, by="category")
