@@ -53,6 +53,13 @@ to the CPU):
    each bound counted from the active pairs of its flags, with the
    compiled ``flex_attention`` under a block mask built from the same
    flags as the library yardstick (held to the kernel's output first).
+   Then the decode-attention kernel (``kernels/decode_attention.py``)
+   against its plain version at the glm4 decode cell's buffer (B 8, 4 KV
+   heads of G 8, 2624 rows of 128; [B] depths and a 0-d kv_len), per row
+   as B, rejecting a skipped key tile; timed cycling 40 stacked layers
+   (cold L2) against K and V read once, with SDPA as a yardstick only.
+   The slice's runs below count its launches (once per layer and step,
+   none on the segmented path).
 9. A toy bf16 engine on the card against the same engine on the CPU
    (plain kernel versions) for the four decode strategies (fused refresh,
    XLA-gather, and both over an offloaded V store), the full baseline and
@@ -109,7 +116,8 @@ to the CPU):
    on layer 0's buffers, and at every layer of eight teacher-forced
    segmented steps on the segments the engine hands over, within 1e-5 of
    the largest output; the steps' logits agree within 5 % of the largest
-   (the toy engine's decode bound) and give the same greedy token
+   (the toy engine's decode bound) with those of stacked steps through the
+   plain decode attention, and give the same greedy token
    wherever the top two are more than twice the difference apart; the
    logit bound's noise floor (one ulp on layer 0's attention output of
    the stacked path) is printed beside it, and two planted faults of the
@@ -648,13 +656,17 @@ def _skip_tile_fault(torch, q, k, v, ref, rows, tile, mask=None,
 
 # The kernels whose SASS is read, by the names in their mangled symbols,
 # with the tensor-core and asynchronous-load instructions each must hold:
-# the Hopper attention kernels (wgmma, TMA) and kernel A's main-path
-# instance (int8 stores, 16-byte U rows: mma.sync, cp.async).
+# the Hopper attention kernels (wgmma, TMA), kernel A's main-path
+# instance (int8 stores, 16-byte U rows: mma.sync, cp.async) and the
+# decode-attention kernel's instance of the decode cells (head_dim 128, one
+# n8 tile of query rows: mma.sync, cp.async).
 SASS_KERNELS = {
     "B, C": ("prefill_attention_kernel", "HGMMA", "UTMALDG"),
     "F": ("vs_tile_kernel", "HGMMA", "UTMALDG"),
     "G": ("vs_sparse_kernel", "HGMMA", "UTMALDG"),
     "A": ("refresh_kernelILb1ELi16E", "HMMA", "LDGSTS"),
+    "decode attention": ("decode_attention_kernelILi128ELi1E", "HMMA",
+                         "LDGSTS"),
 }
 
 
@@ -1198,6 +1210,94 @@ def check_vs_kernels(torch, cfg, evidence: dict) -> tuple[dict, dict]:
     return entries["F"], entries["G"]
 
 
+# ---------------------------------------------------------------------------
+# Decode attention over the compact buffer
+# ---------------------------------------------------------------------------
+
+# The glm4 decode cell's buffer (portbench): B 8, 4 KV heads of 8 query
+# heads, 2496 + 128 rows of 128, 40 layers.
+DECODE_ATTN = dict(batch=8, kv_heads=4, groups=8, rows=2624, head_dim=128,
+                   layers=40)
+
+
+def check_decode_attention(torch, evidence: str) -> dict:
+    """The decode-attention kernel against its plain version at the glm4
+    decode cell's buffer, with [B] depths that differ and with a 0-d
+    kv_len, per row within ATTN_ROW_TOL; the same check must reject the
+    last valid key tile skipped (the kernel given kv_len - 64). Timed by
+    device time over the whole buffer, each launch reading the next of 40
+    stacked layers (cold L2, as in a decode step), against K and V read
+    once over the HBM rate; the plain version and SDPA (GQA, the same bf16
+    buffer; a yardstick the port never calls) beside it."""
+    import torch.nn.functional as F
+
+    from shadowkv_tpu_torch.kernels.decode_attention import (
+        decode_attention,
+        decode_attention_plain,
+        plan,
+    )
+    from shadowkv_tpu_torch.tools.time_refresh import cycle_layers, device_ms
+
+    sh = DECODE_ATTN
+    b, kh, g, t, dh, n_l = (sh["batch"], sh["kv_heads"], sh["groups"],
+                            sh["rows"], sh["head_dim"], sh["layers"])
+    h = kh * g
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 17)
+    k = torch.randn(n_l, b, kh, t, dh, device=DEVICE, generator=gen,
+                    dtype=torch.bfloat16)
+    v = torch.randn(n_l, b, kh, t, dh, device=DEVICE, generator=gen,
+                    dtype=torch.bfloat16)
+    q = torch.randn(b, 1, h, dh, device=DEVICE, generator=gen,
+                    dtype=torch.bfloat16)
+    depths = torch.randint(t - 128, t + 1, (b,), device=DEVICE, generator=gen,
+                           dtype=torch.int32)
+    depths[0] = t
+    scalar = torch.tensor(t - 77, dtype=torch.int32, device=DEVICE)
+    errs = {}
+    for label, kv_len in (("[B] depths", depths), ("0-d kv_len", scalar)):
+        ref = decode_attention_plain(q, k[0], v[0], kv_len)
+        out = decode_attention(q, k[0], v[0], kv_len)
+        torch.cuda.synchronize()
+        errs[label] = row_rel_err(torch, out, ref)
+        if label == "[B] depths":
+            err = float((out.float() - ref.float()).abs().max())
+            bad = decode_attention(q, k[0], v[0], depths - 64)
+            torch.cuda.synchronize()
+            bad_rel = row_rel_err(torch, bad, ref)
+    log(f"[decode-attn B={b} K={kh} G={g} T={t}] per-row relative "
+        + ", ".join(f"{k_} {e:.3e}" for k_, e in errs.items())
+        + f" (tol {ATTN_ROW_TOL:.3e}); last key tile skipped {bad_rel:.3e} "
+        f"(rejected: {bad_rel > ATTN_ROW_TOL}); {plan(b, kh, g, t, dh)}")
+    if not max(errs.values()) <= ATTN_ROW_TOL:
+        raise AssertionError("decode attention: kernel disagrees with its "
+                             "plain version")
+    if not bad_rel > ATTN_ROW_TOL:
+        raise AssertionError("the per-row check misses a skipped key tile")
+
+    full = torch.tensor(t, dtype=torch.int32, device=DEVICE)
+    ms = device_ms(cycle_layers(lambda lyr: decode_attention(
+        q, k[lyr], v[lyr], full), n_l), reps=4 * n_l, warmup=n_l)
+    plain_ms = device_ms(lambda: decode_attention_plain(q, k[0], v[0], full),
+                         reps=5)
+    qh = q.transpose(1, 2)
+    lib_ms = device_ms(cycle_layers(lambda lyr: F.scaled_dot_product_attention(
+        qh, k[lyr], v[lyr], enable_gqa=True), n_l), reps=4 * n_l, warmup=n_l)
+    nbytes = 2 * k[0].numel() * 2 + 2 * q.numel() * 2
+    b_ms, b_by = bound(nbytes, 2 * 2 * b * h * t * dh)
+    log(f"[decode-attn] kernel_ms {ms:.4f} (device time, cold L2, cycling "
+        f"{n_l} layers) plain_ms {plain_ms:.4f} sdpa_ms {lib_ms:.4f} "
+        f"bound_ms {b_ms:.4f} ({b_by}: {nbytes} B) = "
+        f"{100 * b_ms / ms:.1f} % of the bound; {evidence}")
+    del k, v, q
+    torch.cuda.empty_cache()
+    return dict(
+        name="decode_attention", route="cuda",
+        source="shadowkv_tpu_torch/csrc/decode_attention.cu",
+        replaces=None, launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+    )
+
+
 def _check_vs_ragged(torch, gen) -> None:
     """F and G at S 4104 (padded to 4608 and 4224) with random flags, and
     for F verticals with duplicates, entries past the sequence and pads.
@@ -1582,6 +1682,7 @@ def run_slice(torch, cfg, params, label: str, mode: str, rt_kw: dict,
     import numpy as np
 
     from shadowkv_tpu_torch.config import CacheConfig, RuntimeConfig
+    from shadowkv_tpu_torch.kernels.decode_attention import decode_attention
     from shadowkv_tpu_torch.models.engine import Engine
 
     cc = CacheConfig(**{**dict(mode=mode, max_length=prompt_len + 256,
@@ -1598,10 +1699,12 @@ def run_slice(torch, cfg, params, label: str, mode: str, rt_kw: dict,
     torch.cuda.reset_peak_memory_stats()
     for fn, attr in counters.values():
         setattr(fn, attr, 0)
+    attn_before = decode_attention.launches
     toks, stats = eng.batch_generate(ids, gen_len=GEN_LEN, temperature=0.0,
                                      warmup_steps=WARMUP_STEPS)
     launches = {name: getattr(fn, attr)
                 for name, (fn, attr) in counters.items()}
+    attn_launches = decode_attention.launches - attn_before
     peak = torch.cuda.max_memory_allocated()
     kv = eng.kv_stats()
     steps = cfg.num_layers * (GEN_LEN + WARMUP_STEPS)
@@ -1619,6 +1722,13 @@ def run_slice(torch, cfg, params, label: str, mode: str, rt_kw: dict,
     if launches != want:
         raise AssertionError(f"slice {label}: kernel launches {launches}, "
                              f"expected {want}")
+    # decode attention: the kernel at every layer and step, but on the
+    # segmented path (tensor code)
+    want_attn = 0 if rt_kw.get("decode_segmented") else steps
+    if attn_launches != want_attn:
+        raise AssertionError(f"slice {label}: {attn_launches} decode "
+                             f"attention launches, expected {want_attn}")
+    launches["decode_attention"] = attn_launches
     cache = eng._cache
     tok = eng._steps.tok.clone()
     res = dict(
@@ -2804,7 +2914,12 @@ def check_segmented_steps(torch, cfg, params) -> dict:
       equal within SEG_ATTN_TOL of the largest output (the segmented one
       sums P @ V per segment, then across segments);
     - EAGER_STEPS eager engine steps of each on copies of the state, both
-      fed the stacked path's greedy tokens. At every layer of the
+      fed the stacked path's greedy tokens. The stacked steps run the
+      plain version (``decode_attention_plain``), so both sides are the
+      same f32 math summed in another order, as the segmented form is
+      held to (the decode-attention kernel's own sums, checked in phase 8,
+      move the bf16 outputs by about the noise floor below). At every
+      layer of the
       segmented steps, the segments the engine hands the attention are
       held in f32 against the stacked attention over that layer's whole
       buffer, with the engine's query and lengths: within SEG_ATTN_TOL.
@@ -2824,6 +2939,9 @@ def check_segmented_steps(torch, cfg, params) -> dict:
     from shadowkv_tpu_torch.core.attention import (
         decode_attention_hm,
         decode_attention_segments,
+    )
+    from shadowkv_tpu_torch.kernels.decode_attention import (
+        decode_attention_plain,
     )
     from shadowkv_tpu_torch.models import forward
     from shadowkv_tpu_torch.models.engine import Engine
@@ -2849,7 +2967,7 @@ def check_segmented_steps(torch, cfg, params) -> dict:
     segs = ((k_l[:, :, :ss], v_l[:, :, :ss], 0, False),
             (k_l[:, :, ss:se], v_l[:, :, ss:se], ss, False),
             (k_l[:, :, se:], v_l[:, :, se:], se, True))
-    hm = decode_attention_hm(q, k_l, v_l, valid)
+    hm = decode_attention_plain(q, k_l, v_l, valid)
     attn_rel = float((decode_attention_segments(q, segs, valid) - hm).abs()
                      .max() / hm.abs().max())
 
@@ -2870,16 +2988,16 @@ def check_segmented_steps(torch, cfg, params) -> dict:
         def witnessed(q, segs, kv_len):
             layer = calls[0] % cfg.num_layers
             calls[0] += 1
-            whole = decode_attention_hm(q.float(), copy.k_buf[layer],
-                                        copy.v_buf[layer], kv_len)
+            whole = decode_attention_plain(q.float(), copy.k_buf[layer],
+                                           copy.v_buf[layer], kv_len)
             gaps.append((seg_fn(q.float(), segs, kv_len) - whole).abs().max()
                         / whole.abs().max())
             return seg_fn(q, segs, kv_len)
 
         forward.decode_attention_segments = witnessed
-        if noise:
-            forward.decode_attention_hm = _ulp_noise(
-                torch, decode_attention_hm, cfg.num_layers, SEED + 12)
+        forward.decode_attention_hm = (
+            _ulp_noise(torch, decode_attention_plain, cfg.num_layers,
+                       SEED + 12) if noise else decode_attention_plain)
         try:
             t, rows = tok, []
             for i in range(EAGER_STEPS):
@@ -4418,6 +4536,8 @@ def main() -> int:
         torch, cfg, lay, link)
     entries["vs_tile_attention"], entries["vs_sparse_attention"] = \
         check_vs_kernels(torch, cfg, evidence)
+    entries["decode_attention"] = check_decode_attention(
+        torch, evidence["decode attention"])
     check_toy_engine(torch)
     check_head_dim_96(torch)
 
@@ -4452,7 +4572,7 @@ def main() -> int:
             "gather_chunks_host_v": "offload-ring",
             "sparse_prefill_attention": "stream",
             "vs_tile_attention": "vs-tile", "vs_sparse_attention": "vs-walk",
-            "gather_v_rows": "offload-host"}
+            "gather_v_rows": "offload-host", "decode_attention": "shadow"}
     for name, entry in entries.items():
         if name == "prefill_attention_offset":  # both ranks of sp2-gloo
             entry["launches"] = par["sp2-gloo"]["launches"][name]

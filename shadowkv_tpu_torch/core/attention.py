@@ -6,7 +6,9 @@ are also the references that the prefill kernels B and C
 (``kernels/prefill_attention.py``, which take the place of the TPU splash
 and flash library kernels) are held against, and the paths those kernels
 take for CPU tensors. Decode attention over the compact or
-full cache stays tensor code, as it is plain einsum math in JAX too.
+full cache (``decode_attention_hm``) goes to ``kernels/decode_attention.py``,
+whose plain version is the einsum math of JAX's function; the segmented
+form (``decode_attention_segments``) stays tensor code.
 
 Conventions: q is [B, S, H, Dh], k/v are [B, T, K, Dh] with GQA
 (H = K * G, query head h = k*G + g reads KV head k). Softmax in fp32.
@@ -15,6 +17,8 @@ Conventions: q is [B, S, H, Dh], k/v are [B, T, K, Dh] with GQA
 from __future__ import annotations
 
 import torch
+
+from shadowkv_tpu_torch.kernels.decode_attention import decode_attention
 
 _F32_MIN = torch.finfo(torch.float32).min
 
@@ -107,27 +111,11 @@ def decode_attention_hm(
     sit at rows [kv_len - S_new, kv_len) and are causal among themselves.
     It may be a 0-d device tensor, or a [B] one when every sequence sits at
     its own depth (continuous batching): the mask spans the whole
-    ``T_cap``, so the shapes do not depend on it.
+    ``T_cap``, so the shapes do not depend on it. CPU tensors take the
+    plain version (``kernels/decode_attention.py::decode_attention_plain``),
+    CUDA ones the decode-attention kernel.
     """
-    b, s_new, h, dh = q.shape
-    kheads, t = k_hm.shape[1], k_hm.shape[2]
-    g = h // kheads
-    scale = scale if scale is not None else dh**-0.5
-    qg = q.reshape(b, s_new, kheads, g, dh)
-    scores = torch.einsum("bskgd,bktd->bkgst", qg.float(), k_hm.float()) * scale
-    pos_k = torch.arange(t, device=q.device)
-    if isinstance(kv_len, torch.Tensor) and kv_len.dim() == 1:
-        q_abs = kv_len[:, None] - s_new + torch.arange(s_new, device=q.device)
-        mask = (pos_k <= q_abs[..., None])[:, None, None]  # [B, 1, 1, S, T]
-    else:
-        q_abs = kv_len - s_new + torch.arange(s_new, device=q.device)
-        mask = pos_k[None, :] <= q_abs[:, None]  # [S, T]
-    scores = torch.where(mask, scores, _F32_MIN)
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum(
-        "bkgst,bktd->bskgd", probs.to(v_hm.dtype).float(), v_hm.float()
-    )
-    return out.reshape(b, s_new, h, dh).to(q.dtype)
+    return decode_attention(q, k_hm, v_hm, kv_len, scale)
 
 
 def decode_attention_segments(

@@ -34,7 +34,7 @@ PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
 SOURCES = ("refresh.cu", "prefill_attention.cu", "gather.cu", "vs_tile.cu",
-           "vs_sparse.cu", "spans.cu")
+           "vs_sparse.cu", "spans.cu", "decode_attention.cu")
 # included by the attention kernels (B, C, F, G)
 HEADERS = ("flash_sm90.cuh",)
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -64,6 +64,11 @@ _SIGNATURES = {
     "shadowkv_vs_tile_attention": (
         [_P] * 9 + [_I] * 7 + [ctypes.c_float, _P], _I
     ),
+    "shadowkv_decode_attention": (
+        [_P] * 6 + [ctypes.c_longlong] * 3 + [_I] * 8 + [ctypes.c_float, _P],
+        _I
+    ),
+    "shadowkv_decode_attention_plan": ([_I] * 5 + [_P], _I),
     "shadowkv_span": ([_I, _P], _I),
     "shadowkv_graph_upload": ([_P, _P], _I),
 }

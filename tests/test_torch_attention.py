@@ -1,7 +1,9 @@
 """Attention of the PyTorch port against the JAX package on the same numpy
 inputs (float32): the plain prefill attention (the CPU side of the prefill
 kernel) against JAX's blockwise reference and its splash kernel in
-interpret mode, and decode attention with kv_len masking. Tolerances:
+interpret mode, and decode attention with kv_len masking (on CPU tensors
+the wrapper of the decode-attention kernel takes the plain version: the
+same bits, no launch). Tolerances:
 atol = rtol = 1e-5, 2e-4 against splash (the JAX tests' own bound for the
 kernel's online softmax)."""
 
@@ -15,6 +17,10 @@ import torch
 
 from shadowkv_tpu.core import attention as ja
 from shadowkv_tpu_torch.core import attention as ta
+from shadowkv_tpu_torch.kernels.decode_attention import (
+    decode_attention,
+    decode_attention_plain,
+)
 from shadowkv_tpu_torch.kernels.prefill_attention import (
     causal_prefill_flash,
     causal_prefill_splash,
@@ -76,3 +82,20 @@ def test_decode_attention_hm(s_new, kv_len):
     out = ta.decode_attention_hm(
         torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), kv_len)
     np.testing.assert_allclose(out.numpy(), ref, **TOL)
+
+
+@pytest.mark.parametrize("kv_len", [40, "slots"])
+def test_decode_attention_takes_the_plain_version_on_cpu(kv_len):
+    """bf16 CPU tensors, 0-d or [B] lengths: ``decode_attention_hm`` and the
+    kernel's wrapper give the plain version's bits and launch nothing."""
+    gen = torch.Generator().manual_seed(3)
+    q = torch.randn(2, 2, 8, 32, generator=gen).bfloat16()
+    k = torch.randn(2, 2, 64, 32, generator=gen).bfloat16()
+    v = torch.randn(2, 2, 64, 32, generator=gen).bfloat16()
+    lens = (torch.tensor([64, 5], dtype=torch.int32) if kv_len == "slots"
+            else torch.tensor(kv_len, dtype=torch.int32))
+    before = decode_attention.launches
+    ref = decode_attention_plain(q, k, v, lens)
+    assert torch.equal(decode_attention(q, k, v, lens), ref)
+    assert torch.equal(ta.decode_attention_hm(q, k, v, lens), ref)
+    assert decode_attention.launches == before

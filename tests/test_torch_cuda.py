@@ -27,7 +27,14 @@ for bit. C, F and G at a tp=2 rank's head slice (Llama's 16 query / 4 KV
 heads) match their plain versions per row and give bit for bit the head
 slice of the same kernel over all heads. A tp-shaped cache saved on the
 card loads on the CPU bit-equal, whole and as each tp rank's head
-slice. A training step of the tiny trainer on the card equals the CPU's."""
+slice. A training step of the tiny trainer on the card equals the CPU's.
+The decode-attention kernel matches its plain version per row as B does, at
+the decode cells' buffer, S_new 4, G 7, head_dims 96 and 32, a tp rank's
+2 KV heads and the full cache's 32K rows (scores in shared memory and
+spilled to scratch); the check rejects P left unnormalised and a skipped
+key tile; the wrapper refuses f32 q and a non-contiguous buffer; and every
+graph path but the segmented ones launches it once per layer and step
+through the replays, never the plain version."""
 
 from __future__ import annotations
 
@@ -44,6 +51,11 @@ from shadowkv_tpu_torch.core.minference import (
 )
 from shadowkv_tpu_torch.core.quant import quantize_store
 from shadowkv_tpu_torch.core.selection import assign_slots_stable, compact_misses
+from shadowkv_tpu_torch.kernels.decode_attention import (
+    decode_attention,
+    decode_attention_plain,
+    plan as decode_attention_plan,
+)
 from shadowkv_tpu_torch.kernels.gather import (
     gather_chunks,
     gather_chunks_plain,
@@ -553,6 +565,117 @@ def test_vs_wrappers_refuse_what_the_kernels_do_not_take(gen, kernel):
     torch.cuda.synchronize()
 
 
+# -- decode attention (kernels/decode_attention.py) -------------------------
+
+# (B, K, G, T_cap, head_dim, S_new, kv_len): "slots" a [B] kv_len of depths
+# that differ (one at T_cap), "scalar" one 0-d kv_len, "short" [B] with one
+# row's kv_len below S_new (the plain version's uniform weights)
+DECODE_CASES = [
+    (8, 4, 8, 2624, 128, 1, "slots"),  # the glm4 decode cell's buffer
+    (8, 4, 8, 2624, 128, 1, "scalar"),
+    (8, 4, 8, 2624, 128, 4, "slots"),  # S_new 4: two row groups
+    (2, 4, 7, 2624, 128, 1, "slots"),  # G 7 (Qwen2-7B)
+    (2, 8, 1, 1000, 96, 1, "slots"),  # head_dim 96 at G 1 (Phi-3)
+    (2, 2, 2, 544, 32, 1, "slots"),  # head_dim 32 at G 2 (the toy model)
+    (2, 2, 2, 544, 32, 4, "short"),
+    (8, 2, 8, 2624, 128, 1, "slots"),  # K 2: a tp rank's heads
+    (2, 4, 8, 32832, 128, 1, "slots"),  # the full cache, scores in smem
+    (8, 4, 8, 32832, 128, 1, "slots"),  # the full cache, scores spilled
+]
+
+
+def _decode_case(gen, b, kh, g, t, dh, s_new, lens):
+    q = torch.randn(b, s_new, kh * g, dh, device="cuda",
+                    generator=gen).bfloat16()
+    k = torch.randn(b, kh, t, dh, device="cuda", generator=gen).bfloat16()
+    v = torch.randn(b, kh, t, dh, device="cuda", generator=gen).bfloat16()
+    if lens == "scalar":
+        return q, k, v, torch.tensor(t - 77, dtype=torch.int32, device="cuda")
+    kv_len = torch.randint(s_new, t + 1, (b,), device="cuda", generator=gen,
+                           dtype=torch.int32)
+    kv_len[0] = t
+    if lens == "short":
+        kv_len[-1] = s_new - 2
+    return q, k, v, kv_len
+
+
+def _decode_fault(q, k, v, kv_len, fault):
+    """The plain math with a planted fault: P left unnormalised, or the
+    keys 1024-1087 (one 64-row tile) skipped."""
+    b, s_new, h, dh = q.shape
+    kh, t = k.shape[1], k.shape[2]
+    qg = q.reshape(b, s_new, kh, h // kh, dh).float()
+    scores = torch.einsum("bskgd,bktd->bkgst", qg, k.float()) * dh**-0.5
+    pos_k = torch.arange(t, device=q.device)
+    q_abs = kv_len.reshape(-1, 1) - s_new + torch.arange(s_new,
+                                                         device=q.device)
+    keep = (pos_k <= q_abs[..., None])[:, None, None]
+    if fault == "skipped_tile":
+        keep = keep & ((pos_k < 1024) | (pos_k >= 1088))
+    scores = torch.where(keep, scores, -torch.inf)
+    p = torch.exp(scores - scores.amax(-1, keepdim=True))
+    if fault != "unnormalised":
+        p = p / p.sum(-1, keepdim=True)
+    out = torch.einsum("bkgst,bktd->bskgd", p.bfloat16().float(), v.float())
+    return out.reshape(b, s_new, h, dh).bfloat16()
+
+
+@pytest.mark.parametrize("b, kh, g, t, dh, s_new, lens", DECODE_CASES)
+def test_decode_attention_kernel_matches_plain(gen, b, kh, g, t, dh, s_new,
+                                               lens):
+    """Per (b, s, h) row within 2^-6 of the row's largest |value|, as B; a
+    second call gives the same bits (every sum in a fixed order)."""
+    q, k, v, kv_len = _decode_case(gen, b, kh, g, t, dh, s_new, lens)
+    ref = decode_attention_plain(q, k, v, kv_len)
+    before = decode_attention.launches
+    out = decode_attention(q, k, v, kv_len)
+    again = decode_attention(q, k, v, kv_len)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 2
+    assert torch.equal(out, again)
+    assert _row_rel_err(out, ref) <= 2.0**-6
+
+
+def test_decode_attention_spills_scores_past_shared_memory(gen):
+    """The full cache's ranges: at B 2 x 4 KV heads (8 CTAs a cluster) the
+    scores of a 4160-key range fit in shared memory, at B 8 (4 CTAs, 8256
+    keys) they go to the wrapper's scratch; both cases run above."""
+    assert decode_attention_plan(2, 4, 8, 32832, 128).scratch_floats == 0
+    assert decode_attention_plan(8, 4, 8, 32832, 128).scratch_floats > 0
+    glm4 = decode_attention_plan(8, 4, 8, 2624, 128)
+    assert glm4.scratch_floats == 0 and glm4.row_groups == 1
+
+
+@pytest.mark.parametrize("fault", ["unnormalised", "skipped_tile"])
+def test_decode_attention_check_rejects_a_planted_fault(gen, fault):
+    """At the glm4 cell's shape the per-row check passes the kernel and
+    fails the plain math with P left unnormalised or one key tile
+    skipped."""
+    q, k, v, kv_len = _decode_case(gen, 8, 4, 8, 2624, 128, 1, "slots")
+    ref = decode_attention_plain(q, k, v, kv_len)
+    out = decode_attention(q, k, v, kv_len)
+    bad = _decode_fault(q, k, v, kv_len, fault)
+    torch.cuda.synchronize()
+    assert _row_rel_err(out, ref) <= 2.0**-6 < _row_rel_err(bad, ref)
+
+
+def test_decode_attention_refuses_what_the_kernel_does_not_take(gen):
+    """f32 q on the card, a non-contiguous buffer, head_dim 40 and a kv_len
+    of the wrong length raise; the well-formed call runs."""
+    q, k, v, kv_len = _decode_case(gen, 2, 2, 4, 256, 128, 1, "slots")
+    with pytest.raises(ValueError, match="bf16"):
+        decode_attention(q.float(), k, v, kv_len)
+    with pytest.raises(ValueError, match="contiguous"):
+        decode_attention(q, k[:, :, :128], v[:, :, :128], kv_len)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        decode_attention(q[..., :40], k[..., :40].contiguous(),
+                         v[..., :40].contiguous(), kv_len)
+    with pytest.raises(ValueError, match="0-d or"):
+        decode_attention(q, k, v, torch.cat([kv_len, kv_len]))
+    decode_attention(q, k, v, kv_len)
+    torch.cuda.synchronize()
+
+
 # -- the compiled decode step (CUDA graphs) on a toy bf16 engine ------------
 
 # path -> (cache mode, runtime settings, the decode kernel's counters)
@@ -657,6 +780,28 @@ def test_launch_counts_through_replays(gen, path):
             setattr(fn, a, getattr(fn, a) + v)
     want = eng.model.num_layers * (GRAPH_STEPS + 2)
     assert counts == dict.fromkeys(attrs, want)
+    assert len(eng._steps._graphs) == 1
+
+
+@pytest.mark.parametrize("path", sorted(GRAPH_PATHS))
+def test_decode_attention_launches_through_replays(gen, path, monkeypatch):
+    """batch_generate's decode attention counted through the graph's
+    replays: one kernel launch per layer and step on every path but the
+    segmented ones (their attention stays tensor code), and no call of
+    the plain version."""
+    def plain(*args, **kwargs):
+        raise AssertionError("a CUDA call reached decode_attention_plain")
+
+    monkeypatch.setattr("shadowkv_tpu_torch.kernels.decode_attention."
+                        "decode_attention_plain", plain)
+    eng, ids = _path_engine(path)
+    before = decode_attention.launches
+    eng.batch_generate(ids, gen_len=GRAPH_STEPS, temperature=0.0,
+                       warmup_steps=2)
+    launched = decode_attention.launches - before
+    segmented = GRAPH_PATHS[path][1].get("decode_segmented", False)
+    assert launched == (0 if segmented
+                        else eng.model.num_layers * (GRAPH_STEPS + 2))
     assert len(eng._steps._graphs) == 1
 
 
