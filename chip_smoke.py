@@ -19,7 +19,8 @@ to the CPU):
    TMA loads (UTMALDG). Then kernel A (``sparse_refresh``) against its
    plain PyTorch version at the slice's per-layer shapes: int8 stores with
    a miss mix of all-hit heads, all-miss heads, contiguous runs and partial
-   overlap; one bf16-store case and one glm partial-RoPE case; timed with a
+   overlap; one bf16-store case, one glm partial-RoPE case and one no-RoPE
+   case (K-EXAONE's NoPE layers: bf16, rank 160, chunk 8); timed with a
    cold L2 (each launch refreshes the next of 32 stacked layers, as a
    decode step does), the warm-L2 time of one layer beside it. Then A with
    the V store pinned in host memory (``shadow_offload``), held to the same
@@ -246,6 +247,25 @@ to the CPU):
      decoded strings and their score, and the organic slot hit rate of 64
      further greedy steps.
 
+19. K-EXAONE (``k-exaone``, the hybrid model of the benchmark's
+   ``k-exaone.decode-32k-b8`` cell), after the decode-attention check: kernel
+   C at a sliding layer's prefill (B 1, S 32768, 64 / 8 heads, window 128,
+   sink 0) and the decode-attention kernel over a sliding layer's 128-row
+   ring (kv_len = min(pos + 1, 128) per row) and over the global layers'
+   compact buffer (B 8, 8 KV heads of G 8, 2624 rows), each against its
+   plain version per row as B, each check shown to reject a planted fault
+   (a window of 129, one key fewer, the last key tile skipped). Then an
+   engine slice at full width, 8 layers (layer 0 dense, LLLG twice; 7 MoE
+   layers holding experts 0-7 of 128), the cell's cache at 32768 x 8:
+   ``Engine.prefill`` with every kernel count set to 0 just before it (B
+   once per global layer and row, C once per sliding layer and row), then
+   eight replayed ``decode_step`` calls with the counts set to 0 again (A
+   once per global layer and step, decode attention once per layer and
+   step); kernel A's no-RoPE case runs in phase 4.
+
+``python3 chip_smoke.py --k-exaone`` runs phases 1, 2, kernel A's cases of
+phase 4 and phase 19 alone.
+
 The line before the card line is a JSON object with every kernel's
 numbers; the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -354,9 +374,21 @@ def check_refresh(torch, cfg, lay, layer: int = 31) -> dict:
         ("int8", cfg, True),
         ("bf16", cfg, False),
         ("glm-int8", None, True),
+        ("nope-bf16", cfg, False),
     ]
     for label, case_cfg, quant in cases:
         rope_style, rope_dim, inv = "neox", cfg.head_dim, invf
+        c_lay = lay
+        if label.startswith("nope"):
+            # no RoPE: a NoPE layer's keys (K-EXAONE's global layers), at
+            # 8 KV heads, rank 160 and chunk 8, as that model's cell runs
+            from shadowkv_tpu_torch.cache.shadow import ShadowLayout
+            from shadowkv_tpu_torch.config import CacheConfig
+
+            rope_style = "none"
+            c_lay = ShadowLayout.build(CacheConfig(
+                sparse_budget=2048, rank=160, chunk_size=8, local_chunks=4,
+                outlier_chunks=48, gen_capacity=128), lay.prefill_len)
         if case_cfg is None:  # GLM-4 style: interleaved RoPE on 64 lanes
             from shadowkv_tpu_torch.models.registry import glm4_9b
 
@@ -365,10 +397,11 @@ def check_refresh(torch, cfg, lay, layer: int = 31) -> dict:
             inv = inv_freq_full_neox(glm).to(DEVICE)
         layers = cfg.num_layers if label == "int8" else 2
         lyr = layer if label == "int8" else 1
-        t = refresh_inputs(cfg, lay, BATCH, layers, quant, gen)
-        kw = dict(chunk_size=lay.chunk_size, sparse_start=lay.sparse_start,
-                  rope_dim=rope_dim, rope_style=rope_style,
-                  u_scale=t["u_scale"], v_scale=t["v_scale"])
+        t = refresh_inputs(cfg, c_lay, BATCH, layers, quant, gen)
+        kw = dict(chunk_size=c_lay.chunk_size,
+                  sparse_start=c_lay.sparse_start, rope_dim=rope_dim,
+                  rope_style=rope_style, u_scale=t["u_scale"],
+                  v_scale=t["v_scale"])
         args = (t["mc"], t["ms"], t["cnt"], t["u"], t["sv"], t["v_full"], inv)
         k_ref, v_ref = t["k_buf"].clone(), t["v_buf"].clone()
         sparse_refresh_plain(lyr, *args, k_ref, v_ref, **kw)
@@ -382,7 +415,7 @@ def check_refresh(torch, cfg, lay, layer: int = 31) -> dict:
         # rounded once to bf16 on both sides -> bit-equal.
         k_tol = 2.0**-7 * float(k_ref.float().abs().max())
         log(f"[refresh {label}] misses {int(t['cnt'].sum())} of "
-            f"{t['cnt'].numel() * lay.select_sets} slots; max_abs_err K "
+            f"{t['cnt'].numel() * c_lay.select_sets} slots; max_abs_err K "
             f"{k_err:.3e} (tol {k_tol:.3e}) V {v_err:.3e} (tol 0)")
         if not (k_err <= k_tol and v_err == 0.0):
             raise AssertionError(f"refresh {label}: kernel disagrees with "
@@ -1296,6 +1329,219 @@ def check_decode_attention(torch, evidence: str) -> dict:
         replaces=None, launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
     )
+
+
+# ---------------------------------------------------------------------------
+# K-EXAONE: the hybrid model's kernel shapes and its engine slice
+# ---------------------------------------------------------------------------
+
+
+# The K-EXAONE decode cell's shapes: 64 / 8 heads of 128, a 128-row window
+# ring per sliding layer, ShadowKV's compact buffer (budget 2048, 48
+# outlier and 4 local chunks of 8, a 128-row gen region) on the global ones.
+K_EXAONE = dict(batch=8, prompt=32768, heads=64, kv_heads=8, window=128,
+                rows=2624, head_dim=128)
+K_EXAONE_LAYERS = 8  # the slice: layer 0 dense, LLLG twice
+K_EXAONE_STEPS = 8
+
+
+def _rows_within(torch, label: str, out, ref, fault, fault_label: str):
+    """Per-row relative error of ``out`` against ``ref`` within
+    ATTN_ROW_TOL, and of the planted ``fault`` beyond it."""
+    rel = row_rel_err(torch, out, ref)
+    bad = row_rel_err(torch, fault, ref)
+    log(f"[{label}] per-row relative {rel:.3e} (tol {ATTN_ROW_TOL:.3e}); "
+        f"{fault_label} {bad:.3e} (rejected: {bad > ATTN_ROW_TOL})")
+    if not rel <= ATTN_ROW_TOL:
+        raise AssertionError(f"{label}: kernel disagrees with its plain "
+                             "version")
+    if not bad > ATTN_ROW_TOL:
+        raise AssertionError(f"{label}: the per-row check misses "
+                             f"{fault_label}")
+
+
+def check_k_exaone_attention(torch) -> None:
+    """The attention kernels at the K-EXAONE cell's shapes against their
+    plain versions, per row within ATTN_ROW_TOL: kernel C at B 1, S 32768,
+    64 / 8 heads, window 128, sink 0 (a sliding layer's prefill; a window
+    of 129 must be rejected); the decode-attention kernel over a sliding
+    layer's ring [8, 8, 128, 128] with kv_len = min(pos + 1, 128) per row
+    (positions before, at and past the window; one key fewer must be
+    rejected) and over the global layers' compact buffer (B 8, 8 KV heads
+    of G 8, 2624 rows; [B] depths and a 0-d kv_len; the last key tile
+    skipped must be rejected)."""
+    from shadowkv_tpu_torch.core.attention import sparse_prefill_attention
+    from shadowkv_tpu_torch.kernels.decode_attention import (
+        decode_attention,
+        decode_attention_plain,
+        plan,
+    )
+    from shadowkv_tpu_torch.kernels.prefill_attention import (
+        sparse_prefill_splash,
+    )
+
+    sh = K_EXAONE
+    b, s, h, kh, w, t, dh = (sh["batch"], sh["prompt"], sh["heads"],
+                             sh["kv_heads"], sh["window"], sh["rows"],
+                             sh["head_dim"])
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 19)
+
+    def rnd(*shape):
+        return torch.randn(*shape, device=DEVICE, generator=gen,
+                           dtype=torch.bfloat16)
+
+    q, k, v = rnd(1, s, h, dh), rnd(1, s, kh, dh), rnd(1, s, kh, dh)
+    ref = sparse_prefill_attention(q, k, v, w, 0)
+    out = sparse_prefill_splash(q, k, v, w, 0)
+    wide = sparse_prefill_splash(q, k, v, w + 1, 0)
+    torch.cuda.synchronize()
+    _rows_within(torch, f"k-exaone stream-attn B=1 S={s} H={h}/{kh} window "
+                 f"{w} sink 0; {plan_counts(s, w, 0)}", out, ref, wide,
+                 f"window {w + 1}")
+    del q, k, v, ref, out, wide
+
+    q = rnd(b, 1, h, dh)
+    ring_k, ring_v = rnd(b, kh, w, dh), rnd(b, kh, w, dh)
+    pos = torch.tensor([0, 5, 63, 64, 126, 127, 128, s + 77], device=DEVICE)
+    kv_len = (pos + 1).clamp(max=w).to(torch.int32)
+    _rows_within(
+        torch, f"k-exaone ring decode-attn B={b} K={kh} G={h // kh} W={w}, "
+        f"kv_len {kv_len.tolist()}",
+        decode_attention(q, ring_k, ring_v, kv_len),
+        decode_attention_plain(q, ring_k, ring_v, kv_len),
+        decode_attention(q, ring_k, ring_v, (kv_len - 1).clamp(min=1)),
+        "one key fewer")
+
+    buf_k, buf_v = rnd(b, kh, t, dh), rnd(b, kh, t, dh)
+    depths = torch.randint(t - 128, t + 1, (b,), device=DEVICE,
+                           generator=gen, dtype=torch.int32)
+    depths[0] = t
+    scalar = torch.tensor(t - 77, dtype=torch.int32, device=DEVICE)
+    for label, n in (("[B] depths", depths), ("0-d kv_len", scalar)):
+        _rows_within(
+            torch, f"k-exaone buffer decode-attn B={b} K={kh} G={h // kh} "
+            f"T={t}, {label}; {plan(b, kh, h // kh, t, dh)}",
+            decode_attention(q, buf_k, buf_v, n),
+            decode_attention_plain(q, buf_k, buf_v, n),
+            decode_attention(q, buf_k, buf_v, n - 64), "last key tile skipped")
+    del q, ring_k, ring_v, buf_k, buf_v
+    torch.cuda.empty_cache()
+
+
+def _k_exaone_weights(torch, md, gen) -> dict:
+    """Random bf16 weights of a K-EXAONE slice in ``ModelParams
+    .from_tensors``'s layout (the router and its bias f32): N(0, 0.02), the
+    router N(0, 1/sqrt(D)), every norm gain 1."""
+    n, d, v = md.num_layers, md.hidden_size, md.vocab_size
+    h, kh, dh = md.num_heads, md.num_kv_heads, md.head_dim
+    moe = md.moe_layers
+    lm, ld = len(moe), n - len(moe)
+    eh, ie, e = len(md.held), md.moe_intermediate_size, md.num_experts
+    i_s, i_d = ie * md.num_shared_experts, md.intermediate_size
+
+    def rnd(*shape, std=0.02, dtype=torch.bfloat16):
+        return torch.empty(shape, dtype=dtype, device=DEVICE).normal_(
+            0.0, std, generator=gen)
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=torch.bfloat16, device=DEVICE)
+
+    return dict(
+        embed=rnd(v, d), wqkv=rnd(n, d, (h + 2 * kh) * dh),
+        wo=rnd(n, h * dh, d), q_norm=ones(n, dh), k_norm=ones(n, dh),
+        post_attn_norm=ones(n, d), post_mlp_norm=ones(n, d),
+        dense_gate_up=rnd(ld, d, 2 * i_d), dense_down=rnd(ld, i_d, d),
+        router=rnd(lm, d, e, std=d**-0.5, dtype=torch.float32),
+        e_bias=rnd(lm, e, dtype=torch.float32),
+        experts_gate_up=rnd(lm, eh, d, 2 * ie),
+        experts_down=rnd(lm, eh, ie, d), shared_gate_up=rnd(lm, d, 2 * i_s),
+        shared_down=rnd(lm, i_s, d), final_norm=ones(d), lm_head=rnd(d, v))
+
+
+def run_k_exaone_slice(torch) -> dict:
+    """K-EXAONE at full width, its first K_EXAONE_LAYERS layers (layer 0
+    dense, then LLLG twice: 6 sliding layers, 2 NoPE global ones, 7 MoE
+    layers of experts 0-7 held of 128), with the cell's cache settings
+    (ShadowKV on the global layers, budget 2048, rank 160, chunk 8, bf16
+    stores, the fused refresh; a 128-row ring per sliding layer) at 32768
+    x 8 through ``Engine.prefill`` and the compiled ``decode_step``. The
+    launches are counted from zero just before the prefill (B once per
+    global layer and row, C once per sliding layer and row, nothing else)
+    and again just before K_EXAONE_STEPS replayed steps (A once per global
+    layer and step, decode attention once per layer and step, nothing
+    else); the caches hold only their layers."""
+    import dataclasses
+
+    import numpy as np
+
+    from shadowkv_tpu_torch.config import CacheConfig, RuntimeConfig
+    from shadowkv_tpu_torch.core.layers import ModelParams
+    from shadowkv_tpu_torch.kernels.decode_attention import decode_attention
+    from shadowkv_tpu_torch.models.engine import Engine
+    from shadowkv_tpu_torch.models.registry import k_exaone_236b
+
+    sh, n = K_EXAONE, K_EXAONE_LAYERS
+    full = k_exaone_236b("LGAI-EXAONE/K-EXAONE-236B-A23B",
+                         held_experts=tuple(range(8)))
+    md = dataclasses.replace(full, num_layers=n,
+                             layer_types=full.layer_types[:n],
+                             mlp_layer_types=full.mlp_layer_types[:n])
+    n_glob, n_slide = len(md.global_layers), len(md.sliding_layers)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 23)
+    params = ModelParams.from_tensors(_k_exaone_weights(torch, md, gen), md)
+    b, s = sh["batch"], sh["prompt"]
+    cc = CacheConfig(mode="shadow", max_length=s, sparse_budget=2048,
+                     rank=160, chunk_size=8, local_chunks=4,
+                     outlier_chunks=48, gen_capacity=128, kv_quant="none")
+    eng = Engine(md, cc, RuntimeConfig(use_pallas=True, prefill_sub_batch=1),
+                 params, device=DEVICE)
+    ids = np.random.RandomState(SEED).randint(1, md.vocab_size, (b, s))
+    counters = _counters()
+    _reset_counts(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = eng.prefill(ids)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    _expect("k-exaone prefill", _read_counts(counters),
+            prefill_attention=n_glob * b,
+            sparse_prefill_attention=n_slide * b)
+    hy = cache.hybrid
+    if not (cache.u.shape[0] == n_glob and hy.ring_k.shape[:4] == (
+            n_slide, b, sh["kv_heads"], sh["window"])):
+        raise AssertionError(f"k-exaone slice: ShadowKV state for "
+                             f"{cache.u.shape[0]} layers, rings "
+                             f"{tuple(hy.ring_k.shape)}")
+    tok = logits[:, -1].argmax(-1).to(torch.int32)
+    for _ in range(3):  # an eager step, the capture, a replay
+        tok, _ = eng.decode_step(cache, tok)
+    _reset_counts(counters)
+    attn_before = decode_attention.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = []
+    for _ in range(K_EXAONE_STEPS):
+        tok, _ = eng.decode_step(cache, tok)
+        toks.append(tok.clone())
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / K_EXAONE_STEPS * 1e3
+    got = _read_counts(counters)
+    got["decode_attention"] = decode_attention.launches - attn_before
+    _expect("k-exaone replayed steps", got,
+            sparse_refresh=n_glob * K_EXAONE_STEPS,
+            decode_attention=n * K_EXAONE_STEPS)
+    toks = torch.stack(toks)
+    if eng._steps.captures != 2 or toks.min() < 0 \
+            or toks.max() >= md.vocab_size:
+        raise AssertionError(f"k-exaone slice: {eng._steps.captures} "
+                             f"captures, tokens {toks.min()}..{toks.max()}")
+    res = dict(layers=n, global_layers=n_glob, sliding_layers=n_slide,
+               prefill_s=prefill_s, step_ms=step_ms, launches=got,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    log("[k-exaone slice] " + json.dumps(res))
+    del eng, cache, params, logits, hy
+    _release(torch)
+    return res
 
 
 def _check_vs_ragged(torch, gen) -> None:
@@ -3364,7 +3610,7 @@ def _forced_logits(torch, eng, ids, tokens, steps: int = PAR_GEN - 1,
     return torch.stack(out), cache  # [steps + 1, B, V]
 
 
-def _half_sums_tail(lp, model, x, ctx, tp=None):
+def _half_sums_tail(lp, model, x, ctx, tp=None, **_):
     """``forward._layer_tail`` on one device with the o_proj and MLP
     products each taken as two half-sums in the model dtype (the first and
     second halves of the heads and of the ffn) and added: the sums a tp=2
@@ -4484,7 +4730,7 @@ def check_shard_attention(torch, half) -> dict:
     return out
 
 
-def main() -> int:
+def main(k_exaone_only: bool = False) -> int:
     # The flex_attention yardstick compiles in this process (no compile
     # workers to stop) into the checkout's gitignored build directory.
     build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -4526,6 +4772,14 @@ def main() -> int:
     for label, text in evidence.items():
         log(f"[kernel {label}] {text}")
     entries = {"sparse_refresh": check_refresh(torch, cfg, lay)}
+    if k_exaone_only:
+        check_k_exaone_attention(torch)
+        run_k_exaone_slice(torch)
+        print(facts["smi"])
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": facts["name"],
+            "count": torch.cuda.device_count()}}))
+        return 0
     entries["sparse_refresh_host_v"] = check_refresh_host(torch, cfg, lay, link)
     entries["prefill_attention"] = check_prefill_attention(
         torch, cfg, evidence["B, C"])
@@ -4538,6 +4792,8 @@ def main() -> int:
         check_vs_kernels(torch, cfg, evidence)
     entries["decode_attention"] = check_decode_attention(
         torch, evidence["decode attention"])
+    check_k_exaone_attention(torch)
+    k_exaone = run_k_exaone_slice(torch)
     check_toy_engine(torch)
     check_head_dim_96(torch)
 
@@ -4614,6 +4870,10 @@ def main() -> int:
         f"GiB; text shadow {tx['shadow']['text']!r} (hit rate "
         f"{tx['shadow']['hit_rate_mean']}), full {tx['full']['text']!r}, "
         f"truth {tx['full']['truth']!r}; phases {training['seconds']:.1f} s")
+    log(f"[summary] k-exaone slice: {k_exaone['layers']} layers at "
+        f"{K_EXAONE['prompt']} x {K_EXAONE['batch']}, prefill_s "
+        f"{k_exaone['prefill_s']:.3f}, {k_exaone['step_ms']:.3f} ms a "
+        f"replayed step, launches {k_exaone['launches']}")
     log("[summary] C, F, G at the tp=2 head slice (B 2, S "
         f"{GLOO_PROMPT}): " + ", ".join(
             f"{k} {ms:.4f} ms against bound {b_ms:.4f} ({by})"
@@ -4634,4 +4894,4 @@ if __name__ == "__main__":
     if len(sys.argv) == 5 and sys.argv[1] == "--parallel-rank":
         sys.exit(parallel_ranks(int(sys.argv[2]), int(sys.argv[3]),
                                 sys.argv[4]))
-    sys.exit(main())
+    sys.exit(main(k_exaone_only=sys.argv[1:] == ["--k-exaone"]))

@@ -11,9 +11,11 @@ forward step, so a CUDA graph of the decode step reads the live value.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
+from shadowkv_tpu_torch.cache.hybrid import HybridState
 from shadowkv_tpu_torch.config import CacheConfig, ModelConfig
 
 
@@ -22,6 +24,9 @@ class FullCache:
     k: torch.Tensor  # [L, B, K, T, Dh]
     v: torch.Tensor  # [L, B, K, T, Dh]
     length: torch.Tensor | int = 0  # valid tokens (int32, 0-d)
+    # A hybrid model's sliding-layer rings and expert choices
+    # (cache/hybrid.py); k and v then hold its full-attention layers only.
+    hybrid: Optional[HybridState] = None
 
     def __post_init__(self):
         if not isinstance(self.length, torch.Tensor):
@@ -34,7 +39,7 @@ class FullCache:
         device=None,
     ) -> "FullCache":
         shape = (
-            model.num_layers,
+            len(model.global_layers),
             batch_size,
             model.num_kv_heads,
             cache.max_length,

@@ -48,6 +48,7 @@ from typing import Optional
 
 import torch
 
+from shadowkv_tpu_torch.cache.hybrid import HybridState
 from shadowkv_tpu_torch.config import CacheConfig, ModelConfig
 from shadowkv_tpu_torch.core import rope as rope_lib
 from shadowkv_tpu_torch.core.lowrank import lowrank_kv_factors
@@ -136,6 +137,10 @@ class ShadowCache:
     u_scale: Optional[torch.Tensor] = None  # [L, B, C*cs] bf16 (int8)
     v_scale: Optional[torch.Tensor] = None  # [L, B, K, C*cs] bf16 (int8)
     v_on_host: bool = False  # v_full lives in host memory (offload)
+    # A hybrid model's sliding-layer rings and expert choices
+    # (cache/hybrid.py); the fields above then hold its full-attention
+    # layers only, in order.
+    hybrid: Optional[HybridState] = None
 
     FIELDS = ("u", "sv", "landmarks", "landmark_mask", "k_buf", "v_buf",
               "v_full", "cached_ids", "lm_scale", "u_scale", "v_scale")
@@ -161,7 +166,7 @@ class ShadowCache:
         With ``v_on_host`` the V store is one uninitialised CPU tensor,
         pinned when ``device`` is a CUDA device (prefill writes every row
         of it)."""
-        l, b = model.num_layers, batch_size
+        l, b = len(model.global_layers), batch_size
         kh, dh, dt = model.num_kv_heads, model.head_dim, model.dtype
         lo = layout
         cs = lo.chunk_size
@@ -366,7 +371,7 @@ def shadow_decode_layer(
                 layer, mc, ms, cnt, cache.u, cache.sv, cache.v_full,
                 inv_freq_full, cache.k_buf, cache.v_buf,
                 chunk_size=lo.chunk_size, sparse_start=lo.sparse_start,
-                rope_dim=model.rope_dim, rope_style=model.rope_style,
+                rope_dim=model.rope_dim, rope_style=_k_style(model),
                 u_scale=cache.u_scale, v_scale=cache.v_scale,
             )
         else:
@@ -397,6 +402,12 @@ def shadow_decode_layer(
                 (k_l[:, :, se:], v_l[:, :, se:], se, True))
         return segs, None, row + qn
     return k_l, v_l, row + qn
+
+
+def _k_style(model: ModelConfig) -> str:
+    """How the cached layers' keys are rotated: the model's RoPE, or
+    ``"none"`` for a model whose full-attention layers are NoPE."""
+    return "none" if model.nope_global else model.rope_style
 
 
 def _append_gen_rows(buf: torch.Tensor, new_t: torch.Tensor,
@@ -468,6 +479,8 @@ def _gather_rebuild(
     else:
         v_rows = v_q
     k_rec = k_rec.to(buf_dt).view(b, kh, s, cs, dh)
+    if _k_style(model) == "none":
+        return k_rec, v_rows.to(buf_dt).view(b, kh, s, cs, dh)
     k_rec = rope_lib.rotate_with_tables(
         k_rec, cos_table[:cs], sin_table[:cs], model.rope_style)
     inv = rope_lib.half_inv_freq(inv_freq_full, model)

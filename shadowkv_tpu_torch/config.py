@@ -96,12 +96,114 @@ class ModelConfig:
     tie_word_embeddings: bool = False
     max_position_embeddings: int = 1048576
     dtype: torch.dtype = torch.bfloat16
+    # Hybrid layers (EXAONE 4 / K-EXAONE): per layer "sliding_attention"
+    # or "full_attention" (None: every layer full); a sliding layer's
+    # query sees the ``sliding_window`` keys up to its own position.
+    layer_types: Optional[tuple] = None
+    sliding_window: Optional[int] = None
+    # EXAONE 4's block: no input norm; a per-head RMSNorm of q and k over
+    # head_dim lanes (own gains) before RoPE; x + norm(attn(x)), then x +
+    # norm(mlp(x)); and, in a model with sliding layers, no RoPE on the
+    # full-attention layers (its global NoPE).
+    exaone4_block: bool = False
+    # Mixture of experts (DeepSeek-V3's block): per layer "dense" or
+    # "sparse" (None: every layer dense, of ``intermediate_size``). The
+    # router scores all ``num_experts`` by a sigmoid, picks the top
+    # ``num_experts_per_tok`` of score + bias, weights them by their
+    # scores (normalised when ``norm_topk_prob``) times
+    # ``routed_scaling_factor``; this device holds the routed experts
+    # ``held_experts`` (None: all) and adds their part of the result, and
+    # the ``num_shared_experts`` shared experts once.
+    mlp_layer_types: Optional[tuple] = None
+    moe_intermediate_size: int = 0
+    num_experts: int = 0
+    num_experts_per_tok: int = 0
+    num_shared_experts: int = 0
+    routed_scaling_factor: float = 1.0
+    norm_topk_prob: bool = True
+    held_experts: Optional[tuple] = None
 
     def __post_init__(self):
         if isinstance(self.rope_scaling, dict):
             object.__setattr__(
                 self, "rope_scaling", tuple(sorted(self.rope_scaling.items()))
             )
+        for name in ("layer_types", "mlp_layer_types", "held_experts"):
+            val = getattr(self, name)
+            if val is not None and not isinstance(val, tuple):
+                object.__setattr__(self, name, tuple(val))
+        if self.layer_types is not None:
+            if len(self.layer_types) != self.num_layers:
+                raise ValueError("layer_types must give every layer")
+            bad = set(self.layer_types) - {"sliding_attention",
+                                           "full_attention"}
+            if bad:
+                raise ValueError(f"unknown layer types {sorted(bad)}")
+            if "sliding_attention" in self.layer_types and not (
+                    self.sliding_window and self.sliding_window > 0):
+                raise ValueError("sliding layers need a sliding_window")
+        if self.mlp_layer_types is not None:
+            if len(self.mlp_layer_types) != self.num_layers:
+                raise ValueError("mlp_layer_types must give every layer")
+            if set(self.mlp_layer_types) - {"dense", "sparse"}:
+                raise ValueError("mlp layer types are 'dense' or 'sparse'")
+            if self.moe_layers and not (
+                    0 < self.num_experts_per_tok <= self.num_experts
+                    and self.moe_intermediate_size > 0):
+                raise ValueError("MoE layers need num_experts, "
+                                 "num_experts_per_tok and "
+                                 "moe_intermediate_size")
+            held = self.held
+            if self.moe_layers and (
+                    not held or len(set(held)) != len(held)
+                    or not all(0 <= e < self.num_experts for e in held)):
+                raise ValueError(f"held_experts {held} are not distinct "
+                                 f"ids of the {self.num_experts} experts")
+
+    def is_sliding(self, layer: int) -> bool:
+        return (self.layer_types is not None
+                and self.layer_types[layer] == "sliding_attention")
+
+    def is_moe(self, layer: int) -> bool:
+        return (self.mlp_layer_types is not None
+                and self.mlp_layer_types[layer] == "sparse")
+
+    @property
+    def global_layers(self) -> tuple:
+        """The full-attention layers: the ones a KV cache (full or
+        ShadowKV) holds."""
+        return tuple(i for i in range(self.num_layers)
+                     if not self.is_sliding(i))
+
+    @property
+    def sliding_layers(self) -> tuple:
+        return tuple(i for i in range(self.num_layers) if self.is_sliding(i))
+
+    @property
+    def moe_layers(self) -> tuple:
+        return tuple(i for i in range(self.num_layers) if self.is_moe(i))
+
+    @property
+    def held(self) -> tuple:
+        """The routed experts held here."""
+        return (tuple(range(self.num_experts)) if self.held_experts is None
+                else self.held_experts)
+
+    @property
+    def nope_global(self) -> bool:
+        """The full-attention layers take no RoPE (EXAONE 4 with sliding
+        layers); the sliding layers rotate by ``rope_style``."""
+        return self.exaone4_block and bool(self.sliding_layers)
+
+    def is_nope(self, layer: int) -> bool:
+        return self.nope_global and not self.is_sliding(layer)
+
+    @property
+    def is_hybrid(self) -> bool:
+        """A model with sliding layers, MoE layers or EXAONE 4's block: the
+        forward serves it on one device (``models/engine.py``)."""
+        return bool(self.sliding_layers or self.moe_layers
+                    or self.exaone4_block)
 
     @property
     def rope_scaling_dict(self) -> Optional[dict]:

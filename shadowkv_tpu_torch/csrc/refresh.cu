@@ -7,7 +7,8 @@
 //   * rebuilds K rows = (U[cid rows] @ SV[b, k]) * u_scale with f32
 //     accumulation, applies RoPE at positions cid*cs + i (neox rotate-half or
 //     glm interleaved pairs over the first rope_dim lanes, f32 trig from
-//     inv_freq_full) and stores bf16 rows to k_buf[b, k, sparse_start + s*cs];
+//     inv_freq_full; style "none", a NoPE layer, rotates nothing) and stores
+//     bf16 rows to k_buf[b, k, sparse_start + s*cs];
 //   * dequantizes V rows (int8 * bf16 per-token scale, rounded to bf16 as the
 //     TPU kernel's bf16 multiply does) or copies them (bf16 stores) into v_buf.
 // Hit slots move no bytes.
@@ -89,7 +90,7 @@ struct RefreshArgs {
   __nv_bfloat16* k_buf;       // [B, K, cap, Dh]
   __nv_bfloat16* v_buf;       // [B, K, cap, Dh]
   int kv_heads, n_rows, rank, select_sets, cap;
-  int chunk_size, sparse_start, rope_dim, glm;
+  int chunk_size, sparse_start, rope_dim, style;  // 0 neox, 1 glm, 2 none
   int rank_pad;   // rank rounded up to 16
   int u_stride;   // bytes per staged U row
   int region;     // bytes of one warp's region (U rows, then K half rows)
@@ -331,7 +332,7 @@ __global__ void __launch_bounds__(kThreads, kQuant ? 4 : 2)
     for (int j = 0; j < 16; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[j][e] *= usc[e / 2];
-    if (!a.glm) {  // neox over all 128 lanes: (c, c + 64) = tiles j, j + 8
+    if (a.style == 0) {  // neox over 128 lanes: (c, c + 64) = tiles j, j + 8
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
 #pragma unroll
@@ -348,7 +349,7 @@ __global__ void __launch_bounds__(kThreads, kQuant ? 4 : 2)
           }
         }
       }
-    } else {  // glm: (c, c + 1) over the first rope_dim lanes
+    } else if (a.style == 1) {  // glm: (c, c + 1) over the first rope_dim
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
         const int c = 8 * j + 2 * q;
@@ -450,8 +451,9 @@ extern "C" int shadowkv_sparse_refresh(
     const void* miss_slot, const void* miss_cnt, void* k_buf, void* v_buf,
     int batch, int kv_heads, int n_rows, int rank, int head_dim,
     int select_sets, int cap, int chunk_size, int sparse_start, int rope_dim,
-    int glm, int quant, void* stream) {
-  if (head_dim != kDh || rank <= 0 || chunk_size <= 0) {
+    int style, int quant, void* stream) {
+  if (head_dim != kDh || rank <= 0 || chunk_size <= 0 || style < 0 ||
+      style > 2) {
     return (int)cudaErrorInvalidValue;
   }
   // The widest cp.async vector that divides a U row and its alignment.
@@ -486,7 +488,7 @@ extern "C" int shadowkv_sparse_refresh(
   a.chunk_size = chunk_size;
   a.sparse_start = sparse_start;
   a.rope_dim = rope_dim;
-  a.glm = glm;
+  a.style = style;
   a.rank_pad = geo.rank_pad;
   a.u_stride = geo.u_stride;
   a.region = geo.region;

@@ -19,6 +19,9 @@ __global__ void skv_span_head() {}
 __global__ void skv_span_lowrank() {}
 __global__ void skv_span_store() {}
 __global__ void skv_span_end() {}
+__global__ void skv_span_route() {}
+__global__ void skv_span_experts() {}
+__global__ void skv_span_swa() {}
 
 // Launch the marker of phase ``phase`` (its index in PHASES) on ``stream``;
 // returns the launch's CUDA error code.
@@ -35,6 +38,9 @@ int shadowkv_span(int phase, void* stream) {
     case 7: skv_span_lowrank<<<1, 1, 0, s>>>(); break;
     case 8: skv_span_store<<<1, 1, 0, s>>>(); break;
     case 9: skv_span_end<<<1, 1, 0, s>>>(); break;
+    case 10: skv_span_route<<<1, 1, 0, s>>>(); break;
+    case 11: skv_span_experts<<<1, 1, 0, s>>>(); break;
+    case 12: skv_span_swa<<<1, 1, 0, s>>>(); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

@@ -8,7 +8,8 @@ placed in sparse slot ``s``:
 - rebuilds K rows ``(U[cid rows] @ SV[b, k]) * u_scale`` with f32
   accumulation, rotates them at positions ``cid*cs + i`` (f32 angles
   ``pos * inv_freq_full``, neox rotate-half or glm interleaved pairs over
-  ``rope_dim`` lanes) and writes them to ``k_buf[.., sparse_start + s*cs]``;
+  ``rope_dim`` lanes; ``rope_style="none"``, a NoPE layer's keys, leaves
+  them unrotated) and writes them to ``k_buf[.., sparse_start + s*cs]``;
 - writes the chunk's V rows to ``v_buf``; int8 rows are dequantized as
   ``int8 * bf16 scale`` (exact in f32) and rounded once to the buffer dtype,
   which for bf16 buffers is the TPU kernel's bf16 multiply.
@@ -40,7 +41,8 @@ import torch
 
 from shadowkv_tpu_torch.kernels import build
 
-_NEOX, _GLM = "neox", "glm"
+_NEOX, _GLM, _NONE = "neox", "glm", "none"
+_STYLES = (_NEOX, _GLM, _NONE)  # the kernel's style argument: the index
 
 
 def sparse_refresh_plain(
@@ -97,10 +99,13 @@ def sparse_refresh_plain(
             torch.roll(k_rec, 1, dims=-1),
         )
         sign = torch.where(lane % 2 == 0, -1.0, 1.0)
-    else:
+    elif rope_style != _NONE:
         raise ValueError(f"unknown rope style: {rope_style}")
-    roped = k_rec * torch.cos(ang) + partner * sign * torch.sin(ang)
-    k_new = torch.where(lane < rope_dim, roped, k_rec)
+    if rope_style == _NONE:
+        k_new = k_rec
+    else:
+        roped = k_rec * torch.cos(ang) + partner * sign * torch.sin(ang)
+        k_new = torch.where(lane < rope_dim, roped, k_rec)
     k_buf[layer][b2, k2, dst] = k_new.to(k_buf.dtype)
 
     v_rows = v_full[layer][b2, k2, rows]  # [M, cs, Dh]
@@ -160,7 +165,7 @@ def _check_cuda_args(miss_chunk, miss_slot, miss_cnt, u, sv, v_full,
         raise ValueError("miss lists must be [B, K, S] / [B, K]")
     if inv_freq_full.dtype != torch.float32 or inv_freq_full.numel() != dh:
         raise ValueError("inv_freq_full must be f32 with head_dim entries")
-    if rope_style not in (_NEOX, _GLM):
+    if rope_style not in _STYLES:
         raise ValueError(f"unknown rope style: {rope_style}")
     if rope_style == _NEOX and rope_dim != dh:
         raise ValueError("neox RoPE rotates the whole head")
@@ -234,7 +239,7 @@ def sparse_refresh(
         miss_chunk.data_ptr(), miss_slot.data_ptr(), miss_cnt.data_ptr(),
         k_buf[layer].data_ptr(), v_buf[layer].data_ptr(),
         b, kh, n_rows, rank, dh, select_sets, cap, chunk_size,
-        sparse_start, rope_dim, int(rope_style == _GLM), int(quant),
+        sparse_start, rope_dim, _STYLES.index(rope_style), int(quant),
         torch.cuda.current_stream(miss_chunk.device).cuda_stream,
     )
     build.check(rc, "sparse_refresh")

@@ -73,6 +73,16 @@ any mesh or one device (``utils/checkpoint.py``). A shared-prefix snapshot
 stays on the dp shard that took it; a restore into another shard's slot
 sends it there, one tensor at a time (``_move_slot``).
 
+A hybrid model (``ModelConfig.is_hybrid``: sliding and NoPE global layers,
+EXAONE 4's block, MoE layers; K-EXAONE) runs the same prefill and compiled
+step (``models/forward.py`` dispatches per layer): its cache (ShadowKV or
+full) holds only the full-attention layers, and ``cache.hybrid``
+(``cache/hybrid.py``) the sliding layers' rings and the experts each row
+chose (the prompt's, for the rows given to ``record_routes`` before the
+prefill). A reset of a slot's depth puts the slot's prefill rings back.
+It runs on one device with V on the card: a mesh, ``shadow_offload``,
+slot admission, snapshots and context checkpoints are refused.
+
 Under a profiler the engine names its host work (``utils/profiling.py``):
 ``skv.prefill`` around a prefill and ``skv.prefill.batch`` around each
 sub-batch; ``skv.decode.step`` around each decode step of every loop
@@ -90,6 +100,7 @@ import numpy as np
 import torch
 
 from shadowkv_tpu_torch.cache.full import FullCache
+from shadowkv_tpu_torch.cache.hybrid import HybridState
 from shadowkv_tpu_torch.cache.shadow import ShadowCache, ShadowLayout
 from shadowkv_tpu_torch.config import CacheConfig, ModelConfig, RuntimeConfig
 from shadowkv_tpu_torch.core import minference as mi
@@ -116,6 +127,21 @@ class GenerationStats:
         if self.decode_seconds == 0:
             return 0.0
         return self.decode_tokens / self.decode_seconds
+
+
+def _check_hybrid(model: ModelConfig, cache: CacheConfig,
+                  rt: RuntimeConfig) -> None:
+    """What the hybrid forward serves: one device, V on the card, the
+    dense prefill (sliding layers take their window by kernel C)."""
+    if rt.mesh_size > 1:
+        raise ValueError("models with sliding or MoE layers run on one "
+                         "device: dp, tp, sp and pp must be 1")
+    if cache.mode == "shadow_offload":
+        raise ValueError("models with sliding or MoE layers keep V on the "
+                         "card: mode 'shadow_offload' is not served")
+    if rt.prefill_pattern not in ("dense", "dense-splash"):
+        raise ValueError("models with sliding or MoE layers prefill their "
+                         "full-attention layers densely")
 
 
 def _resolve_device(device) -> torch.device:
@@ -169,6 +195,8 @@ class Engine:
         cache_cfg.check_served()
         rt.check_served(cache_cfg)
         forward.check_layer_patterns(rt, model)
+        if model.is_hybrid:
+            _check_hybrid(model, cache_cfg, rt)
         self.model = model
         self.cache_cfg = cache_cfg
         self.rt = rt
@@ -246,6 +274,7 @@ class Engine:
         self._hit_prev_ids = None
         self._hit_counter = 0
         self._batch = 0  # the live cache's whole batch
+        self.route_rows: tuple = ()  # rows whose prefill routing is kept
 
     @property
     def is_shadow(self) -> bool:
@@ -298,6 +327,18 @@ class Engine:
         rows = self._rows(self._batch)
         return slot - rows.start if rows.start <= slot < rows.stop else None
 
+    def _no_hybrid(self, what: str) -> None:
+        if self.model.is_hybrid:
+            raise ValueError(f"{what} serves models without sliding or MoE "
+                             "layers")
+
+    def record_routes(self, rows) -> None:
+        """Keep the experts that every prompt position of batch rows
+        ``rows`` chooses at the next prefill (``cache.hybrid
+        .prefill_routes``; each step's are in ``route_ids``), so that a
+        reference can follow them."""
+        self.route_rows = tuple(int(r) for r in rows)
+
     # -- prefill ------------------------------------------------------------
 
     def prefill(self, input_ids) -> tuple[torch.Tensor, object]:
@@ -340,6 +381,9 @@ class Engine:
             cache = ShadowCache.init(model, layout, b_dec, self.device,
                                      v_on_host=self.v_on_host)
             self._host_axis = "layer" if segmented else "batch"
+            if model.is_hybrid:
+                cache.hybrid = HybridState.init(model, b_dec, s, self.device,
+                                                self.route_rows)
             if self.rt.pp > 1:
                 parts.append(pipeline.prefill_shadow_pp(
                     model, self.params, cache, input_ids, self.cos_table,
@@ -359,6 +403,9 @@ class Engine:
                         ))
         else:
             cache = FullCache.init(model, self.cache_cfg, b_dec, self.device)
+            if model.is_hybrid:
+                cache.hybrid = HybridState.init(model, b_dec, s, self.device,
+                                                self.route_rows)
             for b0 in range(0, b_dec, t):
                 with prof.span(prof.PREFILL_BATCH):
                     parts.append(forward.prefill_full(
@@ -739,6 +786,9 @@ class Engine:
         local = self._local_slot(slot)
         if local is not None:
             steps.reset_slot(local, need)
+            if self._cache.hybrid is not None:
+                # the round before overwrote the prompt's window rows
+                self._cache.hybrid.restore(local)
 
     def clamp_idle_depths(self, active, steps: int) -> None:
         """Pin the depth of each slot that ``active`` [B] marks idle low
@@ -758,6 +808,7 @@ class Engine:
         cache)."""
         if not self.is_shadow:
             raise ValueError("slot admission serves the shadow cache modes")
+        self._no_hybrid("slot admission")
         if self.rt.sp > 1 or self.rt.pp > 1:
             raise ValueError("slot admission prefills one slot; the sp and "
                              "pp prefills are whole-batch")
@@ -803,6 +854,7 @@ class Engine:
         placeholder for them, as JAX's does. On a batch-sharded mesh the
         snapshot stays on the dp shard that holds the slot (each tp rank
         its heads); the other shards get None."""
+        self._no_hybrid("a shared-prefix snapshot")
         row = self._slot_at(b0)[1]
         if row is None:
             return None
@@ -919,6 +971,7 @@ class Engine:
         writes one file per replica: give each its own ``path``."""
         if not self.is_shadow:
             raise ValueError("save_state serves the shadow cache modes")
+        self._no_hybrid("save_state")
         if self._cache is None:
             raise ValueError("save_state needs a prefilled cache: call "
                              "prefill() or generate() first")
@@ -943,6 +996,7 @@ class Engine:
         loaded ``gen_len``."""
         if not self.is_shadow:
             raise ValueError("load_state serves the shadow cache modes")
+        self._no_hybrid("load_state")
         self._cache = None
         self._steps = None
         cache = checkpoint.load_shadow_state(

@@ -15,6 +15,17 @@ graph (``models/engine.py``).
   XLA-gather branch, see ``cache/shadow.py``, with decode attention over
   the whole buffer or, ``decode_segmented``, over its segments).
 
+A hybrid model (``ModelConfig.is_hybrid``; one device) runs the same
+functions: its caches hold only its full-attention layers (the ``g``-th
+of them at cache index ``g``; every layer of a dense model), and
+``cache.hybrid`` (``cache/hybrid.py``) its sliding layers' rings, which a
+sliding layer writes and attends in the phase ``swa`` (kernel C at window
+W, no sink, in the prefill; the decode-attention kernel over the ring in
+a step). Its NoPE layers take no RoPE rows; its MoE layers
+(``core/moe.py``) group the prefill's tokens by held expert, run the
+masked pass over the held experts in a step, and hand their choices to
+``cache.hybrid``.
+
 Prefill attention follows ``RuntimeConfig.prefill_pattern`` (JAX
 ``forward.py`` :244-266 and :544-560): ``"dense"``/``"dense-splash"`` take
 the causal kernel B, ``"stream"`` the sink + window kernel C
@@ -52,6 +63,7 @@ from shadowkv_tpu_torch.cache.shadow import (
 )
 from shadowkv_tpu_torch.config import ModelConfig, RuntimeConfig
 from shadowkv_tpu_torch.core import minference as mi
+from shadowkv_tpu_torch.core import moe as moe_lib
 from shadowkv_tpu_torch.core import rope as rope_lib
 from shadowkv_tpu_torch.core import wquant
 from shadowkv_tpu_torch.core.attention import (
@@ -59,7 +71,7 @@ from shadowkv_tpu_torch.core.attention import (
     decode_attention_segments,
 )
 from shadowkv_tpu_torch.core.layers import (
-    LayerParams,
+    Block,
     ModelParams,
     o_proj,
     qkv_proj,
@@ -77,30 +89,53 @@ from shadowkv_tpu_torch.utils import profiling as prof
 _DENSE = RuntimeConfig()
 
 
-def _layer_qkv(model: ModelConfig, lp: LayerParams, x, cos, sin):
-    """Pre-attention compute; returns (q_roped, k_roped, k_pre_rope, v)."""
+def _layer_qkv(model: ModelConfig, lp: Block, x, cos, sin):
+    """Pre-attention compute; returns (q_roped, k_roped, k_pre_rope, v).
+    EXAONE 4's block projects the raw residual (no input norm) and
+    normalises q and k per head before RoPE; ``cos`` None applies no RoPE
+    (a NoPE layer: the roped and pre-RoPE keys are one tensor)."""
+    eps = model.rms_norm_eps
     with prof.span(prof.QKV, x.device):
-        h = rms_norm(x, lp.attn_norm, model.rms_norm_eps)
+        h = x if model.exaone4_block else rms_norm(x, lp.attn_norm, eps)
         q, k, v = qkv_proj(h, lp, model.num_heads, model.num_kv_heads,
                            model.head_dim)
+        if model.exaone4_block:
+            q, k = rms_norm(q, lp.q_norm, eps), rms_norm(k, lp.k_norm, eps)
+        if cos is None:
+            return q, k, k, v
         q_r = rope_lib.apply_rope(q, cos, sin, model.rope_style)
         k_r = rope_lib.apply_rope(k, cos, sin, model.rope_style)
     return q_r, k_r, k, v
 
 
-def _layer_tail(lp: LayerParams, model: ModelConfig, x, ctx, tp=None):
+def _layer_tail(lp: Block, model: ModelConfig, x, ctx, tp=None,
+                static: bool = True, record=None):
     """Post-attention tail; under ``tp`` wo and w_down hold input rows, so
     their products are partial sums that one all-reduce each joins before
-    the (replicated) residual stream."""
+    the (replicated) residual stream. EXAONE 4's block normalises the
+    attention's and the MLP's outputs before each residual add; an MoE
+    layer (``lp.moe``) runs ``core/moe.py`` (``static``: the decode step's
+    masked pass, else the prefill's grouped one) and hands its chosen
+    expert ids [B, S, k] to ``record``."""
+    eps = model.rms_norm_eps
     with prof.span(prof.TAIL, x.device):
         o = o_proj(ctx, lp)
         if tp is not None:
             o = mesh_lib.all_reduce(o, tp)
+        if model.exaone4_block:
+            o = rms_norm(o, lp.post_attn_norm, eps)
         x = x + o
-        h = rms_norm(x, lp.mlp_norm, model.rms_norm_eps)
-        m = swiglu_mlp(h, lp)
+        if lp.moe is not None:
+            m, top = moe_lib.moe(model, lp.moe, x, static)
+            if record is not None:
+                record(top)
+        else:
+            h = x if model.exaone4_block else rms_norm(x, lp.mlp_norm, eps)
+            m = swiglu_mlp(h, lp)
         if tp is not None:
             m = mesh_lib.all_reduce(m, tp)
+        if model.exaone4_block:
+            m = rms_norm(m, lp.post_mlp_norm, eps)
         return x + m
 
 
@@ -143,6 +178,61 @@ def _decode_tables(cos_table, sin_table, start: torch.Tensor, n: int):
         return cos_table.index_select(0, pos), sin_table.index_select(0, pos)
     pos = (start.long()[:, None] + steps).clamp(max=cos_table.shape[0] - 1)
     return cos_table[pos], sin_table[pos]
+
+
+def _rope_rows(model: ModelConfig, layer: int, cos, sin):
+    """The RoPE rows layer ``layer`` applies: none on a NoPE layer."""
+    return (None, None) if model.is_nope(layer) else (cos, sin)
+
+
+def _layers(model: ModelConfig):
+    """Each layer with its index among the layers of its attention kind:
+    a full-attention layer's row in the cache, a sliding layer's ring."""
+    seen = [0, 0]
+    for layer in range(model.num_layers):
+        kind = int(model.is_sliding(layer))
+        yield layer, seen[kind]
+        seen[kind] += 1
+
+
+def _sliding_prefill(model: ModelConfig, hy, ring: int, q, k, v,
+                     rows: slice):
+    """A sliding layer's prefill: its last W keys and values into ring
+    ``ring`` at batch ``rows``, attention over the window by kernel C
+    (window W, no sink)."""
+    with prof.span(prof.SWA, q.device):
+        hy.write_prefill(ring, rows, k, v)
+        return sparse_prefill_splash(q, k.contiguous(), v.contiguous(),
+                                     model.sliding_window, 0)
+
+
+def _sliding_step(hy, ring: int, q, k, v, pos):
+    """A sliding layer's decode step at positions ``pos``: its key and
+    value at ring row ``pos % W``, then attention over the ring."""
+    with prof.span(prof.SWA, q.device):
+        hy.write_step(ring, pos, k, v)
+        return decode_attention_hm(q, hy.ring_k[ring], hy.ring_v[ring],
+                                   hy.valid(pos))
+
+
+def _routes(model: ModelConfig, hy, layer: int, batch_start=None):
+    """Where MoE layer ``layer`` hands its chosen experts: the step's
+    record, or with ``batch_start`` the prefill's of the rows that
+    ``hy.route_rows`` keeps; None on a dense layer."""
+    if not model.is_moe(layer):
+        return None
+    m = model.moe_layers.index(layer)
+    if batch_start is None:
+        return lambda top: hy.record_step(m, top)
+    if not hy.route_rows:
+        return None
+    return lambda top: hy.record_prefill(m, batch_start, top)
+
+
+def _one_token(model: ModelConfig, qn: int) -> None:
+    if model.sliding_layers and qn != 1:
+        raise ValueError("a model with sliding layers decodes one token a "
+                         "step")
 
 
 def check_layer_patterns(rt: RuntimeConfig, model: ModelConfig) -> None:
@@ -208,16 +298,22 @@ def prefill_full(
         x = wquant.take_rows(params.embed, input_ids, model.dtype)
         cos, sin = _tables(cos_table, sin_table, s)
     bs = slice(batch_start, batch_start + b)
-    for layer in range(model.num_layers):
+    hy = cache.hybrid
+    for layer, at in _layers(model):
         lp = params.layer(layer)
-        q, k_r, _, v = _layer_qkv(model, lp, x, cos, sin)
-        with prof.span(prof.STORE, x.device):
-            cache.k[layer, bs, :, :s] = k_r.transpose(1, 2)
-            cache.v[layer, bs, :, :s] = v.transpose(1, 2)
-        with prof.span(prof.ATTN, x.device):
-            ctx = prefill_attention(rt, layer, q, k_r.contiguous(),
-                                    v.contiguous(), sim)
-        x = _layer_tail(lp, model, x, ctx, tp)
+        q, k_r, _, v = _layer_qkv(model, lp, x,
+                                  *_rope_rows(model, layer, cos, sin))
+        if model.is_sliding(layer):
+            ctx = _sliding_prefill(model, hy, at, q, k_r, v, bs)
+        else:
+            with prof.span(prof.STORE, x.device):
+                cache.k[at, bs, :, :s] = k_r.transpose(1, 2)
+                cache.v[at, bs, :, :s] = v.transpose(1, 2)
+            with prof.span(prof.ATTN, x.device):
+                ctx = prefill_attention(rt, layer, q, k_r.contiguous(),
+                                        v.contiguous(), sim)
+        x = _layer_tail(lp, model, x, ctx, tp, static=False,
+                        record=_routes(model, hy, layer, batch_start))
     cache.length.fill_(s)
     return _finalize(model, params, x, tp)
 
@@ -232,25 +328,32 @@ def decode_full(
     tp=None,
 ) -> torch.Tensor:
     b, qn = tokens.shape
+    _one_token(model, qn)
+    hy = cache.hybrid
     with prof.span(prof.EMBED, tokens.device):
         x = wquant.take_rows(params.embed, tokens, model.dtype)
         start = cache.length
         cos, sin = _decode_tables(cos_table, sin_table, start, qn)
         rows = start.long() + torch.arange(qn, device=start.device)
         new_len = start + qn
-    for layer in range(model.num_layers):
+    for layer, at in _layers(model):
         lp = params.layer(layer)
-        q, k_r, _, v = _layer_qkv(model, lp, x, cos, sin)
-        with prof.span(prof.REFRESH, x.device):
-            cache.k[layer].index_copy_(2, rows, k_r.transpose(1, 2))
-            cache.v[layer].index_copy_(2, rows, v.transpose(1, 2))
-        # Attention over the whole max_length buffer, rows past new_len
-        # masked to exactly zero weight, as the JAX full decode does: the
-        # shapes stay those of every other step.
-        with prof.span(prof.ATTN, x.device):
-            ctx = decode_attention_hm(q, cache.k[layer], cache.v[layer],
-                                      new_len)
-        x = _layer_tail(lp, model, x, ctx, tp)
+        q, k_r, _, v = _layer_qkv(model, lp, x,
+                                  *_rope_rows(model, layer, cos, sin))
+        if model.is_sliding(layer):
+            ctx = _sliding_step(hy, at, q, k_r, v, start)
+        else:
+            with prof.span(prof.REFRESH, x.device):
+                cache.k[at].index_copy_(2, rows, k_r.transpose(1, 2))
+                cache.v[at].index_copy_(2, rows, v.transpose(1, 2))
+            # Attention over the whole max_length buffer, rows past new_len
+            # masked to exactly zero weight, as the JAX full decode does:
+            # the shapes stay those of every other step.
+            with prof.span(prof.ATTN, x.device):
+                ctx = decode_attention_hm(q, cache.k[at], cache.v[at],
+                                          new_len)
+        x = _layer_tail(lp, model, x, ctx, tp, record=_routes(model, hy,
+                                                               layer))
     logits = _finalize(model, params, x, tp)
     cache.length.add_(qn)
     return logits
@@ -265,7 +368,7 @@ def shadow_prefill_body(
     model: ModelConfig,
     cache: ShadowCache,
     layer: int,
-    lp: LayerParams,
+    lp: Block,
     x: torch.Tensor,
     cos: torch.Tensor,
     sin: torch.Tensor,
@@ -274,26 +377,35 @@ def shadow_prefill_body(
     rt: RuntimeConfig = _DENSE,
     tp=None,
     sim: "mi.SimShard | None" = None,
+    at: int | None = None,
 ) -> torch.Tensor:
     """One prefill layer (JAX ``make_shadow_prefill_body``): QKV + RoPE,
-    the layer's shadow-cache slices written into ``cache`` at (layer,
-    batch_start), the configured prefill attention, MLP. Returns the new
+    the layer's shadow-cache slices written into ``cache`` at (``at``,
+    default ``layer``; batch_start), the configured prefill attention,
+    MLP; a sliding layer fills its ring ``at`` instead. Returns the new
     residual. A host V store takes its rows by a synchronous copy from the
     card, so the layer's V rows are on the card only while it runs.
     ``sim`` as in ``prefill_attention``."""
-    q, k_r, k_pre, v = _layer_qkv(model, lp, x, cos, sin)
-    with prof.span(prof.LOWRANK, x.device):
-        slices = shadow_prefill_layer(
-            model, cache.layout, k_pre, k_r, v, q[:, -1:], omega=omega, tp=tp
-        )
+    at = layer if at is None else at
+    q, k_r, k_pre, v = _layer_qkv(model, lp, x,
+                                  *_rope_rows(model, layer, cos, sin))
     bs = slice(batch_start, batch_start + x.shape[0])
-    with prof.span(prof.STORE, x.device):
-        for name, val in slices.items():
-            getattr(cache, name)[layer, bs] = val
-    with prof.span(prof.ATTN, x.device):
-        ctx = prefill_attention(rt, layer, q, k_r.contiguous(),
-                                v.contiguous(), sim)
-    return _layer_tail(lp, model, x, ctx, tp)
+    if model.is_sliding(layer):
+        ctx = _sliding_prefill(model, cache.hybrid, at, q, k_r, v, bs)
+    else:
+        with prof.span(prof.LOWRANK, x.device):
+            slices = shadow_prefill_layer(
+                model, cache.layout, k_pre, k_r, v, q[:, -1:], omega=omega,
+                tp=tp)
+        with prof.span(prof.STORE, x.device):
+            for name, val in slices.items():
+                getattr(cache, name)[at, bs] = val
+        with prof.span(prof.ATTN, x.device):
+            ctx = prefill_attention(rt, layer, q, k_r.contiguous(),
+                                    v.contiguous(), sim)
+    return _layer_tail(lp, model, x, ctx, tp, static=False,
+                       record=_routes(model, cache.hybrid, layer,
+                                      batch_start))
 
 
 def prefill_shadow_into(
@@ -317,10 +429,10 @@ def prefill_shadow_into(
     with prof.span(prof.EMBED, input_ids.device):
         x = wquant.take_rows(params.embed, input_ids, model.dtype)
         cos, sin = _tables(cos_table, sin_table, s)
-    for layer in range(model.num_layers):
+    for layer, at in _layers(model):
         x = shadow_prefill_body(
             model, cache, layer, params.layer(layer), x, cos, sin,
-            batch_start, omega, rt, tp, sim,
+            batch_start, omega, rt, tp, sim, at,
         )
     return _finalize(model, params, x, tp)
 
@@ -350,24 +462,32 @@ def decode_shadow(
     (``decode_attention_segments``; JAX ``forward.py`` :604-677); the fused
     refresh ignores it (JAX :638-640)."""
     b, qn = tokens.shape
+    _one_token(model, qn)
+    hy = cache.hybrid
     with prof.span(prof.EMBED, tokens.device):
         x = wquant.take_rows(params.embed, tokens, model.dtype)
-        cos, sin = _decode_tables(cos_table, sin_table, cache.kv_len, qn)
-    for layer in range(model.num_layers):
+        pos = cache.kv_len  # the first new token's
+        cos, sin = _decode_tables(cos_table, sin_table, pos, qn)
+    for layer, at in _layers(model):
         lp = params.layer(layer)
-        q, k_r, _, v = _layer_qkv(model, lp, x, cos, sin)
-        k_view, v_view, valid_len = shadow_decode_layer(
-            model, cache, layer, q, k_r, v, inv_freq_full, hysteresis,
-            use_kernel=use_kernel, ring=ring, cos_table=cos_table,
-            sin_table=sin_table, debug_hit_rate=debug_hit_rate,
-            debug_hit_layout=debug_hit_layout, segmented=segmented,
-        )
-        with prof.span(prof.ATTN, x.device):
-            if v_view is None:
-                ctx = decode_attention_segments(q, k_view, valid_len)
-            else:
-                ctx = decode_attention_hm(q, k_view, v_view, valid_len)
-        x = _layer_tail(lp, model, x, ctx, tp)
+        q, k_r, _, v = _layer_qkv(model, lp, x,
+                                  *_rope_rows(model, layer, cos, sin))
+        if model.is_sliding(layer):
+            ctx = _sliding_step(hy, at, q, k_r, v, pos)
+        else:
+            k_view, v_view, valid_len = shadow_decode_layer(
+                model, cache, at, q, k_r, v, inv_freq_full, hysteresis,
+                use_kernel=use_kernel, ring=ring, cos_table=cos_table,
+                sin_table=sin_table, debug_hit_rate=debug_hit_rate,
+                debug_hit_layout=debug_hit_layout, segmented=segmented,
+            )
+            with prof.span(prof.ATTN, x.device):
+                if v_view is None:
+                    ctx = decode_attention_segments(q, k_view, valid_len)
+                else:
+                    ctx = decode_attention_hm(q, k_view, v_view, valid_len)
+        x = _layer_tail(lp, model, x, ctx, tp, record=_routes(model, hy,
+                                                               layer))
     logits = _finalize(model, params, x, tp)
     cache.gen_len.add_(qn)
     return logits

@@ -147,12 +147,83 @@ def phi3_mini(name: str, **kw) -> ModelConfig:
     )
 
 
+@register_model("k-exaone")
+def k_exaone_236b(name: str, **kw) -> ModelConfig:
+    """K-EXAONE-236B-A23B (LGAI-EXAONE/K-EXAONE-236B-A23B): 48 layers in
+    the pattern LLLG (window 128, RoPE; global layers NoPE), QK-norm,
+    post-norm blocks, layer 0 dense and 47 MoE layers of 128 experts, top
+    8, one shared. Its multi-token-prediction layer only drafts for
+    speculative decoding and is not served. ``held_experts`` gives a
+    device's share of an expert-parallel deployment."""
+    return ModelConfig(
+        name=name,
+        num_layers=48,
+        hidden_size=6144,
+        num_heads=64,
+        num_kv_heads=8,
+        head_dim=128,
+        intermediate_size=18432,
+        vocab_size=153600,
+        rope_theta=1000000.0,
+        rms_norm_eps=1e-5,
+        max_position_embeddings=262144,
+        layer_types=(("sliding_attention",) * 3 + ("full_attention",)) * 12,
+        sliding_window=128,
+        exaone4_block=True,
+        mlp_layer_types=("dense",) + ("sparse",) * 47,
+        moe_intermediate_size=2048,
+        num_experts=128,
+        num_experts_per_tok=8,
+        num_shared_experts=1,
+        routed_scaling_factor=2.5,
+        **kw,
+    )
+
+
+def _exaone_kw(hf: dict) -> dict:
+    """The hybrid keys of an EXAONE 4 / K-EXAONE ``config.json``: layer
+    kinds and window (global layers NoPE where a window exists), QK-norm,
+    the post-norm block, and the MoE block of ``exaone_moe`` (DeepSeek-V3's
+    sigmoid router; group routing is refused)."""
+    n = hf["num_hidden_layers"]
+    kw = dict(exaone4_block=True)
+    types = hf.get("layer_types")
+    if types is None and hf.get("sliding_window_pattern"):
+        pat = hf["sliding_window_pattern"]
+        types = ["sliding_attention" if pat[i % len(pat)] == "L"
+                 else "full_attention" for i in range(n)]
+    if types is not None and "sliding_attention" in types:
+        kw.update(layer_types=tuple(types),
+                  sliding_window=hf["sliding_window"])
+    rope = hf.get("rope_parameters") or {}
+    if "rope_theta" in rope:
+        kw["rope_theta"] = float(rope["rope_theta"])
+    if hf.get("num_experts"):
+        if hf.get("scoring_func", "sigmoid") != "sigmoid" or hf.get(
+                "n_group", 1) != 1 or hf.get("topk_group", 1) != 1:
+            raise ValueError("the port's router is the sigmoid router "
+                             "without expert groups")
+        mlp = hf.get("mlp_layer_types") or [
+            "dense" if i < hf.get("first_k_dense_replace", 0) else "sparse"
+            for i in range(n)]
+        kw.update(
+            mlp_layer_types=tuple(mlp),
+            moe_intermediate_size=hf["moe_intermediate_size"],
+            num_experts=hf["num_experts"],
+            num_experts_per_tok=hf["num_experts_per_tok"],
+            num_shared_experts=hf.get("num_shared_experts", 0),
+            routed_scaling_factor=float(hf.get("routed_scaling_factor", 1.0)),
+            norm_topk_prob=bool(hf.get("norm_topk_prob", True)))
+    return kw
+
+
 def config_from_hf_dir(model_dir: str, name: str | None = None,
                        **overrides) -> ModelConfig:
     """Build a ModelConfig from a local HF checkpoint's config.json (a plain
     JSON read, so any local checkpoint, tiny test models included, resolves
     without a registry entry): GLM's partial interleaved RoPE and bias,
-    Qwen2's qkv bias, and ``rope_scaling`` passed through."""
+    Qwen2's qkv bias, EXAONE's hybrid and MoE keys, and ``rope_scaling``
+    passed through."""
     with open(os.path.join(model_dir, "config.json")) as f:
         hf = json.load(f)
     arch = (hf.get("architectures") or [""])[0].lower()
@@ -178,6 +249,8 @@ def config_from_hf_dir(model_dir: str, name: str | None = None,
                   qkv_bias=hf.get("attention_bias", True))
     elif "qwen2" in arch:
         kw.update(qkv_bias=True)
+    elif "exaone" in arch or "exaone" in hf.get("model_type", ""):
+        kw.update(_exaone_kw(hf))
     kw.update(overrides)
     return ModelConfig(**kw)
 

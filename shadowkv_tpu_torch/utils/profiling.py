@@ -45,7 +45,12 @@ The names are the contract with the benchmark's readers
 their order inside a decode step, ``embed``, then per layer ``qkv``,
 ``select``, ``refresh``, ``attn``, ``tail``, then ``head`` and ``end``
 (5 L + 3 markers); inside a prefill's layer ``qkv``, ``lowrank``,
-``store``, ``attn``, ``tail``. The host spans of the engine's own work:
+``store``, ``attn``, ``tail``. A hybrid model (``core/moe.py``,
+``cache/hybrid.py``) adds ``swa`` (a sliding layer's ring and attention,
+in place of ``select``, ``refresh`` and ``attn``, or of ``lowrank``,
+``store`` and ``attn``) and, inside an MoE layer's ``tail``, ``route``
+(the router) and ``experts`` (the held and shared experts, to the layer's
+end). The host spans of the engine's own work:
 ``skv.prefill`` > ``skv.prefill.batch``; ``skv.decode.step`` >
 ``skv.decode.begin``, ``skv.decode.replay``, ``skv.decode.eager``,
 ``skv.graph.capture``; ``skv.kernels.build`` around the nvcc build.
@@ -68,9 +73,9 @@ DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 # Device phases, in the order of their marker kernels in csrc/spans.cu.
 PHASES = ("embed", "qkv", "select", "refresh", "attn", "tail", "head",
-          "lowrank", "store", "end")
+          "lowrank", "store", "end", "route", "experts", "swa")
 (EMBED, QKV, SELECT, REFRESH, ATTN, TAIL, HEAD, LOWRANK, STORE,
- END) = PHASES
+ END, ROUTE, EXPERTS, SWA) = PHASES
 MARKER = "skv_span_"  # + phase: a marker kernel's name in a trace
 # Host spans of the engine's own work.
 PREFILL = "skv.prefill"

@@ -34,7 +34,10 @@ the decode cells' buffer, S_new 4, G 7, head_dims 96 and 32, a tp rank's
 spilled to scratch); the check rejects P left unnormalised and a skipped
 key tile; the wrapper refuses f32 q and a non-contiguous buffer; and every
 graph path but the segmented ones launches it once per layer and step
-through the replays, never the plain version."""
+through the replays, never the plain version. Kernel A's no-RoPE branch
+(K-EXAONE's NoPE global layers) matches its plain version at that cell's
+shape, and K-EXAONE's hybrid step (rings, experts, ShadowKV on the global
+layers) replays as its eager steps run."""
 
 from __future__ import annotations
 
@@ -122,10 +125,10 @@ def _miss_lists(gen, b, kh, c, s):
     return compact_misses(asg.slot_ids, asg.stay_mask)
 
 
-def _refresh_case(gen, quant, style, cs, rank):
+def _refresh_case(gen, quant, style, cs, rank, kh=4):
     """Stores, buffers and miss lists of a two-layer refresh (layer 1 is
     refreshed), with the kwargs of sparse_refresh."""
-    l, b, kh, c, dh, s = 2, 2, 4, 64, 128, 16
+    l, b, c, dh, s = 2, 2, 64, 128, 16
     dev = "cuda"
     u = torch.randn(l, b, c * cs, rank, device=dev, generator=gen).bfloat16()
     v = torch.randn(l, b, kh, c * cs, dh, device=dev, generator=gen).bfloat16()
@@ -190,6 +193,22 @@ def test_refresh_kernel_matches_plain(gen, quant, style, cs, rank, host_v):
     assert (sparse_refresh.launches, sparse_refresh.host_launches) == (
         before[0] + 1, before[1] + int(host_v))
     assert _refresh_agrees(k_buf, v_buf, k_ref, v_ref) == (True, True)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_refresh_kernel_no_rope_matches_plain(gen, quant):
+    """Kernel A's no-RoPE branch (a NoPE layer's keys: K-EXAONE's global
+    layers) at the hybrid cell's shape, 8 KV heads, rank 160, chunk 8,
+    against its plain version; a rotating kernel fails the same check."""
+    args, k_buf, v_buf, kw = _refresh_case(gen, quant, "none", 8, 160, kh=8)
+    k_ref, v_ref = k_buf.clone(), v_buf.clone()
+    sparse_refresh_plain(1, *args, k_ref, v_ref, **kw)
+    k_neox, v_neox = k_buf.clone(), v_buf.clone()
+    sparse_refresh(1, *args, k_buf, v_buf, **kw)
+    sparse_refresh(1, *args, k_neox, v_neox, **dict(kw, rope_style="neox"))
+    torch.cuda.synchronize()
+    assert _refresh_agrees(k_buf, v_buf, k_ref, v_ref) == (True, True)
+    assert _refresh_agrees(k_neox, v_neox, k_ref, v_ref) == (False, True)
 
 
 @pytest.mark.parametrize("host_v", [False, True])
@@ -1027,3 +1046,72 @@ def test_training_step_card_equals_cpu(gen):
         assert rel_rms(a, b) <= 1e-4
     for a, b in zip(m_d, m_c):
         assert b.norm() > 0 and rel_rms(a, b) <= 1e-3
+
+
+def test_hybrid_engine_graph_steps_equal_eager_steps(gen):
+    """K-EXAONE's hybrid step on a toy bf16 engine at head_dim 128 (kernel
+    A's no-RoPE branch on the NoPE global layers, kernel C at window 128
+    and the rings on the sliding ones, B, the decode-attention kernel, the
+    masked expert pass): GRAPH_STEPS steps through the compiled step give
+    the eager steps' tokens and bit-equal cache state, rings and expert
+    choices included. The prefill's last-token logits lie within 5 % of
+    the logits' spread of the float32 plain reference that follows the
+    card's expert choices (bf16 activations over 9 post-norm layers read
+    ~1 %), and those choices are the reference's top experts up to
+    near-ties."""
+    import dataclasses
+
+    import numpy as np
+
+    from shadowkv_tpu_torch.config import CacheConfig, RuntimeConfig
+    from shadowkv_tpu_torch.core.layers import ModelParams
+    from shadowkv_tpu_torch.models.engine import Engine
+    import reference_k_exaone as ref
+    from test_torch_k_exaone import draw, ref_md, share, toy_model
+
+    md32 = toy_model(head_dim=128, hidden_size=256, sliding_window=128)
+    w = share(draw(md32, 0), md32.held)
+    md = dataclasses.replace(md32, dtype=torch.bfloat16)
+    keep = ("router", "e_bias")
+    wb = {k: v if not torch.is_tensor(v) else
+          (v if k in keep else v.bfloat16()).cuda() for k, v in w.items()}
+    cc = CacheConfig(mode="shadow", max_length=512, sparse_budget=128,
+                     rank=64, chunk_size=8, outlier_chunks=4, gen_capacity=32)
+    eng = Engine(md, cc, RuntimeConfig(use_pallas=True),
+                 ModelParams.from_tensors(wb, md), device="cuda")
+    ids = np.random.RandomState(0).randint(1, md.vocab_size, (2, 512))
+    eng.record_routes([0])
+    logits, cache = eng.prefill(ids)
+    tok = logits[:, -1].argmax(-1).int()
+    hy = cache.hybrid
+    names = ("k_buf", "v_buf", "cached_ids", "gen_len")
+    copy = dataclasses.replace(
+        cache, **{n: getattr(cache, n).clone() for n in names},
+        hybrid=dataclasses.replace(hy, ring_k=hy.ring_k.clone(),
+                                   ring_v=hy.ring_v.clone(),
+                                   route_ids=hy.route_ids.clone()))
+    eager, t = [], tok
+    for _ in range(GRAPH_STEPS):
+        t = eng._decode(copy, t[:, None])[:, -1].argmax(-1).int()
+        eager.append(t)
+    zeros = torch.zeros(GRAPH_STEPS, 2, dtype=torch.int32, device="cuda")
+    _, toks = eng.decode_chunk(cache, tok, zeros, zeros.bool())
+    assert torch.equal(toks, torch.stack(eager).cpu())
+    for n in names:
+        assert torch.equal(getattr(cache, n), getattr(copy, n)), n
+    for n in ("ring_k", "ring_v", "route_ids"):
+        assert torch.equal(getattr(hy, n), getattr(copy.hybrid, n)), n
+    assert len(eng._steps._graphs) == 1
+
+    routes = {m: hy.prefill_routes[m, 0].cpu()
+              for m in range(hy.prefill_routes.shape[0])}
+    w_card = {k: v.float().cpu() if torch.is_tensor(v) else v
+              for k, v in wb.items()}  # the card's (rounded) weights
+    want, info = ref.forward(ref_md(md32), w_card, torch.as_tensor(ids[0]),
+                             routes=routes)
+    err = float((logits[0, -1].float().cpu() - want[-1]).abs().max()
+                / want[-1].std())
+    assert err < 0.05, err
+    for m, chosen in routes.items():
+        assert ref.route_regret(info["scores"][m], w["e_bias"][m],
+                                chosen) < 0.05

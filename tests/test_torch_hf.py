@@ -133,11 +133,18 @@ def test_reader_equals_safe_open(tmp_path, layout):
 
 @pytest.mark.parametrize("fam", FAMILIES)
 def test_config_from_hf_dir_matches_jax(ckpts, fam):
+    """Every field the JAX config has reads the same; the port's own
+    fields (the hybrid layers and MoE of ``ModelConfig``) keep their
+    defaults, since none of these families has them."""
     path = ckpts[fam][0]
     jc = dataclasses.asdict(j_config(path, name="m"))
     tc = dataclasses.asdict(t_config(path, name="m"))
     jc.pop("dtype"), tc.pop("dtype")
+    own = {k: tc.pop(k) for k in set(tc) - set(jc)}
     assert tc == jc
+    defaults = {f.name: f.default for f in dataclasses.fields(type(
+        t_config(path, name="m"))) if f.name in own}
+    assert own == defaults and not t_config(path, name="m").is_hybrid
 
 
 def _leaves(params):
