@@ -60,7 +60,17 @@ to the CPU):
    as B, rejecting a skipped key tile; timed cycling 40 stacked layers
    (cold L2) against K and V read once, with SDPA as a yardstick only.
    The slice's runs below count its launches (once per layer and step,
-   none on the segmented path).
+   none on the segmented path). Then the selection kernel
+   (``kernels/select.py``: landmark scores, top-S and the slot-stable
+   assignment in one launch) at each decode cell's layer (C 4088, S 256,
+   B 8: glm4's bf16 table at 4 KV heads, Yi's int8 one with row scales,
+   K-EXAONE's bf16 one at 8 KV heads): its chosen sets equal the plain
+   version's outside near-ties and its assignment is
+   ``assign_slots_stable``'s for them bit for bit, a check shown to reject
+   the S-th chunk swapped for the (S+1)-th; timed cycling stacked layers
+   (cold L2) against the table read once, with the plain version beside
+   it. The slice's runs count its launches (once per ShadowKV layer and
+   step, none on the full cache), as does phase 19's slice.
 9. A toy bf16 engine on the card against the same engine on the CPU
    (plain kernel versions) for the four decode strategies (fused refresh,
    XLA-gather, and both over an offloaded V store), the full baseline and
@@ -264,7 +274,8 @@ to the CPU):
    step); kernel A's no-RoPE case runs in phase 4.
 
 ``python3 chip_smoke.py --k-exaone`` runs phases 1, 2, kernel A's cases of
-phase 4 and phase 19 alone.
+phase 4 and phase 19 alone; ``python3 chip_smoke.py --select`` runs phases
+1, 2, the SASS of phase 4 and phase 8's selection kernel alone.
 
 The line before the card line is a JSON object with every kernel's
 numbers; the last line is ``{"ok": true, "device": {...}}``.
@@ -700,6 +711,7 @@ SASS_KERNELS = {
     "A": ("refresh_kernelILb1ELi16E", "HMMA", "LDGSTS"),
     "decode attention": ("decode_attention_kernelILi128ELi1E", "HMMA",
                          "LDGSTS"),
+    "select": ("select_kernelILi128ELb0E", "HMMA", "LDGSTS"),
 }
 
 
@@ -1331,6 +1343,122 @@ def check_decode_attention(torch, evidence: str) -> dict:
     )
 
 
+# The decode cells' selection at one layer: (label, B, K, int8, layers
+# cycled for a cold L2). C 4088 and S 256 are the cells' (32K prompt, chunk
+# 8, 4 local and 48 outlier chunks, budget 2048), G 8 query heads a KV head.
+SELECT_SHAPES = (("glm4", 8, 4, False, 8), ("yi int8", 8, 4, True, 16),
+                 ("k-exaone", 8, 8, False, 4))
+SELECT_CHUNKS, SELECT_SETS, SELECT_GROUPS = 4088, 256, 8
+SELECT_TIE_TOL = 1e-6  # near-ties: plain probs within this of the S-th
+
+
+def select_agrees(torch, asg, probs, prev, s: int) -> bool:
+    """The kernel's chosen set (its slot ids) is S distinct chunks equal to
+    the plain top-S but at near-ties (plain probs within SELECT_TIE_TOL of
+    the S-th, relative), and its slot ids, stay flags and count are
+    ``assign_slots_stable``'s for that set, bit for bit."""
+    from shadowkv_tpu_torch.core.selection import assign_slots_stable
+
+    ids = asg.slot_ids.long()
+    if not bool(((ids >= 0) & (ids < probs.shape[-1])).all()):
+        return False
+    got = torch.zeros_like(probs, dtype=torch.bool).scatter_(-1, ids, True)
+    top = torch.topk(probs, s)
+    want = torch.zeros_like(got).scatter_(-1, top.indices, True)
+    t = top.values[..., -1:]
+    near = (probs - t).abs() <= SELECT_TIE_TOL * t
+    ref = assign_slots_stable(prev, asg.slot_ids)
+    return bool((got.sum(-1) == s).all()) \
+        and not bool(((got ^ want) & ~near).any()) \
+        and torch.equal(asg.slot_ids, ref.slot_ids) \
+        and torch.equal(asg.stay_mask, ref.stay_mask) \
+        and torch.equal(asg.stay_count, ref.stay_count)
+
+
+def check_select(torch, evidence: str) -> dict:
+    """The selection kernel against its plain version at each decode cell's
+    layer (SELECT_SHAPES): random bf16 queries and landmarks (int8 with f32
+    row scales for Yi), ~1.2 % outlier chunks, previous ids that overlap
+    the new choice (the plain selection for a nearby query). The check
+    (``select_agrees``) must pass the kernel and reject its output with the
+    S-th chunk swapped for the (S+1)-th. Timed by device time, each launch
+    reading the next of the stacked layers' tables (cold L2, as in a decode
+    step), against the table, its scales and mask read once; the plain
+    version beside it. Returns the kernel-table entry (glm4's shape)."""
+    from shadowkv_tpu_torch.core.quant import quantize_rows
+    from shadowkv_tpu_torch.core.selection import (
+        landmark_probs,
+        score_and_select,
+    )
+    from shadowkv_tpu_torch.kernels.select import (
+        plan,
+        select_slots,
+        select_slots_plain,
+    )
+    from shadowkv_tpu_torch.tools.time_refresh import cycle_layers, device_ms
+
+    c, s, g, dh = SELECT_CHUNKS, SELECT_SETS, SELECT_GROUPS, 128
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 29)
+    entry = None
+    for label, b, kh, int8, n_l in SELECT_SHAPES:
+        lm = torch.randn(n_l, b, kh, c, dh, device=DEVICE, generator=gen,
+                         dtype=torch.bfloat16)
+        scale = None
+        if int8:
+            lm, scale = quantize_rows(lm)
+        mask = torch.rand(b, kh, c, device=DEVICE, generator=gen) > 0.012
+        q = torch.randn(b, 1, kh * g, dh, device=DEVICE, generator=gen,
+                        dtype=torch.bfloat16).transpose(1, 2).reshape(
+                            b, kh, g, 1, dh)
+        near = (q.float() + torch.randn(q.shape, device=DEVICE,
+                                        generator=gen)).bfloat16()
+        sc0 = None if scale is None else scale[0]
+        prev = score_and_select(near, lm[0], mask, s, landmark_scale=sc0)
+        asg = select_slots(q, lm[0], mask, prev, s, landmark_scale=sc0)
+        probs = landmark_probs(q, lm[0], mask, sc0)
+        ok = select_agrees(torch, asg, probs, prev, s)
+        order = torch.argsort(probs[0, 0], descending=True)
+        swapped = asg.slot_ids.clone()
+        row = swapped[0, 0]
+        row[row == order[s - 1]] = order[s].int()
+        caught = not select_agrees(torch, asg._replace(slot_ids=swapped),
+                                   probs, prev, s)
+        stays = int(asg.stay_count.sum())
+        log(f"[select {label} B={b} K={kh} G={g} C={c} S={s}] agrees with "
+            f"the plain version: {ok} (near-tie tolerance {SELECT_TIE_TOL}); "
+            f"S-th swapped for the (S+1)-th rejected: {caught}; {stays} of "
+            f"{b * kh * s} slots stay; {plan(b, kh, g, c, s, dh, int8)}")
+        if not ok:
+            raise AssertionError(f"select {label}: kernel disagrees with its "
+                                 "plain version")
+        if not caught:
+            raise AssertionError(f"select {label}: the check misses the S-th "
+                                 "chunk swapped for the (S+1)-th")
+        ms = device_ms(cycle_layers(lambda lyr: select_slots(
+            q, lm[lyr], mask, prev, s,
+            landmark_scale=None if scale is None else scale[lyr]), n_l),
+            reps=4 * n_l, warmup=n_l)
+        plain_ms = device_ms(lambda: select_slots_plain(
+            q, lm[0], mask, prev, s, landmark_scale=sc0), reps=5)
+        nbytes = (lm[0].numel() * lm.element_size() + mask.numel()
+                  + (0 if sc0 is None else sc0.numel() * 4)
+                  + q.numel() * 2 + 2 * prev.numel() * 4 + prev.numel())
+        b_ms, b_by = bound(nbytes, 2 * b * kh * g * c * dh)
+        log(f"[select {label}] kernel_ms {ms:.4f} (device time, cold L2, "
+            f"cycling {n_l} layers) plain_ms {plain_ms:.4f} bound_ms "
+            f"{b_ms:.4f} ({b_by}: {nbytes} B) = {100 * b_ms / ms:.1f} % of "
+            f"the bound; {evidence}")
+        if entry is None:
+            entry = dict(
+                name="select_slots", route="cuda",
+                source="shadowkv_tpu_torch/csrc/select.cu", replaces=None,
+                launches=0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
+        del lm, scale
+        torch.cuda.empty_cache()
+    return entry
+
+
 # ---------------------------------------------------------------------------
 # K-EXAONE: the hybrid model's kernel shapes and its engine slice
 # ---------------------------------------------------------------------------
@@ -1467,9 +1595,9 @@ def run_k_exaone_slice(torch) -> dict:
     x 8 through ``Engine.prefill`` and the compiled ``decode_step``. The
     launches are counted from zero just before the prefill (B once per
     global layer and row, C once per sliding layer and row, nothing else)
-    and again just before K_EXAONE_STEPS replayed steps (A once per global
-    layer and step, decode attention once per layer and step, nothing
-    else); the caches hold only their layers."""
+    and again just before K_EXAONE_STEPS replayed steps (A and selection
+    once per global layer and step, decode attention once per layer and
+    step, nothing else); the caches hold only their layers."""
     import dataclasses
 
     import numpy as np
@@ -1477,6 +1605,7 @@ def run_k_exaone_slice(torch) -> dict:
     from shadowkv_tpu_torch.config import CacheConfig, RuntimeConfig
     from shadowkv_tpu_torch.core.layers import ModelParams
     from shadowkv_tpu_torch.kernels.decode_attention import decode_attention
+    from shadowkv_tpu_torch.kernels.select import select_slots
     from shadowkv_tpu_torch.models.engine import Engine
     from shadowkv_tpu_torch.models.registry import k_exaone_236b
 
@@ -1517,6 +1646,7 @@ def run_k_exaone_slice(torch) -> dict:
         tok, _ = eng.decode_step(cache, tok)
     _reset_counts(counters)
     attn_before = decode_attention.launches
+    select_before = select_slots.launches
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     toks = []
@@ -1527,9 +1657,11 @@ def run_k_exaone_slice(torch) -> dict:
     step_ms = (time.perf_counter() - t0) / K_EXAONE_STEPS * 1e3
     got = _read_counts(counters)
     got["decode_attention"] = decode_attention.launches - attn_before
+    got["select_slots"] = select_slots.launches - select_before
     _expect("k-exaone replayed steps", got,
             sparse_refresh=n_glob * K_EXAONE_STEPS,
-            decode_attention=n * K_EXAONE_STEPS)
+            decode_attention=n * K_EXAONE_STEPS,
+            select_slots=n_glob * K_EXAONE_STEPS)
     toks = torch.stack(toks)
     if eng._steps.captures != 2 or toks.min() < 0 \
             or toks.max() >= md.vocab_size:
@@ -1929,6 +2061,7 @@ def run_slice(torch, cfg, params, label: str, mode: str, rt_kw: dict,
 
     from shadowkv_tpu_torch.config import CacheConfig, RuntimeConfig
     from shadowkv_tpu_torch.kernels.decode_attention import decode_attention
+    from shadowkv_tpu_torch.kernels.select import select_slots
     from shadowkv_tpu_torch.models.engine import Engine
 
     cc = CacheConfig(**{**dict(mode=mode, max_length=prompt_len + 256,
@@ -1946,11 +2079,13 @@ def run_slice(torch, cfg, params, label: str, mode: str, rt_kw: dict,
     for fn, attr in counters.values():
         setattr(fn, attr, 0)
     attn_before = decode_attention.launches
+    select_before = select_slots.launches
     toks, stats = eng.batch_generate(ids, gen_len=GEN_LEN, temperature=0.0,
                                      warmup_steps=WARMUP_STEPS)
     launches = {name: getattr(fn, attr)
                 for name, (fn, attr) in counters.items()}
     attn_launches = decode_attention.launches - attn_before
+    select_launches = select_slots.launches - select_before
     peak = torch.cuda.max_memory_allocated()
     kv = eng.kv_stats()
     steps = cfg.num_layers * (GEN_LEN + WARMUP_STEPS)
@@ -1975,6 +2110,12 @@ def run_slice(torch, cfg, params, label: str, mode: str, rt_kw: dict,
         raise AssertionError(f"slice {label}: {attn_launches} decode "
                              f"attention launches, expected {want_attn}")
     launches["decode_attention"] = attn_launches
+    # selection: the kernel at every ShadowKV layer and step
+    want_select = 0 if mode == "full" else steps
+    if select_launches != want_select:
+        raise AssertionError(f"slice {label}: {select_launches} selection "
+                             f"launches, expected {want_select}")
+    launches["select_slots"] = select_launches
     cache = eng._cache
     tok = eng._steps.tok.clone()
     res = dict(
@@ -3740,7 +3881,7 @@ def _f32_layer(torch, cfg, params, mesh, axes: dict, rt_kw: dict):
     import dataclasses
 
     from shadowkv_tpu_torch.core import minference as mi
-    from shadowkv_tpu_torch.core.layers import LayerParams
+    from shadowkv_tpu_torch.core.layers import Block, LayerParams
     from shadowkv_tpu_torch.core.rope import compute_cos_sin
     from shadowkv_tpu_torch.models import forward as fw
     from shadowkv_tpu_torch.parallel import mesh as mesh_lib
@@ -3755,8 +3896,8 @@ def _f32_layer(torch, cfg, params, mesh, axes: dict, rt_kw: dict):
                                mesh)
 
     def f32(p):
-        return LayerParams(*(None if t is None else t[0].float()
-                             for t in p.layers))
+        return Block(*(None if t is None else t[0].float()
+                       for t in p.layers))
 
     s = PAR_F32_ROWS
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 41)
@@ -4730,7 +4871,7 @@ def check_shard_attention(torch, half) -> dict:
     return out
 
 
-def main(k_exaone_only: bool = False) -> int:
+def main(mode: str = "all") -> int:
     # The flex_attention yardstick compiles in this process (no compile
     # workers to stop) into the checkout's gitignored build directory.
     build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -4771,8 +4912,15 @@ def main(k_exaone_only: bool = False) -> int:
     evidence = kernel_evidence(so)
     for label, text in evidence.items():
         log(f"[kernel {label}] {text}")
+    if mode == "select":
+        check_select(torch, evidence["select"])
+        print(facts["smi"])
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": facts["name"],
+            "count": torch.cuda.device_count()}}))
+        return 0
     entries = {"sparse_refresh": check_refresh(torch, cfg, lay)}
-    if k_exaone_only:
+    if mode == "k-exaone":
         check_k_exaone_attention(torch)
         run_k_exaone_slice(torch)
         print(facts["smi"])
@@ -4792,6 +4940,7 @@ def main(k_exaone_only: bool = False) -> int:
         check_vs_kernels(torch, cfg, evidence)
     entries["decode_attention"] = check_decode_attention(
         torch, evidence["decode attention"])
+    entries["select_slots"] = check_select(torch, evidence["select"])
     check_k_exaone_attention(torch)
     k_exaone = run_k_exaone_slice(torch)
     check_toy_engine(torch)
@@ -4828,7 +4977,8 @@ def main(k_exaone_only: bool = False) -> int:
             "gather_chunks_host_v": "offload-ring",
             "sparse_prefill_attention": "stream",
             "vs_tile_attention": "vs-tile", "vs_sparse_attention": "vs-walk",
-            "gather_v_rows": "offload-host", "decode_attention": "shadow"}
+            "gather_v_rows": "offload-host", "decode_attention": "shadow",
+            "select_slots": "shadow"}
     for name, entry in entries.items():
         if name == "prefill_attention_offset":  # both ranks of sp2-gloo
             entry["launches"] = par["sp2-gloo"]["launches"][name]
@@ -4894,4 +5044,5 @@ if __name__ == "__main__":
     if len(sys.argv) == 5 and sys.argv[1] == "--parallel-rank":
         sys.exit(parallel_ranks(int(sys.argv[2]), int(sys.argv[3]),
                                 sys.argv[4]))
-    sys.exit(main(k_exaone_only=sys.argv[1:] == ["--k-exaone"]))
+    modes = {(): "all", ("--k-exaone",): "k-exaone", ("--select",): "select"}
+    sys.exit(main(modes[tuple(sys.argv[1:])]))

@@ -54,7 +54,6 @@ from shadowkv_tpu_torch.core import rope as rope_lib
 from shadowkv_tpu_torch.core.lowrank import lowrank_kv_factors
 from shadowkv_tpu_torch.core.quant import quantize_rows, quantize_store
 from shadowkv_tpu_torch.core.selection import (
-    assign_slots_stable,
     chunk_ids_to_positions,
     compact_misses,
     compute_landmarks_outliers,
@@ -62,6 +61,7 @@ from shadowkv_tpu_torch.core.selection import (
 )
 from shadowkv_tpu_torch.kernels.gather import gather_chunks, gather_v_rows
 from shadowkv_tpu_torch.kernels.reconstruct import sparse_refresh
+from shadowkv_tpu_torch.kernels.select import select_slots
 from shadowkv_tpu_torch.utils import profiling as prof
 
 
@@ -318,7 +318,8 @@ def shadow_decode_layer(
     segmented: bool = False,
 ):
     """One layer's cache update at decode: landmark selection (or the
-    forced ``debug_hit_rate`` ids) -> slot-stable assignment -> the sparse
+    forced ``debug_hit_rate`` ids) and the slot-stable assignment
+    (``kernels/select.py::select_slots``, one kernel on the card) -> the sparse
     region's refresh -> the new tokens appended to the gen region. Updates
     ``cache`` in place and returns (k_view, v_view, valid_len) with views
     [B, K, cap, Dh] and ``valid_len`` a device tensor shaped as
@@ -349,21 +350,18 @@ def shadow_decode_layer(
     b, qn, kh, dh = k_new.shape
     with prof.span(prof.SELECT, q.device):
         q_grouped = q.transpose(1, 2).reshape(b, kh, model.num_groups, qn, dh)
-        prev_ids = cache.cached_ids[layer]
-        new_ids = score_and_select(
+        # Forced ids replace the chosen set after the real scores are
+        # computed, so the step pays the selection's cost as a real one does.
+        asg = select_slots(
             q_grouped, cache.landmarks[layer], cache.landmark_mask[layer],
-            lo.select_sets,
+            cache.cached_ids[layer], lo.select_sets,
             landmark_scale=(None if cache.lm_scale is None
                             else cache.lm_scale[layer]),
-            resident_ids=prev_ids if hysteresis else None,
             hysteresis=hysteresis,
+            forced_ids=(None if debug_hit_rate is None else forced_ids(
+                lo, cache.gen_len, debug_hit_rate, debug_hit_layout,
+                q.device)),
         )
-        if debug_hit_rate is not None:
-            # The real scores above are computed and discarded, so the step
-            # pays the selection's cost as a real one does.
-            new_ids = forced_ids(lo, cache.gen_len, debug_hit_rate,
-                                 debug_hit_layout, q.device).expand_as(new_ids)
-        asg = assign_slots_stable(prev_ids, new_ids)
     with prof.span(prof.REFRESH, q.device):
         if use_kernel:
             mc, ms, cnt = compact_misses(asg.slot_ids, asg.stay_mask)

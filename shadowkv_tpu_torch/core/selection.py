@@ -49,27 +49,25 @@ def compute_landmarks_outliers(
     return LandmarkState(means.to(k_roped_ctx.dtype), mask, outlier_idx)
 
 
-def score_and_select(
+def landmark_probs(
     query: torch.Tensor,
     landmarks: torch.Tensor,
     landmark_mask: torch.Tensor,
-    select_sets: int,
     landmark_scale: torch.Tensor | None = None,
     resident_ids: torch.Tensor | None = None,
     hysteresis: float = 0.0,
 ) -> torch.Tensor:
-    """Score landmarks against the queries and return the top chunk ids.
-
-    Reference scoring: a fixed 1/sqrt(128) scale whatever head_dim is, an
-    f32 softmax over landmarks (outliers at -inf), a SUM over query
-    positions, then a MAX over the GQA group. ``landmark_scale`` [B, K, C]
-    (f32) rescales int8 landmark rows; ``hysteresis`` boosts chunks in
-    ``resident_ids`` [B, K, S] by a relative margin.
+    """Each chunk's selection prob (``score_and_select``'s before its top-k):
+    a fixed 1/sqrt(128) scale whatever head_dim is, an f32 softmax over
+    landmarks (outliers at -inf), a SUM over query positions, then a MAX
+    over the GQA group. ``landmark_scale`` [B, K, C] (f32) rescales int8
+    landmark rows; ``hysteresis`` boosts chunks in ``resident_ids``
+    [B, K, S] by a relative margin.
 
     Args:
       query: [B, K, G, Q, Dh]; landmarks: [B, K, C, Dh].
     Returns:
-      [B, K, select_sets] int32 chunk ids.
+      [B, K, C] f32.
     """
     scores = torch.einsum(
         "bkgqd,bkcd->bkgqc", query.float(), landmarks.float()
@@ -82,6 +80,22 @@ def score_and_select(
         res = torch.zeros_like(probs, dtype=torch.bool)
         res.scatter_(-1, resident_ids.long(), True)
         probs = probs * (1.0 + hysteresis * res.to(probs.dtype))
+    return probs
+
+
+def score_and_select(
+    query: torch.Tensor,
+    landmarks: torch.Tensor,
+    landmark_mask: torch.Tensor,
+    select_sets: int,
+    landmark_scale: torch.Tensor | None = None,
+    resident_ids: torch.Tensor | None = None,
+    hysteresis: float = 0.0,
+) -> torch.Tensor:
+    """Score landmarks against the queries (``landmark_probs``) and return
+    the top chunk ids, [B, K, select_sets] int32."""
+    probs = landmark_probs(query, landmarks, landmark_mask, landmark_scale,
+                           resident_ids, hysteresis)
     return torch.topk(probs, select_sets, dim=-1).indices.to(torch.int32)
 
 

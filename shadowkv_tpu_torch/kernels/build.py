@@ -34,7 +34,7 @@ PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
 SOURCES = ("refresh.cu", "prefill_attention.cu", "gather.cu", "vs_tile.cu",
-           "vs_sparse.cu", "spans.cu", "decode_attention.cu")
+           "vs_sparse.cu", "spans.cu", "decode_attention.cu", "select.cu")
 # included by the attention kernels (B, C, F, G)
 HEADERS = ("flash_sm90.cuh",)
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -69,6 +69,11 @@ _SIGNATURES = {
         _I
     ),
     "shadowkv_decode_attention_plan": ([_I] * 5 + [_P], _I),
+    "shadowkv_select": (
+        [_P] * 10 + [ctypes.c_longlong] * 5 + [_I] * 8
+        + [_P, ctypes.c_float, _P], _I
+    ),
+    "shadowkv_select_device": ([_P], _I),
     "shadowkv_span": ([_I, _P], _I),
     "shadowkv_graph_upload": ([_P, _P], _I),
 }

@@ -56,6 +56,7 @@ from shadowkv_tpu_torch.kernels import build
 from shadowkv_tpu_torch.kernels.decode_attention import decode_attention
 from shadowkv_tpu_torch.kernels.gather import gather_chunks, gather_v_rows
 from shadowkv_tpu_torch.kernels.reconstruct import sparse_refresh
+from shadowkv_tpu_torch.kernels.select import select_slots
 from shadowkv_tpu_torch.utils import profiling
 
 # (wrapper, counter attribute) of the kernels a decode step launches
@@ -63,6 +64,7 @@ COUNTERS = (
     (sparse_refresh, "launches"), (sparse_refresh, "host_launches"),
     (gather_chunks, "launches"), (gather_chunks, "host_launches"),
     (gather_v_rows, "launches"), (decode_attention, "launches"),
+    (select_slots, "launches"),
 )
 
 

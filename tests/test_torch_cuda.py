@@ -37,7 +37,17 @@ graph path but the segmented ones launches it once per layer and step
 through the replays, never the plain version. Kernel A's no-RoPE branch
 (K-EXAONE's NoPE global layers) matches its plain version at that cell's
 shape, and K-EXAONE's hybrid step (rings, experts, ShadowKV on the global
-layers) replays as its eager steps run."""
+layers) replays as its eager steps run. The selection kernel's chosen sets
+equal its plain version's outside near-ties (plain probs within
+SELECT_TIE_TOL = 1e-6 of the S-th, relative) and its slot assignment is
+``assign_slots_stable``'s for them bit for bit, at the three decode cells'
+layers (bf16 and int8 with row scales), tp shards of 2 and 1 KV heads,
+G * Q up to 32, head_dims 96 and 32, a 1M-context C whose scores spill to
+scratch, under hysteresis and forced ids; ties go in ascending id and never
+to an outlier; the check rejects the S-th chunk swapped for the (S+1)-th,
+one stay flag flipped and an outlier chosen; the wrapper refuses what the
+kernel does not take; and every ShadowKV graph path launches it once per
+layer and step through the replays, never the plain version."""
 
 from __future__ import annotations
 
@@ -53,7 +63,11 @@ from shadowkv_tpu_torch.core.minference import (
     vs_attention_reference,
 )
 from shadowkv_tpu_torch.core.quant import quantize_store
-from shadowkv_tpu_torch.core.selection import assign_slots_stable, compact_misses
+from shadowkv_tpu_torch.core.selection import (
+    assign_slots_stable,
+    compact_misses,
+    landmark_probs,
+)
 from shadowkv_tpu_torch.kernels.decode_attention import (
     decode_attention,
     decode_attention_plain,
@@ -695,6 +709,217 @@ def test_decode_attention_refuses_what_the_kernel_does_not_take(gen):
     torch.cuda.synchronize()
 
 
+# -- landmark selection (kernels/select.py) ---------------------------------
+
+# A chunk whose plain prob lies within SELECT_TIE_TOL of the S-th prob
+# (relative) is a near-tie that either side may take: the kernel's f32 sums
+# of the scores, the softmax's sums and the (max, sum) merge over the
+# cluster run in another order than the plain version's (cuBLAS, torch's
+# softmax), a few f32 ulps of each prob. Every other chunk is chosen by both
+# or by neither.
+SELECT_TIE_TOL = 1e-6
+
+# (B, K, G, Q, C, S, head_dim, int8)
+SELECT_CASES = {
+    "glm4": (8, 4, 8, 1, 4088, 256, 128, False),
+    "yi int8": (8, 4, 8, 1, 4088, 256, 128, True),
+    "k-exaone": (8, 8, 8, 1, 4088, 256, 128, False),
+    "tp2 K2": (8, 2, 8, 1, 4088, 256, 128, False),
+    "tp4 K1": (8, 1, 8, 1, 4088, 256, 128, False),
+    "G8 Q4": (2, 4, 8, 4, 4088, 256, 128, False),
+    "G7 Q3 dh96": (2, 2, 7, 3, 1000, 64, 96, True),
+    "toy dh32": (2, 2, 2, 1, 24, 8, 32, False),
+    "past smem": (1, 4, 8, 1, 131064, 2048, 128, True),
+}
+
+
+def _select_case(gen, b, kh, g, qn, c, s, dh, int8):
+    """q as the decode layer passes it (a view of [B, Q, H, Dh]), random
+    landmarks (int8 with row scales), ~5 % outliers, and previous ids that
+    overlap the new choice: the plain selection for a nearby query."""
+    from shadowkv_tpu_torch.core.quant import quantize_rows
+    from shadowkv_tpu_torch.core.selection import score_and_select
+
+    q_flat = torch.randn(b, qn, kh * g, dh, device="cuda", generator=gen)
+    q = q_flat.bfloat16().transpose(1, 2).reshape(b, kh, g, qn, dh)
+    lm = torch.randn(b, kh, c, dh, device="cuda", generator=gen).bfloat16()
+    scale = None
+    if int8:
+        lm, scale = quantize_rows(lm)
+    mask = torch.rand(b, kh, c, device="cuda", generator=gen) > 0.05
+    near = q.float() + torch.randn(q.shape, device="cuda", generator=gen)
+    prev = score_and_select(near.bfloat16(), lm, mask, s,
+                            landmark_scale=scale)
+    return q, lm, mask, prev, scale
+
+
+def _selection_agrees(asg, probs, prev, s, forced=None) -> bool:
+    """The kernel's chosen set (its slot ids) is S distinct chunks equal to
+    the plain top-S outside near-ties (or to the forced ids), and its slot
+    ids, stay flags and count are ``assign_slots_stable``'s for that set,
+    bit for bit."""
+    ids = asg.slot_ids.long()
+    c = probs.shape[-1]
+    if not bool(((ids >= 0) & (ids < c)).all()):
+        return False
+    got = torch.zeros_like(probs, dtype=torch.bool).scatter_(-1, ids, True)
+    if not bool((got.sum(-1) == s).all()):
+        return False
+    if forced is not None:
+        want = torch.zeros_like(got).scatter_(
+            -1, forced.long().expand_as(ids), True)
+        ok = torch.equal(got, want)
+    else:
+        top = torch.topk(probs, s)
+        want = torch.zeros_like(got).scatter_(-1, top.indices, True)
+        t = top.values[..., -1:]
+        near = (probs - t).abs() <= SELECT_TIE_TOL * t
+        ok = not bool(((got ^ want) & ~near).any())
+    ref = assign_slots_stable(prev, asg.slot_ids)
+    return ok and torch.equal(asg.slot_ids, ref.slot_ids) \
+        and torch.equal(asg.stay_mask, ref.stay_mask) \
+        and torch.equal(asg.stay_count, ref.stay_count)
+
+
+@pytest.mark.parametrize("name", sorted(SELECT_CASES))
+def test_select_kernel_matches_plain(gen, name):
+    """The chosen sets equal the plain version's outside near-ties, the
+    assignment is bit-equal for them, a second call gives the same bits,
+    and each call is one launch."""
+    from shadowkv_tpu_torch.kernels.select import select_slots
+
+    b, kh, g, qn, c, s, dh, int8 = SELECT_CASES[name]
+    q, lm, mask, prev, scale = _select_case(gen, *SELECT_CASES[name])
+    before = select_slots.launches
+    asg = select_slots(q, lm, mask, prev, s, landmark_scale=scale)
+    again = select_slots(q, lm, mask, prev, s, landmark_scale=scale)
+    torch.cuda.synchronize()
+    assert select_slots.launches == before + 2
+    for a, b_ in zip(asg, again):
+        assert torch.equal(a, b_)
+    probs = landmark_probs(q, lm, mask, scale)
+    assert _selection_agrees(asg, probs, prev, s)
+    assert 0 < int(asg.stay_count.sum()) < asg.stay_mask.numel()
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("kind", ["hysteresis", "forced"])
+def test_select_kernel_hysteresis_and_forced_ids(gen, kind, int8):
+    """At the glm4 cell's shape: hysteresis 0.3 on the previous ids, and
+    forced ids (the benchmark-only ``debug_hit_rate`` window) in place of
+    the chosen set; forced, the outputs equal the plain version's bit for
+    bit."""
+    from shadowkv_tpu_torch.cache.shadow import ShadowLayout
+    from shadowkv_tpu_torch.cache.shadow import forced_ids as make_forced
+    from shadowkv_tpu_torch.config import CacheConfig
+    from shadowkv_tpu_torch.kernels.select import (
+        select_slots,
+        select_slots_plain,
+    )
+
+    b, kh, g, qn, c, s, dh, _ = SELECT_CASES["glm4"]
+    q, lm, mask, prev, scale = _select_case(gen, b, kh, g, qn, c, s, dh, int8)
+    hyst, forced = 0.0, None
+    if kind == "hysteresis":
+        hyst = 0.3
+    else:
+        lay = ShadowLayout.build(CacheConfig(
+            mode="shadow", sparse_budget=2048, chunk_size=8, local_chunks=4,
+            outlier_chunks=48), 32768)
+        assert (lay.chunks, lay.select_sets) == (c, s)
+        forced = make_forced(lay, torch.tensor(5, device="cuda"), 0.6,
+                             "scatter", "cuda")
+    asg = select_slots(q, lm, mask, prev, s, landmark_scale=scale,
+                       hysteresis=hyst, forced_ids=forced)
+    torch.cuda.synchronize()
+    probs = landmark_probs(q, lm, mask, scale, prev, hyst)
+    assert _selection_agrees(asg, probs, prev, s, forced)
+    if forced is not None:
+        ref = select_slots_plain(q, lm, mask, prev, s, landmark_scale=scale,
+                                 forced_ids=forced)
+        for a, b_ in zip(asg, ref):
+            assert torch.equal(a, b_)
+
+
+@pytest.mark.parametrize("fault", ["swap S-th", "stay flipped", "outlier"])
+def test_select_check_rejects_a_planted_fault(gen, fault):
+    """At the glm4 cell's shape the check passes the kernel and fails its
+    output with the S-th chunk swapped for the (S+1)-th, one stay flag
+    flipped, or an outlier chunk in place of a chosen one."""
+    from shadowkv_tpu_torch.kernels.select import select_slots
+
+    b, kh, g, qn, c, s, dh, int8 = SELECT_CASES["glm4"]
+    q, lm, mask, prev, scale = _select_case(gen, *SELECT_CASES["glm4"])
+    asg = select_slots(q, lm, mask, prev, s, landmark_scale=scale)
+    probs = landmark_probs(q, lm, mask, scale)
+    assert _selection_agrees(asg, probs, prev, s)
+    slot_ids, stay = asg.slot_ids.clone(), asg.stay_mask.clone()
+    row = slot_ids[0, 0]
+    if fault == "swap S-th":
+        order = torch.argsort(probs[0, 0], descending=True)
+        row[row == order[s - 1]] = order[s].int()
+    elif fault == "stay flipped":
+        stay[0, 0, 0] = ~stay[0, 0, 0]
+    else:
+        row[0] = torch.nonzero(~mask[0, 0])[0, 0].int()
+    bad = asg._replace(slot_ids=slot_ids, stay_mask=stay)
+    assert not _selection_agrees(bad, probs, prev, s)
+
+
+def test_select_kernel_tie_rule(gen):
+    """Exact ties: chunks of equal prob are taken in ascending id, and an
+    outlier (prob 0) is never taken over an unmasked chunk whose prob
+    underflowed to 0. Ten chunks hold the weight, the other unmasked ones
+    underflow, the ids below `lo` are outliers: S 20 takes the ten and ids
+    lo .. lo + 9. At C 4088 the ranges are split over a cluster of 8 CTAs
+    of 512 chunks, and the ties cross from the second CTA into the third."""
+    from shadowkv_tpu_torch.kernels.select import plan, select_slots
+
+    for c, lo in ((300, 100), (4088, 1020)):
+        b, kh, g, dh, s = 2, 2, 4, 128, 20
+        v = torch.ones(dh, device="cuda")
+        q = (8 * v).expand(b, kh, g, 1, dh).bfloat16()
+        lm = (-8 * v).expand(b, kh, c, dh).clone()
+        lm[:, :, c - 50:c - 40] = 8 * v
+        lm = lm.bfloat16()
+        mask = torch.ones(b, kh, c, dtype=torch.bool, device="cuda")
+        mask[:, :, :lo] = False
+        prev = torch.arange(s, dtype=torch.int32, device="cuda").expand(
+            b, kh, s).contiguous()
+        asg = select_slots(q, lm, mask, prev, s)
+        torch.cuda.synchronize()
+        want = list(range(lo, lo + 10)) + list(range(c - 50, c - 40))
+        for row in asg.slot_ids.reshape(-1, s):
+            assert sorted(row.tolist()) == want
+        if c == 4088:
+            p = plan(b, kh, g, c, s, dh, False)
+            assert (p.cluster, p.per) == (8, 512)
+
+
+def test_select_refuses_what_the_kernel_does_not_take(gen):
+    """f32 q, a non-contiguous table, head_dim 40, int64 previous ids,
+    forced ids of another shape and S above C raise; the well-formed call
+    runs."""
+    from shadowkv_tpu_torch.kernels.select import select_slots
+
+    q, lm, mask, prev, _ = _select_case(gen, 2, 2, 4, 1, 300, 16, 128, False)
+    with pytest.raises(ValueError, match="bf16"):
+        select_slots(q.float(), lm, mask, prev, 16)
+    with pytest.raises(ValueError, match="contiguous"):
+        select_slots(q, lm[:, :, :200], mask[:, :, :200], prev, 16)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        select_slots(q[..., :40], lm[..., :40].contiguous(), mask, prev, 16)
+    with pytest.raises(ValueError, match="int32"):
+        select_slots(q, lm, mask, prev.long(), 16)
+    with pytest.raises(ValueError, match="forced_ids"):
+        select_slots(q, lm, mask, prev, 16,
+                     forced_ids=prev[0].contiguous())
+    with pytest.raises(ValueError, match="select_sets"):
+        select_slots(q, lm, mask, prev, 301)
+    select_slots(q, lm, mask, prev, 16)
+    torch.cuda.synchronize()
+
+
 # -- the compiled decode step (CUDA graphs) on a toy bf16 engine ------------
 
 # path -> (cache mode, runtime settings, the decode kernel's counters)
@@ -820,6 +1045,29 @@ def test_decode_attention_launches_through_replays(gen, path, monkeypatch):
     launched = decode_attention.launches - before
     segmented = GRAPH_PATHS[path][1].get("decode_segmented", False)
     assert launched == (0 if segmented
+                        else eng.model.num_layers * (GRAPH_STEPS + 2))
+    assert len(eng._steps._graphs) == 1
+
+
+@pytest.mark.parametrize("path", sorted(GRAPH_PATHS))
+def test_select_launches_through_replays(gen, path, monkeypatch):
+    """batch_generate's selection counted through the graph's replays: one
+    kernel launch per layer and step on every ShadowKV path (none on the
+    full cache), and no call of the plain version."""
+    from shadowkv_tpu_torch.kernels.select import select_slots
+
+    def plain(*args, **kwargs):
+        raise AssertionError("a CUDA call reached select_slots_plain")
+
+    monkeypatch.setattr("shadowkv_tpu_torch.kernels.select."
+                        "select_slots_plain", plain)
+    eng, ids = _path_engine(path)
+    before = select_slots.launches
+    eng.batch_generate(ids, gen_len=GRAPH_STEPS, temperature=0.0,
+                       warmup_steps=2)
+    launched = select_slots.launches - before
+    full = GRAPH_PATHS[path][0] == "full"
+    assert launched == (0 if full
                         else eng.model.num_layers * (GRAPH_STEPS + 2))
     assert len(eng._steps._graphs) == 1
 
